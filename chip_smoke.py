@@ -1,0 +1,660 @@
+"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed S] [--n N] [--centres C] [--phases P]
+
+Phases:
+
+  build    compile the four CUDA kernels of ``src/repro_torch/kernels/csrc``
+           with nvcc into ``build/`` (one nvcc per source, all at once);
+  kernels  run each kernel against its plain PyTorch version on the card at
+           the main path's shapes, on integer-valued inputs (must be equal)
+           and Gaussian ones (stated tolerance), and time kernel, plain
+           version and, where one PyTorch call computes the same function,
+           that call;
+  parity   a small system on the CPU (plain versions) and on the card
+           (kernels) from integer data: results must be equal;
+  main     bootstrap_system -> streaming inserts with RW->RO rollover ->
+           deletes -> search_batch at the freshdiskann-1b per-chip shape,
+           with launch counts, recall against brute force, self-hits and no
+           deleted id returned.
+  profile  (only when named) torch.profiler over one search micro-batch
+           and one flush after the main path: device busy share and
+           kernel time by name.
+
+P (the phases) defaults to build,kernels,parity,main.
+Prints diagnostics, then the card's name and power limit, then one JSON
+line of kernel records, and last ``{"ok": true, "device": {...}}``.  Exits
+non-zero, with no result line, if any phase fails or there is no card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+KERNEL_META = {
+    "l2_rows": ("src/repro_torch/kernels/csrc/l2_rows.cu",
+                "src/repro/kernels/l2_distance.py:50"),
+    "adc_rows": ("src/repro_torch/kernels/csrc/adc_rows.cu",
+                 "src/repro/kernels/pq_adc.py:50"),
+    "frontier_select": ("src/repro_torch/kernels/csrc/frontier_select.cu",
+                        "src/repro/kernels/frontier_select.py:112"),
+    "robust_prune_fp": ("src/repro_torch/kernels/csrc/robust_prune_fp.cu",
+                        "src/repro/kernels/robust_prune.py:150"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise PhaseError(msg)
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds of ``fn()`` over ``iters`` calls (CUDA
+    events around the whole run, after ``warmup`` calls)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    tb = n_bytes / HBM_BYTES_PER_S * 1e3
+    tf = n_flops / FP32_FLOP_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+# --------------------------------------------------------------- phase 1
+def phase_build() -> float:
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    build.build_all()
+    secs = time.perf_counter() - t0
+    for name in build.SIGNATURES:
+        build.library(name)
+    log(f"[build] nvcc -> {build.BUILD_DIR}: {secs:.2f} s "
+        f"(per source {json.dumps({k: round(v, 2) for k, v in build.build_seconds.items()})})")
+    return secs
+
+
+def gpu_identity() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------- phase 2
+def _frontier_inputs(g, B, L, K, V, W, integer: bool, dev):
+    """Engine-consistent frontier_select rows: a sorted candidate list with
+    an INVALID tail, fresh neighbours with masked lanes, a visited set
+    drawn from the candidates with vis_cnt == occupancy.  ``integer``
+    draws distances from a few small integers, so ties are everywhere."""
+    import torch
+    rows = []
+    for _ in range(4):                      # 4 templates tiled over B rows
+        ncand = int(g.integers(1, L + 1))
+        nnew = int(g.integers(0, K + 1))
+        pool = g.permutation(1 << 20)[:ncand + nnew].astype(np.int32)
+        draw = ((lambda n: g.integers(0, 8, n).astype(np.float32)) if integer
+                else (lambda n: g.random(n).astype(np.float32)))
+        ci = np.full(L, -1, np.int32)
+        cd = np.full(L, np.inf, np.float32)
+        ci[:ncand] = pool[:ncand]
+        cd[:ncand] = np.sort(draw(ncand))
+        ni = np.full(K, -1, np.int32)
+        nd = np.full(K, np.inf, np.float32)
+        ni[:nnew] = pool[ncand:]
+        nd[:nnew] = draw(nnew)
+        vi = np.full(V, -1, np.int32)
+        vd = np.full(V, np.inf, np.float32)
+        nvis = min(ncand // 2, V - 1)
+        taken = g.permutation(ncand)[:nvis]
+        vi[:nvis] = ci[taken]
+        vd[:nvis] = cd[taken]
+        rows.append((ci, cd, ni, nd, vi, vd, np.int32(nvis)))
+    reps = -(-B // 4)
+    cols = [np.stack([r[i] for r in rows] * reps)[:B] for i in range(7)]
+    return tuple(torch.from_numpy(np.ascontiguousarray(c)).to(dev)
+                 for c in cols)
+
+
+def _prune_inputs(g, B, C, d, integer: bool, dev):
+    import torch
+    if integer:
+        vecs = g.integers(-3, 4, (B, C, d)).astype(np.float32)
+        anchor = g.integers(-3, 4, (B, 1, d)).astype(np.float32)
+    else:
+        vecs = g.standard_normal((B, C, d)).astype(np.float32)
+        anchor = g.standard_normal((B, 1, d)).astype(np.float32)
+    ids = g.integers(0, 1 << 21, (B, C)).astype(np.int32)
+    ids[:, C // 2:C // 2 + C // 8] = ids[:, :C // 8]          # duplicates
+    ids[g.random((B, C)) < 0.05] = -1
+    ok = (ids >= 0) & (g.random((B, C)) > 0.1)
+    d_p = ((anchor - vecs) ** 2).sum(-1).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(dev) for x in (d_p, vecs, ids, ok))
+
+
+def prune_work(d_p, vecs, ok, alpha, R) -> int:
+    """Candidate-cover evaluations the prune rounds need on these inputs
+    (alive candidates summed over the rounds that find a winner)."""
+    import torch
+    inf = torch.tensor(float("inf"), device=d_p.device)
+    dp = torch.where(ok, d_p, inf)
+    alive = ok & torch.isfinite(dp)
+    rows = torch.arange(d_p.shape[0], device=d_p.device)
+    cols = torch.arange(d_p.shape[1], device=d_p.device)[None]
+    total = 0
+    for _ in range(R):
+        masked = torch.where(alive, dp, inf)
+        star = masked.argmin(1)
+        okr = torch.isfinite(masked[rows, star])
+        total += int((alive & okr[:, None]).sum())
+        diff = vecs[rows, star][:, None, :] - vecs
+        cov = alpha * (diff * diff).sum(-1) <= dp
+        alive = alive & ~cov & (cols != star[:, None]) & okr[:, None]
+    return total
+
+
+def phase_kernels(seed: int, n_table: int) -> dict:
+    import torch
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    g = np.random.default_rng(seed)
+    recs = {}
+
+    def record(name, *, err, ms, plain_ms, nbytes, nflops, library_ms,
+               shape):
+        b, by = bound_ms(nbytes, nflops)
+        recs[name] = dict(name=name, route="cuda",
+                          source=KERNEL_META[name][0],
+                          replaces=KERNEL_META[name][1], launches=0,
+                          max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                          bound_ms=b, bound_by=by, library_ms=library_ms,
+                          shape=shape)
+
+    # ---- l2_rows: B 1024, K 256 (W*R) and K 100 (rerank), d 128 --------
+    d = 128
+    table_int = torch.from_numpy(
+        g.integers(-4, 5, (n_table, d)).astype(np.float32)).to(dev)
+    table = torch.randn(n_table, d, device=dev,
+                        generator=torch.Generator(dev).manual_seed(seed))
+    for K in (256, 100):
+        B = 1024
+        ids_np = g.integers(0, n_table, (B, K)).astype(np.int32)
+        ids_np[g.random((B, K)) < 0.1] = -1
+        ids = torch.from_numpy(ids_np).to(dev)
+        qi = torch.from_numpy(g.integers(-4, 5, (B, d)).astype(np.float32)
+                              ).to(dev)
+        got = ops.l2_rows(qi, table_int, ids)
+        want = ref.l2_rows_ref(qi, table_int, ids)
+        check(torch.equal(got, want), f"l2_rows K={K}: integer inputs differ")
+        q = torch.from_numpy(g.standard_normal((B, d)).astype(np.float32)
+                             ).to(dev)
+        got = ops.l2_rows(q, table, ids)
+        want = ref.l2_rows_ref(q, table, ids)
+        fin = torch.isfinite(want)
+        check(torch.equal(fin, torch.isfinite(got)), "l2_rows: inf lanes")
+        err = (got[fin] - want[fin]).abs()
+        # rtol 1e-5 on the value, atol 1e-3 for the cancellation of
+        # |q|^2 + |x|^2 (about 256 here) in the norm identity.
+        check(bool((err <= 1e-5 * want[fin].abs() + 1e-3).all()),
+              f"l2_rows K={K}: max err {float(err.max())}")
+        ms = time_ms(lambda: ops.l2_rows(q, table, ids))
+        plain = time_ms(lambda: ref.l2_rows_ref(q, table, ids))
+        gathered = table[ids.clamp(min=0).long()]
+        lib = time_ms(lambda: torch.cdist(q[:, None, :], gathered))
+        nbytes = B * K * d * 4 + B * d * 4 + B * K * 4 * 2
+        log(f"[kernels] l2_rows B={B} K={K} d={d}: max_abs_err "
+            f"{float(err.max()):.3g}  kernel {ms:.4f} ms  plain {plain:.4f} "
+            f"ms  cdist(gathered) {lib:.4f} ms  bound "
+            f"{bound_ms(nbytes, 4.0 * B * K * d)[0]:.4f} ms")
+        if K == 256:
+            record("l2_rows", err=err.max(), ms=ms, plain_ms=plain,
+                   nbytes=nbytes, nflops=4.0 * B * K * d, library_ms=lib,
+                   shape=f"B={B} K={K} d={d} N={n_table}")
+    del table_int
+
+    # ---- adc_rows: B 1024, K 256, m 32, ksub 256 -------------------------
+    B, K, m, ksub = 1024, 256, 32, 256
+    codes = torch.from_numpy(g.integers(0, ksub, (n_table, m)).astype(
+        np.uint8)).to(dev)
+    ids_np = g.integers(0, n_table, (B, K)).astype(np.int32)
+    ids_np[g.random((B, K)) < 0.1] = -1
+    ids = torch.from_numpy(ids_np).to(dev)
+    luts_i = torch.from_numpy(g.integers(0, 50, (B, m, ksub)).astype(
+        np.float32)).to(dev)
+    check(torch.equal(ops.adc_rows(luts_i, codes, ids),
+                      ref.adc_rows_ref(luts_i, codes, ids)),
+          "adc_rows: integer inputs differ")
+    luts = torch.from_numpy((g.standard_normal((B, m, ksub)) ** 2).astype(
+        np.float32)).to(dev)
+    got = ops.adc_rows(luts, codes, ids)
+    want = ref.adc_rows_ref(luts, codes, ids)
+    fin = torch.isfinite(want)
+    check(torch.equal(fin, torch.isfinite(got)), "adc_rows: inf lanes")
+    err = (got[fin] - want[fin]).abs()
+    check(bool((err <= 1e-5 * want[fin].abs() + 1e-6).all()),
+          f"adc_rows: max err {float(err.max())}")
+    ms = time_ms(lambda: ops.adc_rows(luts, codes, ids))
+    plain = time_ms(lambda: ref.adc_rows_ref(luts, codes, ids))
+    nbytes = B * m * ksub * 4 + B * K * m + B * K * 4 * 2
+    log(f"[kernels] adc_rows B={B} K={K} m={m} ksub={ksub}: max_abs_err "
+        f"{float(err.max()):.3g}  kernel {ms:.4f} ms  plain {plain:.4f} ms")
+    record("adc_rows", err=err.max(), ms=ms, plain_ms=plain, nbytes=nbytes,
+           nflops=float(B * K * m), library_ms=None,
+           shape=f"B={B} K={K} m={m} ksub={ksub} N={n_table}")
+    del codes
+
+    # ---- frontier_select: B 1024, L 100, K 256, V 166, W 4 --------------
+    B, L, K, V, W = 1024, 100, 256, 166, 4
+    for integer in (True, False):
+        args = _frontier_inputs(g, B, L, K, V, W, integer, dev)
+        got = ops.frontier_select(*args, W=W, max_visits=V)
+        want = ref.frontier_select_batch_ref(*args, W=W, max_visits=V)
+        for gt, wt, nm in zip(got, want, ["m_ids", "m_d", "f_ids", "f_d",
+                                          "vis_ids", "vis_d", "vis_cnt"]):
+            check(gt.dtype == wt.dtype and torch.equal(gt, wt),
+                  f"frontier_select ({'integer' if integer else 'uniform'}"
+                  f" distances): {nm} differs")
+    ms = time_ms(lambda: ops.frontier_select(*args, W=W, max_visits=V))
+    plain = time_ms(lambda: ref.frontier_select_batch_ref(
+        *args, W=W, max_visits=V))
+    nbytes = B * ((2 * (L + K) + 2 * V + 1) * 4
+                  + (2 * L + 2 * W + 2 * V + 1) * 4)
+    log(f"[kernels] frontier_select B={B} L={L} K={K} V={V} W={W}: "
+        f"bit-identical  kernel {ms:.4f} ms  plain {plain:.4f} ms")
+    record("frontier_select", err=0.0, ms=ms, plain_ms=plain, nbytes=nbytes,
+           nflops=0.0, library_ms=None, shape=f"B={B} L={L} K={K} V={V} W={W}")
+
+    # ---- robust_prune_fp: insert (B 256, C 203) and Delta (B 1024, C 128)
+    d, R, alpha = 128, 64, 1.2
+    for B, C, tag in ((256, 203, "insert"), (1024, 128, "back-edge")):
+        a = _prune_inputs(g, B, C, d, True, dev)
+        go, gc = ops.robust_prune_fp(*a, alpha=alpha, R=R)
+        wo, wc = ref.robust_prune_fp_ref(*a, alpha=alpha, R=R)
+        check(torch.equal(go, wo) and torch.equal(gc, wc),
+              f"robust_prune_fp {tag}: integer inputs differ")
+        a = _prune_inputs(g, B, C, d, False, dev)
+        go, gc = ops.robust_prune_fp(*a, alpha=alpha, R=R)
+        wo, wc = ref.robust_prune_fp_ref(*a, alpha=alpha, R=R)
+        n_diff = int((go != wo).any(1).sum())
+        # Cover sums are taken in another order than the plain version's,
+        # so a near-tie alpha test may flip: at most 0.1 % of rows.
+        check(n_diff <= 0.001 * B, f"robust_prune_fp {tag}: {n_diff} of {B}"
+              " rows differ")
+        ms = time_ms(lambda: ops.robust_prune_fp(*a, alpha=alpha, R=R))
+        plain = time_ms(lambda: ref.robust_prune_fp_ref(*a, alpha=alpha,
+                                                        R=R), iters=3)
+        work = prune_work(a[0], a[1], a[3], alpha, R)
+        nbytes = B * C * (4 + d * 4 + 4 + 1) + B * (R + 1) * 4
+        nflops = 3.0 * d * work
+        log(f"[kernels] robust_prune_fp {tag} B={B} C={C} d={d} R={R}: "
+            f"{n_diff} rows differ  kernel {ms:.4f} ms  plain {plain:.4f} ms"
+            f"  bound {bound_ms(nbytes, nflops)[0]:.4f} ms "
+            f"({bound_ms(nbytes, nflops)[1]})")
+        if tag == "insert":
+            record("robust_prune_fp", err=0.0, ms=ms, plain_ms=plain,
+                   nbytes=nbytes, nflops=nflops, library_ms=None,
+                   shape=f"B={B} C={C} d={d} R={R} ({tag})")
+    del table
+    torch.cuda.empty_cache()
+
+    # A CUDA tensor with use_kernel=False raises: no silent plain version.
+    x = torch.zeros((2, 4), device=dev)
+    try:
+        ops.l2_rows(x, x, torch.zeros((2, 1), dtype=torch.int32, device=dev),
+                    use_kernel=False)
+    except ValueError:
+        pass
+    else:
+        raise PhaseError("use_kernel=False on a CUDA tensor did not raise")
+    return recs
+
+
+# --------------------------------------------------------------- phase 3
+def _stream_ops(sys_, new, n0):
+    """The parity stream: inserts with two rollovers, deletes in every
+    tier, a buffered delete and a re-insert."""
+    for i in range(len(new)):
+        sys_.insert(n0 + i, new[i])
+        if i == 100:
+            for e in (3, 17, n0 + 5, n0 + 50, n0 + 99):
+                sys_.delete(e)
+    sys_.delete(n0 + len(new) - 1)
+    sys_.insert(17, new[0] + 1.0)
+
+
+def phase_parity(seed: int) -> None:
+    """The same small system on the CPU (plain versions) and on the card
+    (kernels): integer coordinates and an integer PQ codebook make every
+    sum exact, so results must be equal."""
+    import torch
+    from repro_torch.core import pq as pqm
+    from repro_torch.core.config import IndexConfig, PQConfig, SystemConfig
+    from repro_torch.core.system import bootstrap_system
+    from repro_torch.kernels import ops
+    g = np.random.default_rng(seed + 1)
+    d, n0 = 16, 256
+    base = g.integers(-3, 4, (n0, d)).astype(np.float32)
+    new = g.integers(-3, 4, (140, d)).astype(np.float32)
+    qs = g.integers(-3, 4, (37, d)).astype(np.float32)
+    cent = g.integers(-3, 4, (4, 16, 4)).astype(np.float32)
+    cfg = SystemConfig(
+        index=IndexConfig(capacity=320, dim=d, R=8, L_build=16, L_search=24,
+                          alpha=1.2, beam_width=4),
+        pq=PQConfig(dim=d, m=4, ksub=16), ro_snapshot_points=48,
+        temp_capacity=96, insert_batch=16, batch_queries=16)
+    out = []
+    for dev in ("cpu", "cuda"):
+        before = dict(ops.LAUNCHES)
+        s = bootstrap_system(base, np.arange(n0), cfg, device=dev,
+                             batch=32, codebook=pqm.PQCodebook(
+                                 torch.from_numpy(cent)))
+        _stream_ops(s, new, 1000)
+        out.append(s.search_batch(qs, k=5))
+        ran = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+        if dev == "cpu":
+            check(not any(ran.values()), f"CPU run launched kernels: {ran}")
+        else:
+            check(all(ran.values()), f"card run skipped a kernel: {ran}")
+        check(len(s.ro) == 2 and s.rw.n > 0, "parity stream: tiers")
+    for a, b, nm in zip(out[0], out[1], ("ids", "dists")):
+        check(np.array_equal(a, b), f"parity: CPU and card {nm} differ")
+    log(f"[parity] n={n0} d={d}: CPU plain path == card kernels "
+        f"(ids and dists of {len(qs)} queries over LTI + 2 RO + RW)")
+
+
+def reachable(state, n: int) -> np.ndarray:
+    """bool [capacity]: slots reachable from ``state.start`` over the
+    adjacency (breadth-first, on the device)."""
+    import torch
+    adj = state.adjacency[:n].long()
+    seen = torch.zeros(state.capacity, dtype=torch.bool,
+                       device=adj.device)
+    front = state.start.reshape(1).long()
+    seen[front] = True
+    while len(front):
+        nb = adj[front].reshape(-1)
+        nb = torch.unique(nb[nb >= 0])
+        nb = nb[~seen[nb]]
+        seen[nb] = True
+        front = nb
+    return seen.cpu().numpy()
+
+
+def _mixture(g, centers, n):
+    which = g.integers(0, len(centers), n)
+    return (centers[which] + g.standard_normal(
+        (n, centers.shape[1])).astype(np.float32)).astype(np.float32)
+
+
+def phase_main(seed: int, n: int, centres: int = 4096,
+               profile: bool = False) -> dict:
+    """Bootstrap -> inserts with rollover -> deletes -> search_batch at
+    the freshdiskann-1b per-chip shape (src/repro/configs/
+    freshdiskann_1b.py FULL): capacity 2,097,152, dim 128, R 64, L_build
+    75, L_search 100, alpha 1.2, W 4, PQ m 32 x ksub 256, k 5, 1024
+    concurrent queries.
+
+    The corpus is a mixture of ``centres`` isotropic Gaussians in 128
+    dimensions.  With 256 centres the PQ codebook (256 centroids per
+    subspace) spends itself on the centres, codes say almost nothing about
+    a point's place inside its cluster, and at ~4096 points per cluster the
+    PQ-navigated LTI lane's candidate list misses most true neighbours
+    (5-recall@5 0.75 at 1M points; PERF.md).  4096 centres keep ~256
+    points per cluster, the scale at which the PQ lane is meant to work."""
+    import torch
+    from repro_torch.core.config import IndexConfig, PQConfig, SystemConfig
+    from repro_torch.core.lti import search_lti
+    from repro_torch.core.system import bootstrap_system
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    icfg = IndexConfig(capacity=2_097_152, dim=128, R=64, L_build=75,
+                       L_search=100, alpha=1.2, beam_width=4)
+    cfg = SystemConfig(index=icfg, pq=PQConfig(dim=128, m=32, ksub=256),
+                       ro_snapshot_points=4096, merge_threshold=16384,
+                       temp_capacity=65536, insert_batch=256,
+                       batch_queries=1024)
+    n_new, n_q, n_self, k = 8192 + 1024, 4 * 1024, 1024, 5
+    g = np.random.default_rng(seed)
+    centers = (g.standard_normal((centres, 128)) * 2.0).astype(np.float32)
+    t0 = time.perf_counter()
+    base = _mixture(g, centers, n)
+    new = _mixture(g, centers, n_new)
+    qs = _mixture(g, centers, n_q)
+    dels = g.choice(n, n // 100, replace=False)
+    log(f"[main] data: {n} bootstrap + {n_new} inserts + {n_q} queries, "
+        f"dim 128, {centres}-centre Gaussian mixture "
+        f"({time.perf_counter() - t0:.1f}"
+        " s on the host)")
+
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s = bootstrap_system(base, np.arange(n), cfg, device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    log(f"[main] bootstrap_system: {n} points in {t_build:.1f} s "
+        f"({n / t_build:.0f} points/s) into capacity {icfg.capacity}")
+
+    before = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    for i in range(n_new):
+        s.insert(n + i, new[i])
+    s._flush_inserts()
+    torch.cuda.synchronize()
+    t_ins = time.perf_counter() - t0
+    per_flush = {k: round((ops.LAUNCHES[k] - before[k]) / s.stats.flushes,
+                          1) for k in ops.LAUNCHES}
+    fl = s.stats.flush_latency.snapshot()
+    log(f"[main] {n_new} inserts in {t_ins:.2f} s ({n_new / t_ins:.0f} "
+        f"inserts/s); {s.stats.flushes} flushes, p50 {fl['p50'] * 1e3:.1f} "
+        f"ms p99 {fl['p99'] * 1e3:.1f} ms; tiers: RW {s.rw.n}, RO "
+        f"{[t.n for t in s.ro]}; launches per flush {json.dumps(per_flush)}")
+    check(len(s.ro) == 2 and s.rw.n > 0, "expected RW + two RO snapshots")
+
+    t0 = time.perf_counter()
+    for e in dels:
+        s.delete(int(e))
+    log(f"[main] {len(dels)} deletes in {time.perf_counter() - t0:.2f} s")
+
+    before = dict(ops.LAUNCHES)
+    s.search_batch(qs[:1024], k=k)                    # warm-up batch
+    log(f"[main] launches per search micro-batch (1024 queries, RW + 2 RO "
+        f"+ LTI lanes): {json.dumps({k_: ops.LAUNCHES[k_] - before[k_] for k_ in ops.LAUNCHES})}")
+    s.stats.search_latency = type(s.stats.search_latency)(seed=1)
+    t0 = time.perf_counter()
+    ids, dists = s.search_batch(qs, k=k)
+    t_q = time.perf_counter() - t0
+    lat = s.stats.search_latency.snapshot()
+    log(f"[main] search_batch {n_q} queries (batch_queries 1024, k {k}, "
+        f"L 100, W 4): {n_q / t_q:.0f} queries/s; per micro-batch p50 "
+        f"{lat['p50'] * 1e3:.1f} ms p99 {lat['p99'] * 1e3:.1f} ms "
+        f"({lat['n']} batches)")
+
+    sel = g.choice(n_new, n_self, replace=False)
+    self_ids, _ = s.search_batch(new[sel], k=k)
+    hit = (self_ids == (n + sel)[:, None]).any(1)
+    self_top1 = float((self_ids[:, 0] == n + sel).mean())
+    # A point is findable only if its tier's graph reaches it from the
+    # start; batched flushes into an empty tier leave most of the first
+    # chunk without in-edges (the reference's flush does the same).
+    reach = {id(t): reachable(t.state, t.n) for t in [s.rw] + s.ro}
+    ok_reach = np.zeros(n_self, bool)
+    for j, e in enumerate(n + sel):
+        tier, slot = s._ext_loc[int(e)]
+        t = s.rw if tier == "rw" else next(
+            r for r in s.ro if r.ext_ids[slot] == e)
+        ok_reach[j] = reach[id(t)][slot]
+    self_all = float(hit.mean())
+    self_reach = float(hit[ok_reach].mean())
+    log(f"[main] self-hit: {self_all:.4f} of {n_self} inserted points in "
+        f"top-5 ({self_top1:.4f} at rank 1); {int((~ok_reach).sum())} of "
+        f"them unreachable from their tier's start; self-hit over the "
+        f"reachable ones {self_reach:.4f}; unreachable per tier "
+        f"{[int(t.n - reach[id(t)][:t.n].sum()) for t in [s.rw] + s.ro]}")
+
+    qd = torch.from_numpy(qs[:1024]).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, hops, _ = search_lti(s.lti, qd, icfg, k=k, L=100)
+    torch.cuda.synchronize()
+    t_lti = time.perf_counter() - t0
+    rounds = int(hops.max())
+    log(f"[main] LTI lane alone, 1024 queries: {t_lti * 1e3:.1f} ms, "
+        f"{rounds} rounds -> {t_lti * 1e3 / max(rounds, 1):.2f} ms per "
+        f"round (mean hops {float(hops.float().mean()):.1f})")
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[main] launches {json.dumps(launches)}; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB")
+
+    # Checks: shapes and values, deletes honoured, recall, self-hits.
+    check(ids.shape == (n_q, k) and dists.shape == (n_q, k),
+          "search_batch shapes")
+    check(bool(np.isfinite(dists).all()) and bool((ids >= 0).all()),
+          "search_batch returned missing results")
+    check(bool((np.diff(dists, axis=1) >= 0).all()), "dists not sorted")
+    check(not np.isin(ids, dels).any(), "a deleted id was returned")
+    live_ids = np.concatenate([np.setdiff1d(np.arange(n), dels),
+                               n + np.arange(n_new)])
+    live = torch.from_numpy(np.concatenate(
+        [base[np.setdiff1d(np.arange(n), dels)], new])).to(dev)
+    xn = (live * live).sum(1)
+    gt = []
+    for lo in range(0, n_q, 256):
+        q = torch.from_numpy(qs[lo:lo + 256]).to(dev)
+        d = xn[None, :] - 2.0 * torch.matmul(q, live.T)
+        gt.append(d.topk(k, dim=1, largest=False).indices.cpu().numpy())
+    gt = live_ids[np.concatenate(gt)]
+    recall = float(((ids[:, :, None] == gt[:, None, :]).any(2)).sum(1).mean()
+                   / k)
+    log(f"[main] 5-recall@5 {recall:.4f} over {len(live_ids)} live points")
+    check(recall >= 0.90, f"recall {recall} < 0.90")
+    check(self_reach >= 0.98,
+          f"self-hit over reachable inserted points {self_reach} < 0.98")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the path never launched: {launches}")
+    if profile:
+        profile_steps(s, qs[:1024], _mixture(g, centers, 256), n + n_new)
+    return launches
+
+
+def profile_steps(s, queries, vecs, first_id) -> None:
+    """Device busy share and kernel time by name, from torch.profiler,
+    over one search micro-batch and one flush (after the main path)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us = e.time_range.elapsed_us()
+                by_name[e.name] = by_name.get(e.name, 0.0) + us
+        busy = sum(by_name.values()) / 1e6
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        log(f"[profile] {name}: wall {wall * 1e3:.1f} ms, device busy "
+            f"{busy * 1e3:.1f} ms ({busy / wall:.1%}), idle "
+            f"{1 - busy / wall:.1%}; top device time: " + "; ".join(
+                f"{k[:48]} {v / 1e3:.2f} ms" for k, v in top))
+
+    def flush():
+        for i, v in enumerate(vecs):
+            s.insert(first_id + i, v)
+        s._flush_inserts()
+
+    run(f"search_batch {len(queries)} queries",
+        lambda: s.search_batch(queries, k=5))
+    run(f"flush of {len(vecs)} inserts", flush)
+
+
+# --------------------------------------------------------------- main
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n", type=int, default=1_048_576,
+                    help="bootstrap points of the main path")
+    ap.add_argument("--centres", type=int, default=4096,
+                    help="Gaussian centres of the main path's corpus")
+    ap.add_argument("--phases", default="build,kernels,parity,main")
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t_start = time.perf_counter()
+    recs = {}
+    try:
+        if "build" in phases:
+            phase_build()
+        ident = gpu_identity()
+        log(f"[device] {ident}")
+        if "kernels" in phases:
+            recs = phase_kernels(args.seed, n_table=args.n)
+        if "parity" in phases:
+            phase_parity(args.seed)
+        if "main" in phases:
+            launches = phase_main(args.seed, args.n, args.centres,
+                                  profile="profile" in phases)
+            for name, cnt in launches.items():
+                if name in recs:
+                    recs[name]["launches"] = cnt
+    except PhaseError as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
+    print(ident)
+    print(json.dumps({"kernels": list(recs.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

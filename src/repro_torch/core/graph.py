@@ -1,0 +1,136 @@
+"""Graph state for FreshVamana indices (PyTorch port of ``core/graph.py``).
+
+The index is a fixed-capacity structure of dense tensors on one device:
+  vectors   f32[capacity, dim]   point coordinates
+  adjacency i32[capacity, R]     out-neighbours, INVALID (-1) padded
+  active    bool[capacity]       slot holds a live point
+  deleted   bool[capacity]       lazy-delete list membership (DeleteList)
+  start     i32 scalar           entry point (medoid)
+  n_total   i32 scalar           allocated slots
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .config import IndexConfig
+from .distance import INVALID, l2_sq_batch
+
+
+class GraphState(NamedTuple):
+    vectors: torch.Tensor     # [capacity, dim]
+    adjacency: torch.Tensor   # [capacity, R] int32
+    active: torch.Tensor      # [capacity] bool
+    deleted: torch.Tensor     # [capacity] bool
+    start: torch.Tensor       # scalar int32
+    n_total: torch.Tensor     # scalar int32
+
+    @property
+    def capacity(self) -> int:
+        return self.vectors.shape[-2]
+
+    @property
+    def R(self) -> int:
+        return self.adjacency.shape[-1]
+
+    @property
+    def dim(self) -> int:
+        return self.vectors.shape[-1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.vectors.device
+
+
+def empty_graph(cfg: IndexConfig, device) -> GraphState:
+    return GraphState(
+        vectors=torch.zeros((cfg.capacity, cfg.dim),
+                            dtype=getattr(torch, cfg.dtype), device=device),
+        adjacency=torch.full((cfg.capacity, cfg.R), INVALID,
+                             dtype=torch.int32, device=device),
+        active=torch.zeros(cfg.capacity, dtype=torch.bool, device=device),
+        deleted=torch.zeros(cfg.capacity, dtype=torch.bool, device=device),
+        start=torch.zeros((), dtype=torch.int32, device=device),
+        n_total=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def pad_graph(state: GraphState, capacity: int) -> GraphState:
+    """Grow a graph to ``capacity`` slots (new slots inert: inactive,
+    INVALID-adjacent, zero vectors)."""
+    if state.capacity == capacity:
+        return state
+    if state.capacity > capacity:
+        raise ValueError(f"cannot shrink graph {state.capacity} -> {capacity}")
+    extra = capacity - state.capacity
+    dev = state.device
+    return state._replace(
+        vectors=torch.cat([state.vectors, state.vectors.new_zeros(
+            (extra, state.dim))]),
+        adjacency=torch.cat([state.adjacency, torch.full(
+            (extra, state.R), INVALID, dtype=torch.int32, device=dev)]),
+        active=torch.cat([state.active, torch.zeros(
+            extra, dtype=torch.bool, device=dev)]),
+        deleted=torch.cat([state.deleted, torch.zeros(
+            extra, dtype=torch.bool, device=dev)]),
+    )
+
+
+def stack_graphs(states: list[GraphState]) -> GraphState:
+    """Stack graphs on a new leading tier axis, padding each to the largest
+    capacity: a GraphState of [T, ...] tensors."""
+    cap = max(s.capacity for s in states)
+    padded = [pad_graph(s, cap) for s in states]
+    return GraphState(*(torch.stack(xs) for xs in zip(*padded)))
+
+
+class LaneStack(NamedTuple):
+    """The §5.2 query fan-out's lanes: the temp tiers stacked at the
+    largest temp capacity (``temps``, [Tt, ...] tensors, searched with exact
+    L2) and the LTI graph at its own capacity with its PQ ``codes`` and
+    ``codebook`` centroids (searched with ADC).  Either group may be None.
+    """
+
+    temps: Optional[GraphState]
+    lti: Optional[GraphState]
+    codes: Optional[torch.Tensor]      # [lti_capacity, m] uint8
+    codebook: Optional[torch.Tensor]   # [m, ksub, dsub] f32
+
+    @property
+    def n_temp_lanes(self) -> int:
+        return 0 if self.temps is None else self.temps.active.shape[0]
+
+    @property
+    def n_lanes(self) -> int:
+        return self.n_temp_lanes + (0 if self.lti is None else 1)
+
+
+def stack_lanes(temp_states: list[GraphState], *,
+                lti: Optional[GraphState] = None,
+                codes: Optional[torch.Tensor] = None,
+                codebook: Optional[torch.Tensor] = None) -> LaneStack:
+    """Stack the temp tiers (padded to the largest TEMP capacity) and attach
+    the optional PQ-navigated LTI lane at its own capacity."""
+    stacked = stack_graphs(temp_states) if temp_states else None
+    if lti is not None:
+        if codes is None or codebook is None:
+            raise ValueError("lti lane set but codes/codebook missing")
+        if codes.shape[0] != lti.capacity:
+            raise ValueError(
+                f"PQ codes cover {codes.shape[0]} slots but the LTI "
+                f"capacity is {lti.capacity}")
+        codebook = codebook.float()
+    else:
+        codes = codebook = None
+    return LaneStack(stacked, lti, codes, codebook)
+
+
+def medoid(vectors: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Index of the point nearest the masked mean (the entry point); the
+    first such index on ties, as ``jnp.argmin``."""
+    m = mask.float()
+    mean = (vectors * m[:, None]).sum(0) / m.sum().clamp(min=1.0)
+    d = l2_sq_batch(mean[None, :], vectors)[0]
+    d = torch.where(mask, d, torch.full_like(d, float("inf")))
+    return torch.argmin(d).to(torch.int32)

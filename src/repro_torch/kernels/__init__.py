@@ -1,0 +1,10 @@
+"""Hand-written Hopper kernels of the main path, their plain PyTorch
+versions (``ref``), the ctypes build (``build``) and the wrappers (``ops``).
+
+  l2_rows          fused id->row gather + squared L2 (temp lanes, rerank,
+                   insert search)
+  adc_rows         fused id->code gather + PQ ADC (LTI lane navigation)
+  frontier_select  one beam-search round step (every IO round)
+  robust_prune_fp  Algorithm 3's R rounds, full precision (build, insert,
+                   back-edge Delta)
+"""

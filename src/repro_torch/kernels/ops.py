@@ -1,0 +1,185 @@
+"""Wrappers of the four Hopper kernels.
+
+Each wrapper checks device, dtype, shape and contiguity, then dispatches on
+where its tensors lie:
+
+  * on the CPU it returns the plain PyTorch version from ``ref``;
+  * on a CUDA device it launches its kernel on the current stream and adds
+    one to ``LAUNCHES[name]``, or raises.  There is no fallback: with
+    ``use_kernel=False`` a CUDA tensor raises too, because the plain
+    versions are references, not the port.
+
+Outputs are allocated here with ``torch.empty``; kernels allocate nothing
+and do not synchronise.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+
+LAUNCHES: dict[str, int] = {"l2_rows": 0, "adc_rows": 0,
+                            "frontier_select": 0, "robust_prune_fp": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_cuda(name: str, tensors, use_kernel: bool) -> bool:
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: operands on several devices {devs}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if not use_kernel:
+        raise ValueError(f"{name}: use_kernel=False on a CUDA tensor; the "
+                         "plain version is a CPU reference only")
+    return True
+
+
+def _check(name: str, t: torch.Tensor, dtype, ndim: int, what: str):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: {what} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: {what} must be {ndim}-D, got "
+                         f"{tuple(t.shape)}")
+
+
+def _launch(name: str, *args) -> None:
+    from .build import library
+    fn = getattr(library(name), name)
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[name] += 1
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _ptr(t: torch.Tensor) -> int:
+    if not t.is_contiguous():
+        raise ValueError("kernel operands must be contiguous")
+    return t.data_ptr()
+
+
+def l2_rows(queries: torch.Tensor, table: torch.Tensor, ids: torch.Tensor,
+            *, use_kernel: bool = True) -> torch.Tensor:
+    """q [B, d] f32, table [N, d] f32, ids [B, K] int32 -> [B, K] f32
+    squared L2 from ``q[b]`` to ``table[ids[b, k]]`` (norm-identity form,
+    clamped at 0); ids < 0 -> +inf."""
+    name = "l2_rows"
+    _check(name, queries, torch.float32, 2, "queries")
+    _check(name, table, torch.float32, 2, "table")
+    _check(name, ids, torch.int32, 2, "ids")
+    B, d = queries.shape
+    if table.shape[1] != d or ids.shape[0] != B:
+        raise ValueError(f"{name}: shapes q {tuple(queries.shape)}, table "
+                         f"{tuple(table.shape)}, ids {tuple(ids.shape)}")
+    if not _on_cuda(name, (queries, table, ids), use_kernel):
+        return ref.l2_rows_ref(queries, table, ids)
+    K = ids.shape[1]
+    out = torch.empty((B, K), dtype=torch.float32, device=queries.device)
+    _launch(name, _ptr(queries), _ptr(table), _ptr(ids), _ptr(out), B, K,
+            table.shape[0], d, _stream(queries))
+    return out
+
+
+def adc_rows(luts: torch.Tensor, codes: torch.Tensor, ids: torch.Tensor,
+             *, use_kernel: bool = True) -> torch.Tensor:
+    """luts [B, m, ksub] f32, codes [N, m] uint8, ids [B, K] int32 ->
+    [B, K] f32 ``sum_m luts[b, m, codes[ids[b, k], m]]``; ids < 0 -> +inf."""
+    name = "adc_rows"
+    _check(name, luts, torch.float32, 3, "luts")
+    _check(name, codes, torch.uint8, 2, "codes")
+    _check(name, ids, torch.int32, 2, "ids")
+    B, m, ksub = luts.shape
+    if codes.shape[1] != m or ids.shape[0] != B or ksub > 256:
+        raise ValueError(f"{name}: shapes luts {tuple(luts.shape)}, codes "
+                         f"{tuple(codes.shape)}, ids {tuple(ids.shape)}")
+    if not _on_cuda(name, (luts, codes, ids), use_kernel):
+        return ref.adc_rows_ref(luts, codes, ids)
+    K = ids.shape[1]
+    out = torch.empty((B, K), dtype=torch.float32, device=luts.device)
+    _launch(name, _ptr(luts), _ptr(codes), _ptr(ids), _ptr(out), B, K,
+            codes.shape[0], m, ksub, _stream(luts))
+    return out
+
+
+def frontier_select(cand_ids, cand_d, new_ids, new_d, vis_ids, vis_d,
+                    vis_cnt, *, W: int, max_visits: int | None = None,
+                    use_kernel: bool = True):
+    """One beam-search round step for every query row (contract:
+    ``ref.frontier_select_batch_ref``).  ids int32, distances f32:
+    cand [B, L], new [B, K], vis [B, V], vis_cnt [B] int32 -> (m_ids,
+    m_d [B, L], f_ids, f_d [B, W], vis_ids', vis_d' [B, V], vis_cnt' [B]).
+    ``vis_cnt`` must equal the number of valid ids in ``vis_ids``."""
+    name = "frontier_select"
+    for t, dt, nd, what in ((cand_ids, torch.int32, 2, "cand_ids"),
+                            (cand_d, torch.float32, 2, "cand_d"),
+                            (new_ids, torch.int32, 2, "new_ids"),
+                            (new_d, torch.float32, 2, "new_d"),
+                            (vis_ids, torch.int32, 2, "vis_ids"),
+                            (vis_d, torch.float32, 2, "vis_d"),
+                            (vis_cnt, torch.int32, 1, "vis_cnt")):
+        _check(name, t, dt, nd, what)
+    B, L = cand_ids.shape
+    K = new_ids.shape[1]
+    V = vis_ids.shape[1]
+    if (cand_d.shape != (B, L) or new_d.shape != (B, K)
+            or new_ids.shape[0] != B or vis_ids.shape[0] != B
+            or vis_d.shape != (B, V) or vis_cnt.shape != (B,)):
+        raise ValueError(f"{name}: mismatched operand shapes")
+    if not 1 <= W <= L:
+        raise ValueError(f"{name}: need 1 <= W <= L, got W={W}, L={L}")
+    if max_visits is None:
+        max_visits = V
+    if not _on_cuda(name, (cand_ids, cand_d, new_ids, new_d, vis_ids, vis_d,
+                           vis_cnt), use_kernel):
+        return ref.frontier_select_batch_ref(
+            cand_ids, cand_d, new_ids, new_d, vis_ids, vis_d, vis_cnt,
+            W=W, max_visits=max_visits)
+    dev = cand_ids.device
+    m_ids = torch.empty((B, L), dtype=torch.int32, device=dev)
+    m_d = torch.empty((B, L), dtype=torch.float32, device=dev)
+    f_ids = torch.empty((B, W), dtype=torch.int32, device=dev)
+    f_d = torch.empty((B, W), dtype=torch.float32, device=dev)
+    ov_ids = torch.empty((B, V), dtype=torch.int32, device=dev)
+    ov_d = torch.empty((B, V), dtype=torch.float32, device=dev)
+    ov_cnt = torch.empty((B,), dtype=torch.int32, device=dev)
+    _launch(name, *(_ptr(t) for t in (cand_ids, cand_d, new_ids, new_d,
+                                      vis_ids, vis_d, vis_cnt, m_ids, m_d,
+                                      f_ids, f_d, ov_ids, ov_d, ov_cnt)),
+            B, L, K, V, W, int(max_visits), _stream(cand_ids))
+    return m_ids, m_d, f_ids, f_d, ov_ids, ov_d, ov_cnt
+
+
+def robust_prune_fp(d_p: torch.Tensor, vecs: torch.Tensor, ids: torch.Tensor,
+                    ok: torch.Tensor, *, alpha: float, R: int,
+                    use_kernel: bool = True):
+    """RobustPrune rounds over a [B, C] block of rows (contract:
+    ``ref.robust_prune_fp_ref``): d_p [B, C] f32, vecs [B, C, d] f32,
+    ids [B, C] int32, ok [B, C] bool -> (out_ids [B, R] int32
+    INVALID-padded, counts [B] int32)."""
+    name = "robust_prune_fp"
+    _check(name, d_p, torch.float32, 2, "d_p")
+    _check(name, vecs, torch.float32, 3, "vecs")
+    _check(name, ids, torch.int32, 2, "ids")
+    _check(name, ok, torch.bool, 2, "ok")
+    B, C = ids.shape
+    if d_p.shape != (B, C) or ok.shape != (B, C) or vecs.shape[:2] != (B, C):
+        raise ValueError(f"{name}: mismatched operand shapes")
+    if not _on_cuda(name, (d_p, vecs, ids, ok), use_kernel):
+        return ref.robust_prune_fp_ref(d_p, vecs, ids, ok, alpha=alpha, R=R)
+    dev = ids.device
+    out = torch.empty((B, R), dtype=torch.int32, device=dev)
+    cnt = torch.empty((B,), dtype=torch.int32, device=dev)
+    _launch(name, _ptr(d_p), _ptr(vecs), _ptr(ids), _ptr(ok), _ptr(out),
+            _ptr(cnt), B, C, vecs.shape[2], R, float(alpha), _stream(ids))
+    return out, cnt

@@ -15,6 +15,12 @@ DIM = 24
 N = 1200
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (CUDA kernels have no CPU "
+        "mode); the test skips without one")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _clear_jax_caches_between_modules():
     """Free compiled executables between test modules — the suite compiles

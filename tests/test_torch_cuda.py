@@ -1,0 +1,112 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+CUDA kernels have no CPU mode, so every test here needs an NVIDIA GPU: it
+is marked ``cuda`` and skips without one.  On a machine with the card and
+the CUDA toolkit (JAX is not needed; ``--noconftest`` skips the JAX
+fixtures of ``tests/conftest.py``):
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
+
+Integer-valued inputs make every f32 sum exact, so kernel and plain
+version must be equal; the frontier step is compared bit for bit on any
+input.  ``chip_smoke.py`` repeats these checks at the main path's shapes.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _t(x, dev):
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+
+@pytest.mark.parametrize("d", [128, 24, 7])
+def test_l2_rows_exact_on_integers(dev, d):
+    g = np.random.default_rng(d)
+    q = _t(g.integers(-4, 5, (9, d)).astype(np.float32), dev)
+    table = _t(g.integers(-4, 5, (300, d)).astype(np.float32), dev)
+    ids_np = g.integers(-1, 300, (9, 70)).astype(np.int32)
+    ids = _t(ids_np, dev)
+    assert torch.equal(ops.l2_rows(q, table, ids),
+                       ref.l2_rows_ref(q, table, ids))
+
+
+@pytest.mark.parametrize("m,ksub", [(32, 256), (8, 16), (5, 200)])
+def test_adc_rows_exact_on_integers(dev, m, ksub):
+    g = np.random.default_rng(m)
+    luts = _t(g.integers(0, 30, (6, m, ksub)).astype(np.float32), dev)
+    codes = _t(g.integers(0, ksub, (500, m)).astype(np.uint8), dev)
+    ids = _t(g.integers(-1, 500, (6, 100)).astype(np.int32), dev)
+    assert torch.equal(ops.adc_rows(luts, codes, ids),
+                       ref.adc_rows_ref(luts, codes, ids))
+
+
+@pytest.mark.parametrize("L,K,V,W", [(16, 24, 30, 4), (100, 256, 166, 4),
+                                     (75, 64, 128, 1)])
+def test_frontier_select_bit_identical(dev, L, K, V, W):
+    g = np.random.default_rng(L + K)
+    B = 64
+    cand_d = np.sort(g.integers(0, 6, (B, L)).astype(np.float32), 1)
+    cand_i = g.permutation(B * L).reshape(B, L).astype(np.int32)
+    ninv = g.integers(0, L, B)
+    for b in range(B):
+        cand_d[b, L - ninv[b]:] = np.inf
+        cand_i[b, L - ninv[b]:] = -1
+    new_i = (B * L + g.permutation(B * K)).reshape(B, K).astype(np.int32)
+    new_d = g.integers(0, 6, (B, K)).astype(np.float32)
+    masked = g.random((B, K)) < 0.3
+    new_i[masked], new_d[masked] = -1, np.inf
+    vis_i = np.full((B, V), -1, np.int32)
+    vis_d = np.full((B, V), np.inf, np.float32)
+    cnt = np.zeros(B, np.int32)
+    for b in range(B):
+        nv = int(min(g.integers(0, L - ninv[b] + 1), V))
+        vis_i[b, :nv] = cand_i[b, :nv]
+        vis_d[b, :nv] = cand_d[b, :nv]
+        cnt[b] = nv
+    args = [_t(x, dev) for x in (cand_i, cand_d, new_i, new_d, vis_i, vis_d,
+                                 cnt)]
+    got = ops.frontier_select(*args, W=W, max_visits=V)
+    want = ref.frontier_select_batch_ref(*args, W=W, max_visits=V)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,C,d,R", [(16, 203, 128, 64), (8, 128, 128, 64),
+                                     (4, 9, 5, 16)])
+def test_robust_prune_fp_exact_on_integers(dev, B, C, d, R):
+    g = np.random.default_rng(C)
+    vecs = g.integers(-3, 4, (B, C, d)).astype(np.float32)
+    anchor = g.integers(-3, 4, (B, 1, d)).astype(np.float32)
+    ids = g.integers(0, 10_000, (B, C)).astype(np.int32)
+    ids[g.random((B, C)) < 0.1] = -1
+    ok = (ids >= 0) & (g.random((B, C)) > 0.2)
+    ok[0] = False
+    d_p = ((anchor - vecs) ** 2).sum(-1).astype(np.float32)
+    args = [_t(x, dev) for x in (d_p, vecs, ids, ok)]
+    go, gc = ops.robust_prune_fp(*args, alpha=1.2, R=R)
+    wo, wc = ref.robust_prune_fp_ref(*args, alpha=1.2, R=R)
+    assert torch.equal(go, wo) and torch.equal(gc, wc)
+
+
+def test_launches_counted_and_plain_refused_on_cuda(dev):
+    ops.reset_launches()
+    x = torch.zeros((2, 4), device=dev)
+    ids = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    ops.l2_rows(x, x, ids)
+    assert ops.LAUNCHES["l2_rows"] == 1
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        ops.l2_rows(x, x, ids, use_kernel=False)
+    assert ops.LAUNCHES["l2_rows"] == 1

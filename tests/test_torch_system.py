@@ -1,0 +1,222 @@
+"""The slice as a whole: ``FreshDiskANN`` in the port against the reference.
+
+Both systems start from the same LTI (built by the reference, carried
+across with ``repro_torch.convert``) and take the same stream of
+operations: streaming inserts with a small ``ro_snapshot_points`` (so the
+RW tier rolls over into RO snapshots), deletes of LTI, RO and RW residents
+and of a buffered point, a re-insert, and ``search_batch`` with a ragged
+request over ``batch_queries`` chunks.
+
+Integer fixture: external ids and distances are equal.  Gaussian fixture:
+5-recall@5 within 0.01.  Also: unported knobs and reaching
+``merge_threshold`` raise ``NotImplementedError``; CPU tensors never reach
+a kernel; the default device needs CUDA; and neither the port nor
+``chip_smoke.py`` imports ``jax`` or ``repro``.
+"""
+import ast
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core import config as jconfig  # noqa: E402
+from repro.core import system as jsystem  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.core import config as tconfig  # noqa: E402
+from repro_torch.core import system as tsystem  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+N0, D, NQ = 256, 16, 37
+
+
+def _cfg(mod, **kw):
+    base = dict(
+        index=mod.IndexConfig(capacity=320, dim=D, R=8, L_build=16,
+                              L_search=24, alpha=1.2, beam_width=4),
+        pq=mod.PQConfig(dim=D, m=4, ksub=16, kmeans_iters=3),
+        ro_snapshot_points=48, merge_threshold=100_000, temp_capacity=96,
+        insert_batch=16, batch_queries=16)
+    base.update(kw)
+    return mod.SystemConfig(**base)
+
+
+def _data(kind):
+    g = np.random.default_rng(11)
+    n = N0 + 140 + NQ
+    if kind == "integer":
+        x = g.integers(-3, 4, (n, D)).astype(np.float32)
+    else:
+        centers = g.standard_normal((8, D)) * 3.0
+        x = (centers[g.integers(0, 8, n)]
+             + g.standard_normal((n, D))).astype(np.float32)
+    return x[:N0], x[N0:N0 + 140], x[N0 + 140:]
+
+
+def _stream(sys_, new):
+    """Inserts (two rollovers at 48 points), deletes across every tier,
+    a buffered delete and a re-insert."""
+    for i in range(120):
+        sys_.insert(1000 + i, new[i])
+    for e in (3, 17, 1005, 1050, 1100, 1119):
+        sys_.delete(e)
+    for i in range(120, 140):
+        sys_.insert(1000 + i, new[i])
+    sys_.delete(1135)                  # still in the insert buffer
+    sys_.insert(17, new[0] + 1.0)      # re-insert revives a deleted id
+
+
+@pytest.fixture(scope="module", params=["integer", "gaussian"])
+def systems(request):
+    base, new, qs = _data(request.param)
+    ref = jsystem.bootstrap_system(base, np.arange(N0), _cfg(jconfig),
+                                   batch=32)
+    lti = ref.lti
+    port = tsystem.FreshDiskANN(
+        _cfg(tconfig),
+        lti=convert.lti_state(lti.graph, lti.codes, lti.codebook.centroids,
+                              "cpu"),
+        lti_ext_ids=convert.ext_table(ref.lti_ext_ids), device="cpu")
+    ops.reset_launches()
+    for s in (ref, port):
+        _stream(s, new)
+    return request.param, ref, port, base, new, qs
+
+
+def test_stream_reaches_every_tier(systems):
+    _, ref, port, *_ = systems
+    assert len(port.ro) == len(ref.ro) == 2
+    assert port.rw.n == ref.rw.n > 0
+    assert port.size == ref.size
+    assert port.stats.snapshots == ref.stats.snapshots == 2
+    assert port.stats.flushes == ref.stats.flushes
+    assert (port.stats.flush_backedge_targets
+            == ref.stats.flush_backedge_targets)
+    for a, b in zip([port.rw] + port.ro, [ref.rw] + ref.ro):
+        np.testing.assert_array_equal(a.ext_ids, b.ext_ids)
+
+
+@pytest.mark.parametrize("W", [1, 4])
+def test_search_batch_matches_reference(systems, W):
+    kind, ref, port, base, new, qs = systems
+    a_ids, a_d = ref.search_batch(qs, k=5, beam_width=W)
+    b_ids, b_d = port.search_batch(qs, k=5, beam_width=W)
+    assert b_ids.shape == (NQ, 5) and b_ids.dtype == np.int64
+    assert port.stats.search_dispatches == ref.stats.search_dispatches
+    dead = np.fromiter(port.deleted_ext, np.int64)
+    assert not np.isin(b_ids, dead).any()
+    if kind == "integer":
+        np.testing.assert_array_equal(a_ids, b_ids)
+        np.testing.assert_array_equal(a_d, b_d)
+    else:
+        live_ids = np.concatenate([np.arange(N0), 1000 + np.arange(140)])
+        live_vecs = np.concatenate([base, new])
+        live_vecs[live_ids == 17] = new[0] + 1.0
+        keep = ~np.isin(live_ids, dead)
+        live_ids, live_vecs = live_ids[keep], live_vecs[keep]
+        d = ((qs[:, None, :] - live_vecs[None]) ** 2).sum(-1)
+        gt = live_ids[np.argsort(d, axis=1, kind="stable")[:, :5]]
+
+        def recall(ids):
+            return ((ids[:, :, None] == gt[:, None, :]).any(2)
+                    & (ids >= 0)).sum(1).mean() / 5
+
+        assert abs(recall(a_ids) - recall(b_ids)) <= 0.01
+        assert recall(b_ids) >= 0.8
+
+
+def test_cpu_path_never_reaches_a_kernel(systems):
+    """The whole CPU run -- bootstrap state, stream, searches -- took the
+    plain versions: every launch counter is still 0."""
+    _, _, port, *_ = systems
+    port.search_batch(systems[5][:4], k=3)
+    assert ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES}
+
+
+_KNOBS = [dict(wal_dir="w"), dict(snapshot_dir="s"), dict(storage_dir="d"),
+          dict(shard_lti=2), dict(filter_words=1), dict(locality_order=True),
+          dict(background_merge=True), dict(autotune_beam=True),
+          dict(batch_fanout=False)]
+
+
+@pytest.mark.parametrize("knob", _KNOBS, ids=lambda k: next(iter(k)))
+def test_unported_knobs_raise(knob):
+    with pytest.raises(NotImplementedError, match="slice"):
+        tsystem.FreshDiskANN(_cfg(tconfig, **knob), device="cpu")
+
+
+def test_unported_calls_raise():
+    s = tsystem.FreshDiskANN(_cfg(tconfig), device="cpu")
+    v = np.zeros(D, np.float32)
+    with pytest.raises(NotImplementedError, match="slice"):
+        s.insert(1, v, labels=[3])
+    with pytest.raises(NotImplementedError, match="slice"):
+        s.insert(1, v, tenant=2)
+    with pytest.raises(NotImplementedError, match="slice"):
+        s.search_batch(np.zeros((1, D), np.float32), k=1, filter=object())
+    with pytest.raises(NotImplementedError, match="merge slice"):
+        s.merge()
+
+
+def test_reaching_merge_threshold_raises():
+    s = tsystem.FreshDiskANN(
+        _cfg(tconfig, ro_snapshot_points=16, merge_threshold=32),
+        device="cpu")
+    g = np.random.default_rng(0)
+    with pytest.raises(NotImplementedError, match="merge slice"):
+        for i in range(64):
+            s.insert(i, g.integers(-3, 4, D).astype(np.float32))
+    assert len(s.ro) == 2
+
+
+def test_empty_system_and_k_over_l():
+    s = tsystem.FreshDiskANN(_cfg(tconfig), device="cpu")
+    ids, d = s.search_batch(np.zeros((3, D), np.float32), k=4)
+    assert (ids == -1).all() and np.isinf(d).all()
+    with pytest.raises(ValueError, match="k must be <= L"):
+        s.search_batch(np.zeros((1, D), np.float32), k=30)
+
+
+def test_default_device_needs_cuda():
+    """Entry points run on the card unless the caller asks for the CPU;
+    with no CUDA they raise a clear error instead of running on the CPU."""
+    if torch.cuda.is_available():
+        assert tconfig.resolve_device("cuda").type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tsystem.FreshDiskANN(_cfg(tconfig))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tsystem.bootstrap_system(np.zeros((8, D), np.float32), np.arange(8),
+                                 _cfg(tconfig))
+
+
+def test_kernel_enabled_by_device():
+    icfg = tconfig.IndexConfig(capacity=8, dim=4)
+    assert icfg.kernel_enabled("cuda") is True
+    assert icfg.kernel_enabled("cpu") is False
+    assert dataclasses.replace(icfg, use_kernel=True).kernel_enabled("cpu")
+    with pytest.raises(ValueError):
+        dataclasses.replace(icfg, use_kernel=False).kernel_enabled("cuda")
+
+
+def _imports(path: Path) -> set:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def test_port_imports_neither_jax_nor_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for f in files:
+        bad = _imports(f) & {"jax", "jaxlib", "repro"}
+        assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
