@@ -4,22 +4,28 @@
 
 Phases:
 
-  build    compile the four CUDA kernels of ``src/repro_torch/kernels/csrc``
+  build    compile the seven CUDA kernels of ``src/repro_torch/kernels/csrc``
            with nvcc into ``build/`` (one nvcc per source, all at once);
   kernels  run each kernel against its plain PyTorch version on the card at
            the main path's shapes, on integer-valued inputs (must be equal)
            and Gaussian ones (stated tolerance), and time kernel, plain
            version and, where one PyTorch call computes the same function,
-           that call;
-  parity   a small system on the CPU (plain versions) and on the card
-           (kernels) from integer data: results must be equal;
-  main     bootstrap_system -> streaming inserts with RW->RO rollover ->
-           deletes -> search_batch at the freshdiskann-1b per-chip shape,
-           with launch counts, recall against brute force, self-hits and no
-           deleted id returned.
-  profile  (only when named) torch.profiler over one search micro-batch
-           and one flush after the main path: device busy share and
-           kernel time by name.
+           that call (the two delete-repair kernels are held against their
+           plain versions after the main path, on its merged graph);
+  parity   small systems on the CPU (plain versions) and on the card
+           (kernels) from integer data, through threshold merges (local and
+           global Delete phases, arrival and locality order),
+           ``consolidate(mode="global")`` and an SDC ``streaming_merge``:
+           results must be equal;
+  main     bootstrap_system -> 1 % deletes -> streaming inserts with RW->RO
+           rollover up to a threshold StreamingMerge -> search_batch ->
+           another 1 % deletes and a global ``consolidate`` -> an SDC
+           ``streaming_merge`` at the freshdiskann-1b per-chip shape, with
+           launch counts, recall against brute force, self-hits, merge
+           phase times and no deleted id returned.
+  profile  (only when named) torch.profiler over one search micro-batch,
+           one flush and one merge after the main path: device busy share
+           and kernel time by name.
 
 P (the phases) defaults to build,kernels,parity,main.
 Prints diagnostics, then the card's name and power limit, then one JSON
@@ -53,6 +59,13 @@ KERNEL_META = {
                         "src/repro/kernels/frontier_select.py:112"),
     "robust_prune_fp": ("src/repro_torch/kernels/csrc/robust_prune_fp.cu",
                         "src/repro/kernels/robust_prune.py:150"),
+    "robust_prune_sdc": ("src/repro_torch/kernels/csrc/robust_prune_sdc.cu",
+                         "src/repro/kernels/robust_prune.py:168"),
+    "delete_repair_fp": ("src/repro_torch/kernels/csrc/delete_repair_fp.cu",
+                         "src/repro/kernels/delete_repair.py:92"),
+    "delete_repair_sdc": (
+        "src/repro_torch/kernels/csrc/delete_repair_sdc.cu",
+        "src/repro/kernels/delete_repair.py:113"),
 }
 
 
@@ -90,6 +103,17 @@ def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
     tb = n_bytes / HBM_BYTES_PER_S * 1e3
     tf = n_flops / FP32_FLOP_PER_S * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def kernel_record(name, *, err, ms, plain_ms, nbytes, nflops, library_ms,
+                  shape) -> dict:
+    """One entry of the ``kernels`` JSON line (``launches`` is filled in
+    from the main path's counts)."""
+    b, by = bound_ms(nbytes, nflops)
+    return dict(name=name, route="cuda", source=KERNEL_META[name][0],
+                replaces=KERNEL_META[name][1], launches=0,
+                max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                bound_ms=b, bound_by=by, library_ms=library_ms, shape=shape)
 
 
 # --------------------------------------------------------------- phase 1
@@ -165,9 +189,10 @@ def _prune_inputs(g, B, C, d, integer: bool, dev):
     return tuple(torch.from_numpy(x).to(dev) for x in (d_p, vecs, ids, ok))
 
 
-def prune_work(d_p, vecs, ok, alpha, R) -> int:
+def prune_work(d_p, ok, cover, alpha, R) -> int:
     """Candidate-cover evaluations the prune rounds need on these inputs
-    (alive candidates summed over the rounds that find a winner)."""
+    (alive candidates summed over the rounds that find a winner);
+    ``cover(star)`` gives the winners' [B, C] cover distances."""
     import torch
     inf = torch.tensor(float("inf"), device=d_p.device)
     dp = torch.where(ok, d_p, inf)
@@ -180,10 +205,19 @@ def prune_work(d_p, vecs, ok, alpha, R) -> int:
         star = masked.argmin(1)
         okr = torch.isfinite(masked[rows, star])
         total += int((alive & okr[:, None]).sum())
-        diff = vecs[rows, star][:, None, :] - vecs
-        cov = alpha * (diff * diff).sum(-1) <= dp
+        cov = alpha * cover(star) <= dp
         alive = alive & ~cov & (cols != star[:, None]) & okr[:, None]
     return total
+
+
+def fp_cover(vecs):
+    import torch
+    rows = torch.arange(vecs.shape[0], device=vecs.device)
+
+    def cover(star):
+        diff = vecs[rows, star][:, None, :] - vecs
+        return (diff * diff).sum(-1)
+    return cover
 
 
 def phase_kernels(seed: int, n_table: int) -> dict:
@@ -193,15 +227,8 @@ def phase_kernels(seed: int, n_table: int) -> dict:
     g = np.random.default_rng(seed)
     recs = {}
 
-    def record(name, *, err, ms, plain_ms, nbytes, nflops, library_ms,
-               shape):
-        b, by = bound_ms(nbytes, nflops)
-        recs[name] = dict(name=name, route="cuda",
-                          source=KERNEL_META[name][0],
-                          replaces=KERNEL_META[name][1], launches=0,
-                          max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
-                          bound_ms=b, bound_by=by, library_ms=library_ms,
-                          shape=shape)
+    def record(name, **kw):
+        recs[name] = kernel_record(name, **kw)
 
     # ---- l2_rows: B 1024, K 256 (W*R) and K 100 (rerank), d 128 --------
     d = 128
@@ -316,7 +343,7 @@ def phase_kernels(seed: int, n_table: int) -> dict:
         ms = time_ms(lambda: ops.robust_prune_fp(*a, alpha=alpha, R=R))
         plain = time_ms(lambda: ref.robust_prune_fp_ref(*a, alpha=alpha,
                                                         R=R), iters=3)
-        work = prune_work(a[0], a[1], a[3], alpha, R)
+        work = prune_work(a[0], a[3], fp_cover(a[1]), alpha, R)
         nbytes = B * C * (4 + d * 4 + 4 + 1) + B * (R + 1) * 4
         nflops = 3.0 * d * work
         log(f"[kernels] robust_prune_fp {tag} B={B} C={C} d={d} R={R}: "
@@ -328,6 +355,68 @@ def phase_kernels(seed: int, n_table: int) -> dict:
                    nbytes=nbytes, nflops=nflops, library_ms=None,
                    shape=f"B={B} C={C} d={d} R={R} ({tag})")
     del table
+    torch.cuda.empty_cache()
+
+    # ---- robust_prune_sdc: insert (B 256, C 203) and Patch (B 1024, C 128)
+    from repro_torch.core import pq as pqm
+    m, ksub = 32, 256
+    codes_tab = torch.from_numpy(g.integers(0, ksub, (n_table, m)).astype(
+        np.uint8)).to(dev)
+    tabs_int = torch.from_numpy(g.integers(0, 9, (m, ksub, ksub)).astype(
+        np.float32)).to(dev)
+    cb = pqm.PQCodebook(torch.from_numpy(g.standard_normal(
+        (m, ksub, d // m)).astype(np.float32)).to(dev))
+    tabs = pqm.sdc_tables(cb).contiguous()
+    for B, C, tag in ((256, 203, "insert"), (1024, 128, "patch")):
+        ids_np = g.integers(0, n_table, (B, C)).astype(np.int32)
+        ids_np[:, C // 2:C // 2 + C // 8] = ids_np[:, :C // 8]
+        ids_np[g.random((B, C)) < 0.05] = -1
+        ids = torch.from_numpy(ids_np).to(dev)
+        ok = (ids >= 0) & torch.from_numpy(g.random((B, C)) > 0.1).to(dev)
+        cand = codes_tab[ids.clamp(min=0).long()]
+        d_int = torch.from_numpy(g.integers(0, 9 * m, (B, C)).astype(
+            np.float32)).to(dev)
+        go, gc = ops.robust_prune_sdc(d_int, codes_tab, tabs_int, ids, ok,
+                                      alpha=alpha, R=R)
+        wo, wc = ref.robust_prune_sdc_ref(d_int, cand, tabs_int, ids, ok,
+                                          alpha=alpha, R=R)
+        check(torch.equal(go, wo) and torch.equal(gc, wc),
+              f"robust_prune_sdc {tag}: integer inputs differ")
+        # Gaussian: anchor distances are ADC of Gaussian queries' LUTs.
+        luts = pqm.lut(cb, torch.from_numpy(g.standard_normal(
+            (B, d)).astype(np.float32)).to(dev)).contiguous()
+        d_p = ref.adc_rows_ref(luts, codes_tab, ids)
+        go, gc = ops.robust_prune_sdc(d_p, codes_tab, tabs, ids, ok,
+                                      alpha=alpha, R=R)
+        wo, wc = ref.robust_prune_sdc_ref(d_p, cand, tabs, ids, ok,
+                                          alpha=alpha, R=R)
+        n_diff = int((go != wo).any(1).sum())
+        # Cover sums of m terms in another order than the plain version's:
+        # a near-tie alpha test may flip a row (reported; at most 1 %).
+        check(n_diff <= 0.01 * B, f"robust_prune_sdc {tag}: {n_diff} of {B}"
+              " rows differ")
+        ms = time_ms(lambda: ops.robust_prune_sdc(d_p, codes_tab, tabs, ids,
+                                                  ok, alpha=alpha, R=R))
+        plain = time_ms(lambda: ref.robust_prune_sdc_ref(
+            d_p, codes_tab[ids.clamp(min=0).long()], tabs, ids, ok,
+            alpha=alpha, R=R), iters=3)
+        work = prune_work(d_p, ok, lambda st: ref.sdc_cover_ref(
+            tabs, cand, st), alpha, R)
+        n_ok = int(ok.sum())
+        nbytes = (B * C * (4 + 4 + 1) + n_ok * m + m * ksub * ksub * 4
+                  + B * (R + 1) * 4)
+        nflops = float(m * work)
+        bnd = bound_ms(nbytes, nflops)
+        log(f"[kernels] robust_prune_sdc {tag} B={B} C={C} m={m} ksub={ksub}"
+            f" R={R}: integer equal, {n_diff} of {B} Gaussian rows differ  "
+            f"kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {bnd[0]:.4f} "
+            f"ms ({bnd[1]})")
+        if tag == "insert":
+            record("robust_prune_sdc", err=0.0, ms=ms, plain_ms=plain,
+                   nbytes=nbytes, nflops=nflops, library_ms=None,
+                   shape=f"B={B} C={C} m={m} ksub={ksub} R={R} ({tag}); "
+                   f"Gaussian rows differing {n_diff}/{B}")
+    del codes_tab
     torch.cuda.empty_cache()
 
     # A CUDA tensor with use_kernel=False raises: no silent plain version.
@@ -344,8 +433,8 @@ def phase_kernels(seed: int, n_table: int) -> dict:
 
 # --------------------------------------------------------------- phase 3
 def _stream_ops(sys_, new, n0):
-    """The parity stream: inserts with two rollovers, deletes in every
-    tier, a buffered delete and a re-insert."""
+    """The parity stream: inserts with rollovers and threshold merges,
+    deletes in every tier, a buffered delete and a re-insert."""
     for i in range(len(new)):
         sys_.insert(n0 + i, new[i])
         if i == 100:
@@ -355,51 +444,92 @@ def _stream_ops(sys_, new, n0):
     sys_.insert(17, new[0] + 1.0)
 
 
-def phase_parity(seed: int) -> None:
-    """The same small system on the CPU (plain versions) and on the card
-    (kernels): integer coordinates and an integer PQ codebook make every
-    sum exact, so results must be equal."""
+def _parity_system(dev, cfg, base, new, qs, cent) -> list:
+    """Everything the parity phase compares, for one device: searches after
+    the stream (threshold merges included) and after a global
+    ``consolidate``, the LTI's graph and ext-id table, and an SDC
+    ``streaming_merge`` of the result with a global Delete phase."""
     import torch
     from repro_torch.core import pq as pqm
-    from repro_torch.core.config import IndexConfig, PQConfig, SystemConfig
+    from repro_torch.core.merge import streaming_merge
     from repro_torch.core.system import bootstrap_system
+    n0 = len(base)
+    s = bootstrap_system(base, np.arange(n0), cfg, device=dev, batch=32,
+                         codebook=pqm.PQCodebook(torch.from_numpy(cent)))
+    _stream_ops(s, new, 1000)
+    out = [*s.search_batch(qs, k=5)]
+    check(s.stats.merges >= 2 and s.stats.snapshots >= 4,
+          f"parity stream: {s.stats.merges} merges")
+    for e in (20, 21, 1010, 1011):
+        s.delete(e)
+    check(s.consolidate(mode="global") == 4, "parity: consolidate count")
+    out += [*s.search_batch(qs, k=5), s.lti_ext_ids.copy(),
+            s.lti.graph.adjacency.cpu().numpy(),
+            np.array([s.stats.local_repairs, s.stats.global_repairs,
+                      s.stats.merge_backedge_targets, s.stats.merges])]
+    lti = s.lti
+    dmask = np.zeros(lti.graph.capacity, bool)
+    dmask[np.arange(0, n0, 13)] = True
+    merged, st = streaming_merge(
+        lti, torch.from_numpy(new[:40] + 1.0).to(dev),
+        torch.ones(40, dtype=torch.bool, device=dev),
+        torch.from_numpy(dmask).to(dev), cfg.index, cfg.pq, insert_chunk=16,
+        block=64, use_sdc=True, repair_mode="global")
+    out += [merged.graph.adjacency.cpu().numpy(), st.slots.cpu().numpy(),
+            np.array([st.n_deleted, st.n_inserted, st.n_backedge_pairs,
+                      st.n_backedge_targets, st.n_prune_rows])]
+    return out
+
+
+def phase_parity(seed: int) -> None:
+    """The same small systems on the CPU (plain versions) and on the card
+    (kernels): integer coordinates and an integer PQ codebook make every
+    sum exact, so results must be equal.  One system merges with local
+    Delete phases in arrival order, the other with global ones in
+    locality order."""
+    import dataclasses
+    from repro_torch.core.config import IndexConfig, PQConfig, SystemConfig
     from repro_torch.kernels import ops
     g = np.random.default_rng(seed + 1)
     d, n0 = 16, 256
     base = g.integers(-3, 4, (n0, d)).astype(np.float32)
-    new = g.integers(-3, 4, (140, d)).astype(np.float32)
+    new = g.integers(-3, 4, (200, d)).astype(np.float32)
     qs = g.integers(-3, 4, (37, d)).astype(np.float32)
     cent = g.integers(-3, 4, (4, 16, 4)).astype(np.float32)
-    cfg = SystemConfig(
-        index=IndexConfig(capacity=320, dim=d, R=8, L_build=16, L_search=24,
+    local = SystemConfig(
+        index=IndexConfig(capacity=512, dim=d, R=8, L_build=16, L_search=24,
                           alpha=1.2, beam_width=4),
-        pq=PQConfig(dim=d, m=4, ksub=16), ro_snapshot_points=48,
-        temp_capacity=96, insert_batch=16, batch_queries=16)
-    out = []
-    for dev in ("cpu", "cuda"):
-        before = dict(ops.LAUNCHES)
-        s = bootstrap_system(base, np.arange(n0), cfg, device=dev,
-                             batch=32, codebook=pqm.PQCodebook(
-                                 torch.from_numpy(cent)))
-        _stream_ops(s, new, 1000)
-        out.append(s.search_batch(qs, k=5))
-        ran = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
-        if dev == "cpu":
-            check(not any(ran.values()), f"CPU run launched kernels: {ran}")
-        else:
-            check(all(ran.values()), f"card run skipped a kernel: {ran}")
-        check(len(s.ro) == 2 and s.rw.n > 0, "parity stream: tiers")
-    for a, b, nm in zip(out[0], out[1], ("ids", "dists")):
-        check(np.array_equal(a, b), f"parity: CPU and card {nm} differ")
-    log(f"[parity] n={n0} d={d}: CPU plain path == card kernels "
-        f"(ids and dists of {len(qs)} queries over LTI + 2 RO + RW)")
+        pq=PQConfig(dim=d, m=4, ksub=16), ro_snapshot_points=32,
+        merge_threshold=64, temp_capacity=96, insert_batch=16,
+        batch_queries=16, merge_block=64, reach_probe_samples=16)
+    ordered = dataclasses.replace(local, locality_order=True,
+                                  local_repair_threshold=0.0)
+    for name, cfg in (("local repair, arrival order", local),
+                      ("global repair, locality order", ordered)):
+        out = []
+        for dev in ("cpu", "cuda"):
+            before = dict(ops.LAUNCHES)
+            out.append(_parity_system(dev, cfg, base, new, qs, cent))
+            ran = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+            if dev == "cpu":
+                check(not any(ran.values()), f"CPU run launched kernels: {ran}")
+            else:
+                check(all(ran.values()), f"card run skipped a kernel: {ran}")
+        for i, (a, b) in enumerate(zip(*out)):
+            check(np.array_equal(a, b),
+                  f"parity ({name}): CPU and card differ in output {i}")
+        log(f"[parity] {name}, n={n0} d={d}: CPU plain path == card kernels "
+            f"(searches of {len(qs)} queries after the stream and after a "
+            f"global consolidate, the LTI graph, merge counters "
+            f"{out[0][6].tolist()} [local, global repairs, Delta targets, "
+            f"merges], an SDC streaming_merge)")
 
 
-def reachable(state, n: int) -> np.ndarray:
+def reachable(state) -> np.ndarray:
     """bool [capacity]: slots reachable from ``state.start`` over the
     adjacency (breadth-first, on the device)."""
     import torch
-    adj = state.adjacency[:n].long()
+    adj = state.adjacency.long()
     seen = torch.zeros(state.capacity, dtype=torch.bool,
                        device=adj.device)
     front = state.start.reshape(1).long()
@@ -419,13 +549,39 @@ def _mixture(g, centers, n):
         (n, centers.shape[1])).astype(np.float32)).astype(np.float32)
 
 
-def phase_main(seed: int, n: int, centres: int = 4096,
-               profile: bool = False) -> dict:
-    """Bootstrap -> inserts with rollover -> deletes -> search_batch at
-    the freshdiskann-1b per-chip shape (src/repro/configs/
+def _recall(ids, queries, live_vecs, live_ids, k, dev) -> float:
+    """k-recall@k of ``ids`` against brute force over the live points."""
+    import torch
+    xn = (live_vecs * live_vecs).sum(1)
+    gt = []
+    for lo in range(0, len(queries), 256):
+        q = torch.from_numpy(queries[lo:lo + 256]).to(dev)
+        d = xn[None, :] - 2.0 * torch.matmul(q, live_vecs.T)
+        gt.append(d.topk(k, dim=1, largest=False).indices.cpu().numpy())
+    gt = live_ids[np.concatenate(gt)]
+    return float(((ids[:, :, None] == gt[:, None, :]).any(2)).sum(1).mean()
+                 / k)
+
+
+def _fmt_phases(t: dict) -> str:
+    return ", ".join(f"{k} {v:.2f} s" for k, v in t.items())
+
+
+def phase_main(seed: int, n: int, centres: int = 4096, dev="cuda",
+               capacity: int = 2_097_152, ro_points: int = 4096,
+               merge_threshold: int = 16384):
+    """The freshdiskann-1b per-chip shape (src/repro/configs/
     freshdiskann_1b.py FULL): capacity 2,097,152, dim 128, R 64, L_build
     75, L_search 100, alpha 1.2, W 4, PQ m 32 x ksub 256, k 5, 1024
-    concurrent queries.
+    concurrent queries, merge_threshold 16,384, merge_block 1024.
+
+    Bootstrap n points; delete 1 % of them; insert merge_threshold +
+    ro_points / 4 points (17,408): four RO snapshots trigger a
+    StreamingMerge through ``insert`` itself (its Delete phase local, as
+    1 % <= local_repair_threshold), and 1,024 points stay in RW; serve
+    4 x 1024 queries; delete another 1 % and ``consolidate`` globally
+    (every block); then ``streaming_merge(use_sdc=True)`` with a global
+    Delete phase of 1 % more deletes and ro_points new points on the LTI.
 
     The corpus is a mixture of ``centres`` isotropic Gaussians in 128
     dimensions.  With 256 centres the PQ codebook (256 centroids per
@@ -433,66 +589,93 @@ def phase_main(seed: int, n: int, centres: int = 4096,
     a point's place inside its cluster, and at ~4096 points per cluster the
     PQ-navigated LTI lane's candidate list misses most true neighbours
     (5-recall@5 0.75 at 1M points; PERF.md).  4096 centres keep ~256
-    points per cluster, the scale at which the PQ lane is meant to work."""
+    points per cluster, the scale at which the PQ lane is meant to work.
+    ``dev``, ``capacity``, ``ro_points`` and ``merge_threshold`` exist to
+    rehearse the path at a small size; the card runs the defaults.
+    Returns (launch counts of the whole path, the system)."""
     import torch
     from repro_torch.core.config import IndexConfig, PQConfig, SystemConfig
     from repro_torch.core.lti import search_lti
+    from repro_torch.core.merge import streaming_merge
     from repro_torch.core.system import bootstrap_system
     from repro_torch.kernels import ops
-    dev = torch.device("cuda")
-    icfg = IndexConfig(capacity=2_097_152, dim=128, R=64, L_build=75,
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    icfg = IndexConfig(capacity=capacity, dim=128, R=64, L_build=75,
                        L_search=100, alpha=1.2, beam_width=4)
     cfg = SystemConfig(index=icfg, pq=PQConfig(dim=128, m=32, ksub=256),
-                       ro_snapshot_points=4096, merge_threshold=16384,
-                       temp_capacity=65536, insert_batch=256,
-                       batch_queries=1024)
-    n_new, n_q, n_self, k = 8192 + 1024, 4 * 1024, 1024, 5
+                       ro_snapshot_points=ro_points,
+                       merge_threshold=merge_threshold, temp_capacity=65536,
+                       insert_batch=256, batch_queries=1024,
+                       merge_block=1024)
+    n_new = merge_threshold + ro_points // 4
+    n_q, n_self, k = 4 * 1024, 1024, 5
     g = np.random.default_rng(seed)
     centers = (g.standard_normal((centres, 128)) * 2.0).astype(np.float32)
     t0 = time.perf_counter()
     base = _mixture(g, centers, n)
     new = _mixture(g, centers, n_new)
     qs = _mixture(g, centers, n_q)
-    dels = g.choice(n, n // 100, replace=False)
+    sdc_new = _mixture(g, centers, ro_points)
+    perm = g.permutation(n)
+    dels, dels2, dels3 = (perm[:n // 100], perm[n // 100:2 * (n // 100)],
+                          perm[2 * (n // 100):3 * (n // 100)])
     log(f"[main] data: {n} bootstrap + {n_new} inserts + {n_q} queries, "
         f"dim 128, {centres}-centre Gaussian mixture "
-        f"({time.perf_counter() - t0:.1f}"
-        " s on the host)")
+        f"({time.perf_counter() - t0:.1f} s on the host)")
 
     ops.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     s = bootstrap_system(base, np.arange(n), cfg, device=dev)
-    torch.cuda.synchronize()
+    sync()
     t_build = time.perf_counter() - t0
     log(f"[main] bootstrap_system: {n} points in {t_build:.1f} s "
         f"({n / t_build:.0f} points/s) into capacity {icfg.capacity}")
 
+    for e in dels:
+        s.delete(int(e))
     before = dict(ops.LAUNCHES)
     t0 = time.perf_counter()
     for i in range(n_new):
         s.insert(n + i, new[i])
     s._flush_inserts()
-    torch.cuda.synchronize()
+    sync()
     t_ins = time.perf_counter() - t0
-    per_flush = {k: round((ops.LAUNCHES[k] - before[k]) / s.stats.flushes,
-                          1) for k in ops.LAUNCHES}
-    fl = s.stats.flush_latency.snapshot()
-    log(f"[main] {n_new} inserts in {t_ins:.2f} s ({n_new / t_ins:.0f} "
-        f"inserts/s); {s.stats.flushes} flushes, p50 {fl['p50'] * 1e3:.1f} "
-        f"ms p99 {fl['p99'] * 1e3:.1f} ms; tiers: RW {s.rw.n}, RO "
-        f"{[t.n for t in s.ro]}; launches per flush {json.dumps(per_flush)}")
-    check(len(s.ro) == 2 and s.rw.n > 0, "expected RW + two RO snapshots")
-
-    t0 = time.perf_counter()
-    for e in dels:
-        s.delete(int(e))
-    log(f"[main] {len(dels)} deletes in {time.perf_counter() - t0:.2f} s")
+    st = s.stats
+    fl = st.flush_latency.snapshot()
+    log(f"[main] {len(dels)} deletes, then {n_new} inserts in {t_ins:.2f} s "
+        f"({n_new / t_ins:.0f} inserts/s with the merge, "
+        f"{n_new / (t_ins - st.merge_seconds):.0f} without); "
+        f"{st.flushes} flushes, p50 {fl['p50'] * 1e3:.1f} ms p99 "
+        f"{fl['p99'] * 1e3:.1f} ms; tiers: RW {s.rw.n}, RO "
+        f"{[t.n for t in s.ro]}")
+    log(f"[main] threshold merge: {st.merges} merge of {merge_threshold} "
+        f"staged points in {st.merge_seconds:.2f} s "
+        f"({_fmt_phases(st.merge_phase_seconds)}); Delete phase "
+        f"{'local' if st.local_repairs else 'global'}; Delta targets "
+        f"{st.merge_backedge_targets}, prune rows {st.merge_prune_rows}; "
+        f"reach probe unreachable {st.unreachable_frac:.4f}; launches "
+        f"{json.dumps({k_: ops.LAUNCHES[k_] - before[k_] for k_ in ops.LAUNCHES})}")
+    n_live = int(s.lti.graph.active.sum())
+    check(st.merges == 1 and st.local_repairs == 1,
+          f"expected one threshold merge with a local Delete phase: "
+          f"{st.merges} merges, {st.local_repairs} local")
+    check(not s.ro and s.rw.n == n_new - merge_threshold,
+          f"tiers after the merge: RO {len(s.ro)}, RW {s.rw.n}")
+    check(n_live == n - len(dels) + merge_threshold,
+          f"LTI live count {n_live} != {n - len(dels) + merge_threshold}")
 
     before = dict(ops.LAUNCHES)
     s.search_batch(qs[:1024], k=k)                    # warm-up batch
-    log(f"[main] launches per search micro-batch (1024 queries, RW + 2 RO "
-        f"+ LTI lanes): {json.dumps({k_: ops.LAUNCHES[k_] - before[k_] for k_ in ops.LAUNCHES})}")
+    log(f"[main] launches per search micro-batch (1024 queries, RW + LTI "
+        f"lanes): {json.dumps({k_: ops.LAUNCHES[k_] - before[k_] for k_ in ops.LAUNCHES})}")
     s.stats.search_latency = type(s.stats.search_latency)(seed=1)
     t0 = time.perf_counter()
     ids, dists = s.search_batch(qs, k=k)
@@ -502,80 +685,216 @@ def phase_main(seed: int, n: int, centres: int = 4096,
         f"L 100, W 4): {n_q / t_q:.0f} queries/s; per micro-batch p50 "
         f"{lat['p50'] * 1e3:.1f} ms p99 {lat['p99'] * 1e3:.1f} ms "
         f"({lat['n']} batches)")
-
-    sel = g.choice(n_new, n_self, replace=False)
-    self_ids, _ = s.search_batch(new[sel], k=k)
-    hit = (self_ids == (n + sel)[:, None]).any(1)
-    self_top1 = float((self_ids[:, 0] == n + sel).mean())
-    # A point is findable only if its tier's graph reaches it from the
-    # start; batched flushes into an empty tier leave most of the first
-    # chunk without in-edges (the reference's flush does the same).
-    reach = {id(t): reachable(t.state, t.n) for t in [s.rw] + s.ro}
-    ok_reach = np.zeros(n_self, bool)
-    for j, e in enumerate(n + sel):
-        tier, slot = s._ext_loc[int(e)]
-        t = s.rw if tier == "rw" else next(
-            r for r in s.ro if r.ext_ids[slot] == e)
-        ok_reach[j] = reach[id(t)][slot]
-    self_all = float(hit.mean())
-    self_reach = float(hit[ok_reach].mean())
-    log(f"[main] self-hit: {self_all:.4f} of {n_self} inserted points in "
-        f"top-5 ({self_top1:.4f} at rank 1); {int((~ok_reach).sum())} of "
-        f"them unreachable from their tier's start; self-hit over the "
-        f"reachable ones {self_reach:.4f}; unreachable per tier "
-        f"{[int(t.n - reach[id(t)][:t.n].sum()) for t in [s.rw] + s.ro]}")
-
-    qd = torch.from_numpy(qs[:1024]).to(dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, _, hops, _ = search_lti(s.lti, qd, icfg, k=k, L=100)
-    torch.cuda.synchronize()
-    t_lti = time.perf_counter() - t0
-    rounds = int(hops.max())
-    log(f"[main] LTI lane alone, 1024 queries: {t_lti * 1e3:.1f} ms, "
-        f"{rounds} rounds -> {t_lti * 1e3 / max(rounds, 1):.2f} ms per "
-        f"round (mean hops {float(hops.float().mean()):.1f})")
-    launches = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    log(f"[main] launches {json.dumps(launches)}; "
-        f"max_memory_allocated {peak / 2**30:.2f} GiB")
-
-    # Checks: shapes and values, deletes honoured, recall, self-hits.
     check(ids.shape == (n_q, k) and dists.shape == (n_q, k),
           "search_batch shapes")
     check(bool(np.isfinite(dists).all()) and bool((ids >= 0).all()),
           "search_batch returned missing results")
     check(bool((np.diff(dists, axis=1) >= 0).all()), "dists not sorted")
     check(not np.isin(ids, dels).any(), "a deleted id was returned")
-    live_ids = np.concatenate([np.setdiff1d(np.arange(n), dels),
-                               n + np.arange(n_new)])
-    live = torch.from_numpy(np.concatenate(
-        [base[np.setdiff1d(np.arange(n), dels)], new])).to(dev)
-    xn = (live * live).sum(1)
-    gt = []
-    for lo in range(0, n_q, 256):
-        q = torch.from_numpy(qs[lo:lo + 256]).to(dev)
-        d = xn[None, :] - 2.0 * torch.matmul(q, live.T)
-        gt.append(d.topk(k, dim=1, largest=False).indices.cpu().numpy())
-    gt = live_ids[np.concatenate(gt)]
-    recall = float(((ids[:, :, None] == gt[:, None, :]).any(2)).sum(1).mean()
-                   / k)
+    keep = np.setdiff1d(np.arange(n), dels)
+    live_ids = np.concatenate([keep, n + np.arange(n_new)])
+    live = torch.from_numpy(np.concatenate([base[keep], new])).to(dev)
+    recall = _recall(ids, qs, live, live_ids, k, dev)
     log(f"[main] 5-recall@5 {recall:.4f} over {len(live_ids)} live points")
     check(recall >= 0.90, f"recall {recall} < 0.90")
+
+    # Self-hits of merged points, now served by the PQ-navigated LTI lane.
+    sel = g.choice(merge_threshold, n_self, replace=False)
+    self_ids, _ = s.search_batch(new[sel], k=k)
+    hit = (self_ids == (n + sel)[:, None]).any(1)
+    reach = reachable(s.lti.graph)
+    slots = np.array([s._ext_loc[int(n + i)][1] for i in sel])
+    check(all(s._ext_loc[int(n + i)][0] == "lti" for i in sel),
+          "a merged point is not in the LTI")
+    ok_reach = reach[slots]
+    self_reach = float(hit[ok_reach].mean())
+    log(f"[main] self-hit of merged points: {float(hit.mean()):.4f} of "
+        f"{n_self} in top-5 ({float((self_ids[:, 0] == n + sel).mean()):.4f}"
+        f" at rank 1); {int((~ok_reach).sum())} of them unreachable from the"
+        f" LTI's start; over the reachable ones {self_reach:.4f}; LTI "
+        f"unreachable live points "
+        f"{int((s.lti.graph.active.cpu().numpy() & ~reach).sum())}")
     check(self_reach >= 0.98,
-          f"self-hit over reachable inserted points {self_reach} < 0.98")
+          f"self-hit over reachable merged points {self_reach} < 0.98")
+
+    qd = torch.from_numpy(qs[:1024]).to(dev)
+    sync()
+    t0 = time.perf_counter()
+    _, _, hops, _ = search_lti(s.lti, qd, icfg, k=k, L=100)
+    sync()
+    t_lti = time.perf_counter() - t0
+    rounds = int(hops.max())
+    log(f"[main] LTI lane alone, 1024 queries: {t_lti * 1e3:.1f} ms, "
+        f"{rounds} rounds -> {t_lti * 1e3 / max(rounds, 1):.2f} ms per "
+        f"round (mean hops {float(hops.float().mean()):.1f})")
+
+    # Another 1 % of deletes, repaired by the global sweep (every block).
+    for e in dels2:
+        s.delete(int(e))
+    sync()
+    t0 = time.perf_counter()
+    n_cons = s.consolidate(mode="global")
+    sync()
+    t_cons = time.perf_counter() - t0
+    ids2, _ = s.search_batch(qs[:1024], k=k)
+    gone = np.concatenate([dels, dels2])
+    check(n_cons == len(dels2), f"consolidate removed {n_cons}")
+    check(not np.isin(ids2, gone).any(), "a deleted id was returned")
+    log(f"[main] consolidate(mode='global') of {n_cons} deletes over "
+        f"{-(-icfg.capacity // cfg.merge_block)} blocks: {t_cons:.2f} s")
+
+    # SDC StreamingMerge on the LTI: ro_points new points, 1 % deletes.
+    lti = s.lti
+    dmask = np.isin(s.lti_ext_ids, dels3)
+    timings: dict = {}
+    sync()
+    t0 = time.perf_counter()
+    merged, mst = streaming_merge(
+        lti, torch.from_numpy(sdc_new).to(dev),
+        torch.ones(ro_points, dtype=torch.bool, device=dev),
+        torch.from_numpy(dmask).to(dev), icfg, cfg.pq,
+        insert_chunk=cfg.insert_batch, block=cfg.merge_block, use_sdc=True,
+        repair_mode="global", timings=timings)
+    sync()
+    t_sdc = time.perf_counter() - t0
+    mg = merged.graph
+    live_mask = mg.active & ~mg.deleted
+    m_ids, *_ = search_lti(merged, qd, icfg, k=k, L=100)
+    m_ids = m_ids.cpu().numpy()
+    live_slots = torch.nonzero(live_mask)[:, 0]
+    recall_sdc = _recall(m_ids, qs[:1024], mg.vectors[live_slots],
+                         live_slots.cpu().numpy(), k, dev)
+    log(f"[main] streaming_merge(use_sdc=True, global) of {ro_points} "
+        f"points and {mst.n_deleted} deletes: {t_sdc:.2f} s "
+        f"({_fmt_phases(timings)}); cap overflows "
+        f"{mst.repair_cap_overflows}, Delta targets "
+        f"{mst.n_backedge_targets}, prune rows {mst.n_prune_rows}; "
+        f"5-recall@5 of the merged LTI lane {recall_sdc:.4f}")
+    check(mst.n_deleted == len(dels3) and mst.n_inserted == ro_points,
+          f"SDC merge counts {mst.n_deleted}, {mst.n_inserted}")
+    check(recall_sdc >= 0.90, f"recall after the SDC merge {recall_sdc}")
+    del merged, mg
+
+    sync()
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    log(f"[main] launches {json.dumps(launches)}; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    check(peak < 80 * 2**30, f"peak memory {peak / 2**30:.1f} GiB")
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path never launched: {launches}")
-    if profile:
-        profile_steps(s, qs[:1024], _mixture(g, centers, 256), n + n_new)
-    return launches
+    return launches, s
 
 
-def profile_steps(s, queries, vecs, first_id) -> None:
+def repair_kernel_records(lti, seed: int, B: int = 1024) -> dict:
+    """The two delete-repair kernels against their plain versions at the
+    main path's block shape (B 1024, R 64), on the merged LTI's real
+    adjacency with 1 % of its live points deleted: a block of affected
+    nodes (the local sweep's; every node is repaired).  Integer inputs
+    (an integer table, integer SDC tables) must give equal rows; on the
+    real inputs (the PQ-decoded table, the codebook's SDC tables) the
+    share of differing rows is reported.  Also times a block of
+    consecutive slots (the global sweep's)."""
+    import torch
+    from repro_torch.core import pq as pqm
+    from repro_torch.core.config import PQConfig
+    from repro_torch.core.delete import affected_mask
+    from repro_torch.kernels import ops, ref
+    gr = lti.graph
+    dev = gr.device
+    rng = np.random.default_rng(seed + 7)
+    live = torch.nonzero(gr.active)[:, 0].cpu().numpy()
+    deleted = torch.zeros_like(gr.deleted)
+    deleted[torch.from_numpy(rng.choice(live, len(live) // 100,
+                                        replace=False)).to(dev)] = True
+    usable = gr.active & ~deleted
+    adj = gr.adjacency
+    R, alpha, cap = gr.R, 1.2, 8
+    ids = affected_mask(adj, deleted, usable).nonzero()[:B, 0].int()
+    block = torch.arange(B, dtype=torch.int32, device=dev)
+    pq_cfg = PQConfig(dim=gr.dim, m=lti.codes.shape[1],
+                      ksub=lti.codebook.centroids.shape[1])
+    decoded = pqm.decode(lti.codebook, lti.codes, pq_cfg).contiguous()
+    d, m, ksub = gr.dim, pq_cfg.m, pq_cfg.ksub
+    table_int = torch.from_numpy(rng.integers(-3, 4, (gr.capacity, d)).astype(
+        np.float32)).to(dev)
+    tabs = pqm.sdc_tables(lti.codebook).contiguous()
+    tabs_int = torch.from_numpy(rng.integers(0, 9, (m, ksub, ksub)).astype(
+        np.float32)).to(dev)
+    recs = {}
+
+    def footprint(operands, payload_bytes, cover, flop_per_eval):
+        """Bytes and operations these inputs need (each read once)."""
+        rows, nbr_del, exp, exp_ok, usable_c, d_p, payload = operands[:7]
+        p, live_ = operands[-2], operands[-1]
+        cand, ok = ref.delete_repair_assemble_ref(rows, nbr_del, exp, exp_ok,
+                                                  usable_c, p)
+        changed = live_ & nbr_del.any(1)
+        ok = ok & changed[:, None]
+        n_cand = int(ok.sum())
+        n_par = int((exp_ok & changed[:, None]).sum())
+        lanes = int(changed.sum()) * R + n_par * R
+        work = prune_work(d_p, ok, cover(payload), alpha, R)
+        nbytes = (B * R * 4 * 2 + B * R + B + n_par * R * 4 + lanes
+                  + (n_cand + B) * payload_bytes)
+        return nbytes, float(flop_per_eval * (n_cand + work))
+
+    for name, args_int, args_real, form, payload_bytes, cover, fpe in (
+            ("delete_repair_fp", (table_int,), (decoded,),
+             ref.repair_operands_fp, d * 4, fp_cover, 3 * d),
+            ("delete_repair_sdc", (lti.codes, tabs_int), (lti.codes, tabs),
+             lambda *a: ref.repair_operands_sdc(*a, cap), m,
+             lambda codes: (lambda st: ref.sdc_cover_ref(tabs, codes, st)),
+             m)):
+        kw = dict(alpha=alpha, R=R, **({"cap": cap} if "sdc" in name
+                                       else {}))
+        fn = getattr(ops, name)
+        plain = getattr(ref, name + "_ref")
+        got = fn(adj, deleted, usable, *args_int, ids, **kw)
+        want = plain(*form(adj, deleted, usable, *args_int, ids), alpha=alpha,
+                     R=R)
+        check(torch.equal(got, want), f"{name}: integer inputs differ")
+        operands = form(adj, deleted, usable, *args_real, ids)
+        got = fn(adj, deleted, usable, *args_real, ids, **kw)
+        want = plain(*operands, alpha=alpha, R=R)
+        n_diff = int((got != want).any(1).sum())
+        check(n_diff <= 0.01 * B, f"{name}: {n_diff} of {B} rows differ")
+        ms = time_ms(lambda: fn(adj, deleted, usable, *args_real, ids, **kw))
+        ms_block = time_ms(lambda: fn(adj, deleted, usable, *args_real,
+                                      block, **kw))
+        plain_ms = time_ms(lambda: plain(*form(adj, deleted, usable,
+                                               *args_real, ids),
+                                         alpha=alpha, R=R), iters=2,
+                           warmup=1)
+        nbytes, nflops = footprint(operands, payload_bytes, cover, fpe)
+        if "sdc" in name:
+            nbytes += m * ksub * ksub * 4
+        C = operands[5].shape[1]
+        del operands
+        torch.cuda.empty_cache()
+        bnd = bound_ms(nbytes, nflops)
+        log(f"[kernels] {name} B={B} R={R} C={C} (1 % deleted, affected "
+            f"block): integer equal, {n_diff} of {B} real-input rows differ"
+            f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}); a block of consecutive slots "
+            f"{ms_block:.4f} ms")
+        recs[name] = kernel_record(
+            name, err=0.0, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            nflops=nflops, library_ms=None,
+            shape=f"B={B} R={R} C={C} affected block, 1 % deleted; "
+            f"real-input rows differing {n_diff}/{B}; consecutive block "
+            f"{ms_block:.4f} ms")
+    return recs
+
+
+def profile_steps(s, queries, vecs, merge_vecs, first_id) -> None:
     """Device busy share and kernel time by name, from torch.profiler,
-    over one search micro-batch and one flush (after the main path)."""
+    over one search micro-batch, one flush and one StreamingMerge (a
+    local Delete phase of 1 % deletes and len(merge_vecs) points, on the
+    LTI, not swapped in) after the main path."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.merge import streaming_merge
 
     def run(name, fn):
         torch.cuda.synchronize()
@@ -602,9 +921,29 @@ def profile_steps(s, queries, vecs, first_id) -> None:
             s.insert(first_id + i, v)
         s._flush_inserts()
 
+    lti = s.lti
+    dev = lti.graph.device
+    rng = np.random.default_rng(5)
+    live = torch.nonzero(lti.graph.active)[:, 0].cpu().numpy()
+    dmask = torch.zeros_like(lti.graph.active)
+    dmask[torch.from_numpy(rng.choice(live, len(live) // 100,
+                                      replace=False)).to(dev)] = True
+    timings: dict = {}
+
+    def merge():
+        streaming_merge(lti, torch.from_numpy(merge_vecs).to(dev),
+                        torch.ones(len(merge_vecs), dtype=torch.bool,
+                                   device=dev), dmask, s.cfg.index,
+                        s.cfg.pq, insert_chunk=s.cfg.insert_batch,
+                        block=s.cfg.merge_block, repair_mode="local",
+                        timings=timings)
+
     run(f"search_batch {len(queries)} queries",
         lambda: s.search_batch(queries, k=5))
     run(f"flush of {len(vecs)} inserts", flush)
+    run(f"streaming_merge of {len(merge_vecs)} points, 1 % deletes, local "
+        "Delete phase", merge)
+    log(f"[profile] that merge by phase: {_fmt_phases(timings)}")
 
 
 # --------------------------------------------------------------- main
@@ -639,17 +978,25 @@ def main(argv=None) -> int:
         if "parity" in phases:
             phase_parity(args.seed)
         if "main" in phases:
-            launches = phase_main(args.seed, args.n, args.centres,
-                                  profile="profile" in phases)
+            launches, s = phase_main(args.seed, args.n, args.centres)
+            if "kernels" in phases:
+                recs.update(repair_kernel_records(s.lti, args.seed))
             for name, cnt in launches.items():
                 if name in recs:
                     recs[name]["launches"] = cnt
+            if "profile" in phases:
+                g = np.random.default_rng(args.seed + 3)
+                pts = (g.standard_normal((4096 + 256, 128)) * 2.0).astype(
+                    np.float32)
+                profile_steps(s, pts[:1024], pts[4096:], pts[:4096],
+                              10 * args.n)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(ident)
-    print(json.dumps({"kernels": list(recs.values())}))
+    print(json.dumps({"kernels": [recs[k] for k in KERNEL_META
+                                  if k in recs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

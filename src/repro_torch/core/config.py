@@ -2,9 +2,9 @@
 
 The same three dataclasses as the JAX package's ``core/config.py``, with the
 same fields and defaults, so one configuration describes both packages.
-Fields of features this slice of the port does not run yet are kept (and
-checked by ``system.FreshDiskANN``, which raises ``NotImplementedError``
-when one is set away from its default); see ``ROADMAP.md`` for the slices.
+Fields of features the port does not run yet are kept (and checked by
+``system.FreshDiskANN``, which raises ``NotImplementedError`` when one is
+set away from its default); see ``ROADMAP.md`` for the slices.
 """
 from __future__ import annotations
 
@@ -33,8 +33,10 @@ class IndexConfig:
         tensors, the plain engine path for CPU tensors.  True on the CPU
         runs the wrappers' plain versions (the numerics of the kernels);
         False on a CUDA device raises -- the plain path is a CPU reference.
-      repair_mode: delete-repair sweep of the merge slice (not run here).
-      locality_clusters: locality ordering of a later slice (not run here).
+      repair_mode: the delete-repair sweep, "global" (every block) or
+        "local" (the affected rows only); both give the same graph.
+      locality_clusters: medoids of the locality ordering
+        (``SystemConfig.locality_order``).
     """
 
     capacity: int
@@ -88,12 +90,13 @@ class PQConfig:
 @dataclasses.dataclass(frozen=True)
 class SystemConfig:
     """FreshDiskANN system-level knobs (paper §5, §6.2).  Field meanings are
-    those of the JAX package's ``SystemConfig``; this slice runs the TempIndex
+    those of the JAX package's ``SystemConfig``; the port runs the TempIndex
     limits (``ro_snapshot_points``, ``temp_capacity``, ``insert_batch``),
-    ``rerank`` and ``batch_queries``.  Reaching ``merge_threshold`` and the
-    features behind ``wal_dir``, ``snapshot_dir``, ``storage_dir``,
-    ``shard_lti``, ``filter_words``, ``locality_order``, ``autotune_beam``,
-    ``background_merge`` and ``batch_fanout=False`` raise
+    ``rerank``, ``batch_queries``, the merge (``merge_threshold``,
+    ``merge_block``, ``background_merge``, ``local_repair_threshold``, the
+    ``reach_*`` probe) and ``locality_order``.  The features behind
+    ``wal_dir``, ``snapshot_dir``, ``storage_dir``, ``shard_lti``,
+    ``filter_words``, ``autotune_beam`` and ``batch_fanout=False`` raise
     ``NotImplementedError`` until their slices land."""
 
     index: IndexConfig

@@ -11,9 +11,9 @@ A batch of B new points is inserted in three stages:
      every affected node either appends its new sources (if it stays within
      the degree budget R) or re-prunes N_out(j) + {p...}.
 
-Every prune rides ``prune.robust_prune_batch`` (the ``robust_prune_fp``
-kernel under ``use_kernel``).  Points inside one batch do not see each
-other, as in the reference.
+Every prune rides ``prune.robust_prune_batch`` (the ``robust_prune_fp`` or
+``robust_prune_sdc`` kernel under ``use_kernel``).  Points inside one batch
+do not see each other, as in the reference.
 
 Unlike the JAX package, which scatters into a dense [N, d_max] Delta buffer
 and processes ``min(P, N)`` rows (most of them untouched), the port groups
@@ -27,7 +27,8 @@ from typing import NamedTuple
 import torch
 
 from .distance import INVALID
-from .prune import FullPrecisionPrune, prune_node_batch, robust_prune_batch
+from .prune import (FullPrecisionPrune, SDCPrune, prune_node_batch,
+                    robust_prune_batch)
 from .search import SearchResult, beam_search
 
 
@@ -101,18 +102,29 @@ def _dedupe_combine(combine: torch.Tensor) -> torch.Tensor:
     return torch.where(dup, torch.full_like(combine, INVALID), combine)
 
 
-def apply_back_edges(adjacency: torch.Tensor, prune_table: torch.Tensor,
-                     usable: torch.Tensor, pairs_j: torch.Tensor,
-                     pairs_p: torch.Tensor, *, alpha: float, R: int,
-                     d_max: int | None = None, chunk: int = 1024,
-                     use_kernel: bool = False) -> torch.Tensor:
-    """Stage 3: apply Delta.  Each affected node appends its new sources,
-    or re-prunes N_out(j) + sources when they exceed R (Algorithm 2).
-    Updates ``adjacency`` in place (rows of distinct targets, in chunks of
-    ``chunk`` rows) and returns it."""
+def patch_delta(adjacency: torch.Tensor, backend, usable: torch.Tensor,
+                pairs_j: torch.Tensor, pairs_p: torch.Tensor, *, alpha: float,
+                R: int, d_max: int | None = None, chunk: int = 1024,
+                use_kernel: bool = False,
+                affected_cap: int | None = None) -> tuple[torch.Tensor, int]:
+    """Stage 3 / the StreamingMerge Patch phase: apply Delta through a
+    prune backend.  Each affected node appends its new sources, or
+    re-prunes N_out(j) + sources when they exceed R (Algorithm 2).
+
+    Updates ``adjacency`` in place, the rows of the distinct targets in
+    ascending order, ``chunk`` rows at a time, and returns it with the
+    number of rows sent to the prune engine.  At most ``affected_cap``
+    targets are processed, the lowest first, as the reference's top-k over
+    the affected indicator takes them (callers pass a cap no smaller than
+    the distinct-target count; None is the worst case min(P, N)).
+    """
     d_max = d_max if d_max is not None else R
     targets, buf, _ = group_pairs(pairs_j, pairs_p, d_max)
-    backend = FullPrecisionPrune(prune_table)
+    a_max = min(pairs_j.shape[0], adjacency.shape[0])
+    if affected_cap is not None:
+        a_max = max(1, min(a_max, int(affected_cap)))
+    targets, buf = targets[:a_max], buf[:a_max]
+    n_pruned = 0
     for lo in range(0, len(targets), chunk):
         js = targets[lo:lo + chunk]
         combine = _dedupe_combine(torch.cat([adjacency[js],
@@ -127,5 +139,33 @@ def apply_back_edges(adjacency: torch.Tensor, prune_table: torch.Tensor,
             rows[over] = prune_node_batch(
                 backend, js[over].to(torch.int32), combine[over], usable,
                 alpha=alpha, R=R, use_kernel=use_kernel).ids
+            n_pruned += len(over)
         adjacency[js] = rows
-    return adjacency
+    return adjacency, n_pruned
+
+
+def apply_back_edges(adjacency: torch.Tensor, prune_table: torch.Tensor,
+                     usable: torch.Tensor, pairs_j: torch.Tensor,
+                     pairs_p: torch.Tensor, *, alpha: float, R: int,
+                     d_max: int | None = None, chunk: int = 1024,
+                     use_kernel: bool = False,
+                     affected_cap: int | None = None) -> torch.Tensor:
+    """Stage 3 with full-precision prune distances from ``prune_table``
+    (``patch_delta``); updates ``adjacency`` in place and returns it."""
+    return patch_delta(adjacency, FullPrecisionPrune(prune_table), usable,
+                       pairs_j, pairs_p, alpha=alpha, R=R, d_max=d_max,
+                       chunk=chunk, use_kernel=use_kernel,
+                       affected_cap=affected_cap)[0]
+
+
+def apply_back_edges_codes(adjacency: torch.Tensor, codes: torch.Tensor,
+                           tables: torch.Tensor, usable: torch.Tensor,
+                           pairs_j: torch.Tensor, pairs_p: torch.Tensor, *,
+                           alpha: float, R: int, d_max: int | None = None,
+                           chunk: int = 1024, use_kernel: bool = False,
+                           affected_cap: int | None = None) -> torch.Tensor:
+    """The Patch phase with SDC distances from PQ ``codes`` [N, m] and
+    ``tables`` [m, ksub, ksub] (``patch_delta``)."""
+    return patch_delta(adjacency, SDCPrune(codes, tables), usable, pairs_j,
+                       pairs_p, alpha=alpha, R=R, d_max=d_max, chunk=chunk,
+                       use_kernel=use_kernel, affected_cap=affected_cap)[0]

@@ -114,3 +114,11 @@ def sdc_tables(codebook: PQCodebook) -> torch.Tensor:
     c = codebook.centroids
     diff = c[:, :, None, :] - c[:, None, :, :]
     return (diff * diff).sum(-1)
+
+
+def sdc_lut(tables: torch.Tensor, code: torch.Tensor) -> torch.Tensor:
+    """Anchor PQ codes: code [..., m] -> ADC-shaped LUTs [..., m, ksub]
+    (``tables[j, code[..., j], :]``), so that ``adc(codes_b,
+    sdc_lut(tables, a))`` is the SDC distance from a to every b."""
+    m = tables.shape[0]
+    return tables[torch.arange(m, device=tables.device), code.long()]

@@ -2,10 +2,14 @@
 
 An edge to c is dropped once some retained p* satisfies
 ``alpha * d(p*, c) <= d(p, c)``.  ``robust_prune_batch`` prunes a whole
-block of node rows per call through a prune backend; this slice ports the
-full-precision one (``FullPrecisionPrune``), whose rounds run in the
-``robust_prune_fp`` kernel when ``use_kernel`` and in its plain version
-otherwise.  The SDC (PQ-code) backend comes with the merge slice.
+block of node rows per call through a prune backend:
+
+  ``FullPrecisionPrune``  exact squared L2 over a stored vector table; its
+                          rounds run in the ``robust_prune_fp`` kernel when
+                          ``use_kernel`` and in its plain version otherwise;
+  ``SDCPrune``            symmetric distances straight from PQ codes (the
+                          StreamingMerge operating point, ``use_sdc``); its
+                          rounds run in ``robust_prune_sdc``.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import pq as pqm
 from .distance import l2_sq
 from ..kernels import ops
 
@@ -42,6 +47,33 @@ class FullPrecisionPrune(NamedTuple):
         out, cnt = ops.robust_prune_fp(
             d_p.float().contiguous(), vecs, cand_ids.int().contiguous(),
             cand_ok.contiguous(), alpha=alpha, R=R, use_kernel=use_kernel)
+        return PruneResult(out, cnt)
+
+
+class SDCPrune(NamedTuple):
+    """PQ-code pruning: every distance is symmetric-distance-computed from
+    ``codes`` [N, m] uint8 through ``tables`` [m, ksub, ksub]
+    (``pq.sdc_tables``) -- equal to pruning on the decoded vectors."""
+
+    codes: torch.Tensor
+    tables: torch.Tensor
+
+    def anchor_of(self, ps: torch.Tensor) -> torch.Tensor:
+        """Node ids [B] -> their SDC LUTs [B, m, ksub]."""
+        return pqm.sdc_lut(self.tables, self.codes[ps.clamp(min=0).long()])
+
+    def anchor_dists(self, anchors: torch.Tensor, cand_ids: torch.Tensor
+                     ) -> torch.Tensor:
+        """LUTs [B, m, ksub] x cand_ids [B, C] -> d(p, c) [B, C] (+inf
+        where cand_ids < 0; those lanes are masked anyway)."""
+        return pqm.adc_gather(self.codes, anchors.float(), cand_ids)
+
+    def prune_rows(self, d_p, cand_ids, cand_ok, *, alpha, R, use_kernel
+                   ) -> PruneResult:
+        out, cnt = ops.robust_prune_sdc(
+            d_p.float().contiguous(), self.codes, self.tables.float(),
+            cand_ids.int().contiguous(), cand_ok.contiguous(), alpha=alpha,
+            R=R, use_kernel=use_kernel)
         return PruneResult(out, cnt)
 
 

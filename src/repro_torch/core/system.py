@@ -1,22 +1,32 @@
-"""The FreshDiskANN system (paper §5): LTI + RW/RO TempIndex + DeleteList,
-PyTorch port of the main path of ``core/system.py``.
+"""The FreshDiskANN system (paper §5): LTI + RW/RO TempIndex + DeleteList
+with the StreamingMerge cycle, PyTorch port of ``core/system.py``.
 
-This slice runs: the bootstrap build of the LTI, streaming inserts buffered
-and flushed into the RW TempIndex in arrival order, RW -> RO rollover,
-deletes into the DeleteList, and ``search_batch`` through the one-call
-§5.2 fan-out (``index.unified_search``) with ``batch_queries`` chunking.
-Everything lives on one device (CUDA unless the caller asks for the CPU).
+It runs: the bootstrap build of the LTI, streaming inserts buffered and
+flushed into the RW TempIndex (in arrival order, or proximity-ordered with
+``locality_order``), RW -> RO rollover, deletes into the DeleteList,
+``search_batch`` through the one-call §5.2 fan-out
+(``index.unified_search``) with ``batch_queries`` chunking, and
+StreamingMerge of the RO tiers and the DeleteList into the LTI -- on
+reaching ``merge_threshold`` (on a worker thread with
+``background_merge``) or on ``merge()`` -- plus the standalone
+``consolidate()``.  Everything lives on one device (CUDA unless the caller
+asks for the CPU).
 
-Not in this slice, and raising ``NotImplementedError`` naming the slice
-that ports it: StreamingMerge (``merge()``, reaching ``merge_threshold``,
-``background_merge``), the WAL and snapshots (``wal_dir``,
-``snapshot_dir``), the disk layout (``storage_dir``), the sharded LTI lane
-(``shard_lti``), filters and tenants (``filter_words``, ``labels``,
-``tenant``), locality ordering (``locality_order``), the beam-width
+A merge builds a NEW LTI (``merge.streaming_merge`` writes only copies)
+while searches read the old one; the (LTI, external-id table) pair is
+swapped as one tuple once the merge's device work has finished, and the RO
+snapshots it consumed leave ``self.ro`` only after that swap, so a search
+racing a merge sees every point in one whole generation (or briefly in two,
+which the cross-tier dedupe resolves).  The reference's locks keep their
+canonical order: ``_flush_lock`` -> ``_insert_lock`` -> ``_ro_lock``, and
+``_merge_lock`` around merges and consolidations.
+
+Not ported yet, and raising ``NotImplementedError`` naming the slice that
+ports it: the WAL and snapshots (``wal_dir``, ``snapshot_dir``), the disk
+layout (``storage_dir``), the sharded LTI lane (``shard_lti``), filters and
+tenants (``filter_words``, ``labels``, ``tenant``), the beam-width
 autotuner (``autotune_beam``) and the sequential per-tier query path
-(``batch_fanout=False``).  The class is not thread-safe in this slice: the
-locks of the reference guard its background merge, which comes with the
-merge slice.
+(``batch_fanout=False``).
 
 External ids are user-provided int64s; the system maps them to
 (tier, slot).
@@ -24,6 +34,7 @@ External ids are user-provided int64s; the system maps them to
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -34,19 +45,20 @@ import torch
 from . import index as mem
 from . import pq as pqm
 from .config import SystemConfig, resolve_device
+from .delete import affected_mask, consolidate_deletes
 from .distance import INVALID
 from .graph import GraphState, empty_graph, pad_graph, stack_lanes
+from .locality import locality_order
 from .lti import LTIState, build_lti
+from .merge import streaming_merge
+from .reach import unreachable_fraction
 
-MERGE_SLICE = "the merge slice (StreamingMerge and delete consolidation)"
 _UNPORTED = (
     ("wal_dir", None, "the WAL and snapshot slice"),
     ("snapshot_dir", None, "the WAL and snapshot slice"),
     ("storage_dir", None, "the storage slice"),
     ("shard_lti", 0, "the serving and sharding slice"),
     ("filter_words", 0, "the filters slice"),
-    ("locality_order", False, MERGE_SLICE),
-    ("background_merge", False, MERGE_SLICE),
     ("autotune_beam", False, "the autotune slice"),
     ("batch_fanout", True,
      "the serving and sharding slice, with the "
@@ -55,7 +67,7 @@ _UNPORTED = (
 
 
 def check_ported(cfg: SystemConfig) -> None:
-    """Raise ``NotImplementedError`` for a knob this slice does not run."""
+    """Raise ``NotImplementedError`` for a knob the port does not run yet."""
     for name, default, where in _UNPORTED:
         if getattr(cfg, name) != default:
             raise NotImplementedError(
@@ -106,15 +118,31 @@ class Reservoir:
 
 @dataclass
 class SystemStats:
-    """The reference's counters that this slice's path updates (same names
+    """The reference's counters that the ported paths update (same names
     and meanings)."""
     inserts: int = 0
     deletes: int = 0
     searches: int = 0            # queries served
+    merges: int = 0
     snapshots: int = 0           # RW -> RO rollovers
+    merge_seconds: float = 0.0
     search_dispatches: int = 0   # unified fan-out calls (one per micro-batch)
+    local_repairs: int = 0       # Delete phases run as the affected-set sweep
+    global_repairs: int = 0      # Delete phases run as the global sweep
+    consolidations: int = 0      # standalone consolidate() calls
+    repair_cap_overflows: int = 0  # SDC repairs past merge.SDC_REPAIR_CAP
+    reach_probes: int = 0        # reachability probes run
+    repair_escalations: int = 0  # local repairs whose probe forced the next
+    #   Delete phase global
+    unreachable_frac: float = 0.0  # gauge: the latest probe's estimate
     flushes: int = 0
     flush_backedge_targets: int = 0  # distinct Delta targets across flushes
+    merge_backedge_targets: int = 0  # distinct Delta targets across merges
+    merge_prune_rows: int = 0    # rows merge Patch phases sent to the prune
+    #   engine (MergeStats.n_prune_rows: what the port launched)
+    merge_phase_seconds: dict = field(default_factory=dict)  # port only:
+    #   seconds per merge phase ("delete", "insert", "patch") summed over
+    #   merges, the device synchronized at each phase boundary
     insert_latency: Reservoir = field(default_factory=Reservoir, repr=False)
     search_latency: Reservoir = field(
         default_factory=lambda: Reservoir(seed=1), repr=False)
@@ -157,9 +185,22 @@ class FreshDiskANN:
         self._insert_buf_v: list[np.ndarray] = []
         self._insert_buf_id: list[int] = []
         self.stats = SystemStats()
-        # Fan-out caches keyed by tier-state identity (a flush or rollover
-        # replaces the state object) and, for the drop mask, the DeleteList
-        # epoch (bumped on every DeleteList change).
+        self._merge_lock = threading.Lock()
+        self._ro_lock = threading.Lock()      # guards self.ro
+        # Guards the insert buffer and the RW bookkeeping (buffer append and
+        # swap, DeleteList edits, ext-id maps); the flush compute runs under
+        # _flush_lock only.  Canonical order: _flush_lock -> _insert_lock ->
+        # _ro_lock.
+        self._insert_lock = threading.RLock()
+        self._flush_lock = threading.RLock()
+        self._flush_seq = 0                   # locality-order seed per flush
+        self._merge_inflight = 0              # staged points being merged
+        self._merge_thread: Optional[threading.Thread] = None
+        self._force_global_repair = False     # set by a reachability probe
+        self._reach_baseline: Optional[float] = None
+        # Fan-out caches keyed by tier-state identity (a flush, rollover or
+        # merge replaces the state object) and, for the drop mask, the
+        # DeleteList epoch (bumped on every DeleteList change).
         self._fanout_cache: Optional[tuple] = None
         self._drop_cache: Optional[tuple] = None
         self._delete_epoch = 0
@@ -181,13 +222,14 @@ class FreshDiskANN:
                 "labelled and tenant inserts are not ported to repro_torch "
                 "yet; they come with the filters slice")
         t0 = time.perf_counter()
-        self._insert_buf_id.append(int(ext_id))
-        self._insert_buf_v.append(np.asarray(vec, np.float32))
-        # A re-insert revives the id at once (not at flush time).
-        if int(ext_id) in self.deleted_ext:
-            self.deleted_ext.discard(int(ext_id))
-            self._delete_epoch += 1
-        full = len(self._insert_buf_id) >= self.cfg.insert_batch
+        with self._insert_lock:
+            self._insert_buf_id.append(int(ext_id))
+            self._insert_buf_v.append(np.asarray(vec, np.float32))
+            # A re-insert revives the id at once (not at flush time).
+            if int(ext_id) in self.deleted_ext:
+                self.deleted_ext.discard(int(ext_id))
+                self._delete_epoch += 1
+            full = len(self._insert_buf_id) >= self.cfg.insert_batch
         self.stats.inserts += 1
         self.stats.record_latency(time.perf_counter() - t0)
         if full:
@@ -197,14 +239,16 @@ class FreshDiskANN:
     def delete(self, ext_id: int) -> None:
         """DeleteList append -- no graph edits (paper §4.2)."""
         e = int(ext_id)
-        if e in self._insert_buf_id:
-            # Only buffered: drop it there, or the next flush would revive
-            # it and invert the op order.
-            keep = [i for i, x in enumerate(self._insert_buf_id) if x != e]
-            self._insert_buf_id = [self._insert_buf_id[i] for i in keep]
-            self._insert_buf_v = [self._insert_buf_v[i] for i in keep]
-        self.deleted_ext.add(e)
-        self._delete_epoch += 1
+        with self._insert_lock:
+            if e in self._insert_buf_id:
+                # Only buffered: drop it there, or the next flush would
+                # revive it and invert the op order.
+                keep = [i for i, x in enumerate(self._insert_buf_id)
+                        if x != e]
+                self._insert_buf_id = [self._insert_buf_id[i] for i in keep]
+                self._insert_buf_v = [self._insert_buf_v[i] for i in keep]
+            self.deleted_ext.add(e)
+            self._delete_epoch += 1
         self.stats.deletes += 1
 
     def search(self, queries: np.ndarray, k: int, L: Optional[int] = None,
@@ -255,10 +299,199 @@ class FreshDiskANN:
         return (np.concatenate([o[0] for o in outs]),
                 np.concatenate([o[1] for o in outs]))
 
+    # -------------------------------------------------------------- merging
     def merge(self, background: bool = False) -> None:
-        raise NotImplementedError(
-            f"StreamingMerge is not ported to repro_torch yet; it comes "
-            f"with {MERGE_SLICE}")
+        """StreamingMerge the RO TempIndex points and the DeleteList into
+        the LTI (on a worker thread with ``background``; a merge already
+        running there makes this a no-op)."""
+        if background:
+            if self._merge_thread and self._merge_thread.is_alive():
+                return
+            self._merge_thread = threading.Thread(target=self._merge_impl)
+            self._merge_thread.start()
+        else:
+            self._merge_impl()
+
+    def wait_merge(self) -> None:
+        if self._merge_thread:
+            self._merge_thread.join()
+
+    def _merge_impl(self) -> None:
+        with self._merge_lock:
+            t0 = time.perf_counter()
+            # The RO tiers stay searchable while the merge runs: they leave
+            # self.ro only after the new LTI holding their points is in.
+            with self._ro_lock:
+                ro = list(self.ro)
+                self._merge_inflight = sum(t.n for t in ro)
+            try:
+                self._merge_body(ro, t0)
+            finally:
+                self._merge_inflight = 0
+
+    def _sync_device(self) -> None:
+        """Wait for this thread's device work (before a generation swap)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _merge_body(self, ro: list, t0: float) -> None:
+        staged = sum(t.n for t in ro)
+        icfg = self.cfg.index
+        del_snapshot = set(self.deleted_ext)
+        dl = np.fromiter(del_snapshot, np.int64, len(del_snapshot))
+        # Stage the RO points in tier and slot order, minus re-deleted ones.
+        parts_v, parts_e = [], []
+        for t in ro:
+            sl = np.nonzero(t.ext_ids >= 0)[0][:t.n]
+            ext = t.ext_ids[sl]
+            keep = ~np.isin(ext, dl)
+            parts_v.append(t.state.vectors[torch.as_tensor(
+                sl[keep]).to(self.device)])
+            parts_e.append(ext[keep])
+        w = sum(len(e) for e in parts_e)
+        nn = max(staged, 1)
+        vecs = torch.zeros((nn, icfg.dim), device=self.device)
+        exts = np.full(nn, -1, np.int64)
+        if w:
+            vecs[:w] = torch.cat(parts_v).float()
+            exts[:w] = np.concatenate(parts_e)
+        valid = np.zeros(nn, bool)
+        valid[:w] = True
+        # Remove from the LTI the DeleteList members and the rows a staged
+        # re-insert supersedes (the old copy of a deleted-then-reinserted
+        # id).
+        lti_ids = self.lti_ext_ids
+        dmask = np.isin(lti_ids, dl)
+        if w:
+            dmask |= np.isin(lti_ids, exts[:w])
+        repair_mode = self._pick_repair_mode(dmask)
+        new_lti, stats = streaming_merge(
+            self.lti, vecs, torch.as_tensor(valid).to(self.device),
+            torch.as_tensor(dmask).to(self.device), icfg, self.cfg.pq,
+            insert_chunk=self.cfg.insert_batch, block=self.cfg.merge_block,
+            repair_mode=repair_mode, locality=self.cfg.locality_order,
+            # Seeded by the merge ordinal: deterministic for its inputs,
+            # and successive merges draw other medoids.
+            locality_seed=self.stats.merges,
+            timings=self.stats.merge_phase_seconds)
+        self._sync_device()
+        self.stats.repair_cap_overflows += stats.repair_cap_overflows
+        self.stats.merge_backedge_targets += stats.n_backedge_targets
+        self.stats.merge_prune_rows += stats.n_prune_rows
+        if repair_mode == "local":
+            self.stats.local_repairs += 1
+        else:
+            self.stats.global_repairs += 1
+            self._force_global_repair = False
+        # The ext-id table: deleted rows out, merged rows in at the slots
+        # the merge assigned.
+        new_ids = self._retire_lti_rows(dmask)
+        slots = stats.slots.cpu().numpy()
+        ok = valid & (slots >= 0)
+        new_ids[slots[ok]] = exts[ok]
+        for s_, e in zip(slots[ok], exts[ok]):
+            self._ext_loc[int(e)] = ("lti", int(s_))
+        # One generation swap, then retire exactly the RO snapshots merged.
+        self._lti_pair = (new_lti, new_ids)
+        with self._ro_lock:
+            self.ro = self.ro[len(ro):]
+            self._merge_inflight = 0
+        self._retire_deletes(del_snapshot)
+        self.stats.merges += 1
+        self.stats.merge_seconds += time.perf_counter() - t0
+        self._probe_reachability(repair_mode)
+
+    def _retire_lti_rows(self, dmask: np.ndarray) -> np.ndarray:
+        """A copy of the LTI ext-id table with the ``dmask`` rows cleared
+        (and their ids' LTI locations forgotten)."""
+        new_ids = self.lti_ext_ids.copy()
+        for e in new_ids[dmask]:
+            e = int(e)
+            if e >= 0 and self._ext_loc.get(e, ("?",))[0] == "lti":
+                del self._ext_loc[e]
+        new_ids[dmask] = -1
+        return new_ids
+
+    def _retire_deletes(self, del_snapshot: set) -> None:
+        """After a generation swap: a delete leaves the DeleteList only when
+        no copy of its id survives anywhere (a copy in the RW tier, a newer
+        RO tier or the insert buffer keeps it pending).  Drops the fan-out
+        caches."""
+        self._fanout_cache = None
+        self._drop_cache = None
+        alive = self._live_ext_ids()
+        dl = np.fromiter(del_snapshot, np.int64, len(del_snapshot))
+        with self._insert_lock:
+            self.deleted_ext -= set(dl[~np.isin(dl, alive)].tolist())
+            self._delete_epoch += 1
+
+    def _pick_repair_mode(self, dmask: np.ndarray) -> str:
+        """The localized sweep when the LTI's delete rate is at most
+        ``local_repair_threshold`` (and no escalation is pending), else
+        the global one: both give the same graph."""
+        if self._force_global_repair:
+            return "global"
+        if self.cfg.index.repair_mode == "local":
+            return "local"
+        thr = self.cfg.local_repair_threshold
+        if thr <= 0:
+            return "global"
+        active = self.lti.graph.active.cpu().numpy()
+        n_live = int(active.sum())
+        n_del = int(np.count_nonzero(dmask & active))
+        return "local" if n_del <= thr * max(n_live, 1) else "global"
+
+    def _probe_reachability(self, repair_mode: str) -> None:
+        """Sampled self-search of the LTI after a Delete phase: sets the
+        ``unreachable_frac`` gauge and forces the next Delete phase global
+        when a localized repair left the estimate more than
+        ``reach_escalate_frac`` above the last global sweep's."""
+        n = self.cfg.reach_probe_samples
+        if n <= 0:
+            return
+        frac = unreachable_fraction(self._lti_pair[0].graph, self.cfg.index,
+                                    samples=n, seed=self.stats.reach_probes)
+        self.stats.unreachable_frac = frac
+        self.stats.reach_probes += 1
+        if repair_mode != "local" or self._reach_baseline is None:
+            self._reach_baseline = frac
+        elif frac > self._reach_baseline + self.cfg.reach_escalate_frac:
+            self.stats.repair_escalations += 1
+            self._force_global_repair = True
+
+    def consolidate(self, mode: str = "local") -> int:
+        """Algorithm 4 on the LTI outside a merge (on the PQ-decoded
+        table, as the merge's Delete phase).  Returns the number of LTI
+        points consolidated away; ids whose only copy was there leave the
+        DeleteList, copies in temp tiers keep their delete pending."""
+        with self._merge_lock:
+            icfg = self.cfg.index
+            lti, table = self._lti_pair
+            del_snapshot = set(self.deleted_ext)
+            dl = np.fromiter(del_snapshot, np.int64, len(del_snapshot))
+            dmask = np.isin(table, dl) & lti.graph.active.cpu().numpy()
+            n_del = int(dmask.sum())
+            if n_del == 0:
+                return 0
+            g = lti.graph
+            g = g._replace(deleted=g.deleted | torch.as_tensor(dmask).to(
+                self.device))
+            decoded = pqm.decode(lti.codebook, lti.codes, self.cfg.pq)
+            new_g = consolidate_deletes(g, icfg, block=self.cfg.merge_block,
+                                        prune_table=decoded, mode=mode)
+            self._sync_device()
+            if mode == "local":
+                self.stats.local_repairs += 1
+            else:
+                self.stats.global_repairs += 1
+                self._force_global_repair = False
+            new_ids = self._retire_lti_rows(dmask)
+            self._lti_pair = (LTIState(new_g, lti.codes, lti.codebook),
+                              new_ids)
+            self._retire_deletes(del_snapshot)
+            self.stats.consolidations += 1
+            self._probe_reachability(mode)
+            return n_del
 
     # ---------------------------------------------------------------- query
     def _search_dispatch(self, queries, k, kk, L, W):
@@ -290,9 +523,14 @@ class FreshDiskANN:
                 d.cpu().numpy().astype(np.float32))
 
     def _capture_lanes(self):
-        """Every searchable tier: (RW or None, live RO tiers, LTI entry)."""
-        rw_t = self.rw if self.rw.n > 0 else None
-        ro_temps = [t for t in self.ro if t.n > 0]
+        """Every searchable tier: (RW or None, live RO tiers, LTI entry),
+        captured RW before RO before LTI: a concurrent rollover (RW -> RO)
+        or merge (RO -> LTI) then lands its points in both captures (the
+        dedupe resolves it), never in neither."""
+        rw = self.rw
+        rw_t = rw if rw.n > 0 else None
+        with self._ro_lock:
+            ro_temps = [t for t in self.ro if t.n > 0]
         lti, lti_table = self._lti_pair
         lti_entry = ((lti, lti_table) if int(lti.graph.n_total) > 0
                      else None)
@@ -362,23 +600,39 @@ class FreshDiskANN:
                      np.full(self.cfg.temp_capacity, -1, np.int64))
 
     def _flush_inserts(self) -> None:
-        """Land the insert buffer in the RW tier."""
+        """Land the insert buffer in the RW tier: the buffer swap under
+        ``_insert_lock``, the compute and publish under ``_flush_lock``
+        alone."""
         if not self._insert_buf_id:
             return
-        ids, vecs = self._insert_buf_id, self._insert_buf_v
-        self._insert_buf_id, self._insert_buf_v = [], []
-        t0 = time.perf_counter()
-        self._flush_compute(ids, vecs)
-        self.stats.flushes += 1
-        self.stats.flush_latency.record(time.perf_counter() - t0)
+        with self._flush_lock:
+            with self._insert_lock:
+                ids, vecs = self._insert_buf_id, self._insert_buf_v
+                if not ids:
+                    return
+                self._insert_buf_id, self._insert_buf_v = [], []
+            t0 = time.perf_counter()
+            self._flush_compute(ids, vecs)
+            self.stats.flushes += 1
+            self.stats.flush_latency.record(time.perf_counter() - t0)
 
     def _flush_compute(self, ids: list, vecs: list) -> None:
-        """Insert one drained buffer into the RW tier in arrival order,
-        ``insert_batch`` points per ``insert_edges_stage`` +
-        ``insert_apply_delta``.  Ext-id rows are written before the new
-        state is published."""
+        """Insert one drained buffer into the RW tier, ``insert_batch``
+        points per ``insert_edges_stage`` + ``insert_apply_delta``: in
+        arrival order, or with ``locality_order`` the whole buffer
+        proximity-ordered first (seeded per flush; the order is computed on
+        the CPU, so the CPU and the card take the same one).  Ext-id rows
+        are written before the new state is published."""
         B = self.cfg.insert_batch
         dev = self.device
+        if self.cfg.locality_order and len(ids) > 1:
+            perm = locality_order(
+                torch.from_numpy(np.stack(vecs)),
+                n_clusters=self.cfg.index.locality_clusters or 16,
+                seed=self._flush_seq).tolist()
+            ids = [ids[i] for i in perm]
+            vecs = [vecs[i] for i in perm]
+        self._flush_seq += 1
         t = self.rw
         for lo in range(0, len(ids), B):
             chunk_i = ids[lo:lo + B]
@@ -418,21 +672,27 @@ class FreshDiskANN:
 
     def _maybe_rollover(self) -> None:
         """Freeze the RW tier into an RO snapshot at
-        ``ro_snapshot_points``; reaching ``merge_threshold`` staged points
-        would start a StreamingMerge, which is not in this slice."""
-        if self.rw.n >= self.cfg.ro_snapshot_points:
-            self._flush_inserts()
-            frozen = self.rw
-            self.ro.append(frozen)
-            self.rw = self._new_temp()
-            for slot in np.nonzero(frozen.ext_ids >= 0)[0]:
-                e = int(frozen.ext_ids[slot])
-                if self._ext_loc.get(e) == ("rw", int(slot)):
-                    self._ext_loc[e] = ("ro", int(slot))
-            self.stats.snapshots += 1
-        staged = sum(t.n for t in self.ro)
+        ``ro_snapshot_points``; at ``merge_threshold`` staged points (not
+        counting those an in-flight merge is consuming) start a
+        StreamingMerge, on the worker thread with ``background_merge``."""
+        with self._flush_lock, self._insert_lock:
+            if self.rw.n >= self.cfg.ro_snapshot_points:
+                self._flush_inserts()
+                frozen = self.rw
+                with self._ro_lock:
+                    self.ro.append(frozen)
+                self.rw = self._new_temp()
+                for slot in np.nonzero(frozen.ext_ids >= 0)[0]:
+                    e = int(frozen.ext_ids[slot])
+                    if self._ext_loc.get(e) == ("rw", int(slot)):
+                        self._ext_loc[e] = ("ro", int(slot))
+                self.stats.snapshots += 1
+            with self._ro_lock:
+                staged = sum(t.n for t in self.ro) - self._merge_inflight
+        # Outside the insert lock: a foreground merge holding it would
+        # deadlock against a background merge's DeleteList update.
         if staged >= self.cfg.merge_threshold:
-            self.merge()
+            self.merge(background=self.cfg.background_merge)
 
     # -------------------------------------------------------------- helpers
     @property

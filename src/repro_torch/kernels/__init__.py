@@ -7,4 +7,10 @@ versions (``ref``), the ctypes build (``build``) and the wrappers (``ops``).
   frontier_select  one beam-search round step (every IO round)
   robust_prune_fp  Algorithm 3's R rounds, full precision (build, insert,
                    back-edge Delta)
+  robust_prune_sdc the same rounds with SDC cover from PQ codes (merge
+                   insert and Patch phases, ``use_sdc``)
+  delete_repair_fp Algorithm 4 per node, gathers fused: candidate
+                   assembly, the prune rounds, the changed-row select
+                   (merge Delete phase, ``consolidate``)
+  delete_repair_sdc the same with SDC distances and a capped expansion
 """

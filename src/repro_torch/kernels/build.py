@@ -3,7 +3,8 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/<name>-<hash>.so`` at the root of
 the checkout, compiled for ``sm_90a`` the first time it is used; the hash is
-of the source, so an edited kernel is never served from a stale library.
+of the source and the shared headers (``csrc/*.cuh``), so an edited kernel
+is never served from a stale library.
 All missing libraries are compiled at once, one ``nvcc`` process per
 source.  Each library exports one C function that takes raw pointers, the
 sizes and the CUDA stream, and returns ``cudaGetLastError()``.
@@ -36,6 +37,9 @@ SIGNATURES = {
     "adc_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "frontier_select": [_P] * 14 + [_I] * 6 + [_P],
     "robust_prune_fp": [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P],
+    "robust_prune_sdc": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P],
+    "delete_repair_fp": [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P],
+    "delete_repair_sdc": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P],
 }
 
 _lock = threading.Lock()
@@ -57,9 +61,11 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

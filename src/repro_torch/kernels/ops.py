@@ -1,4 +1,4 @@
-"""Wrappers of the four Hopper kernels.
+"""Wrappers of the seven Hopper kernels.
 
 Each wrapper checks device, dtype, shape and contiguity, then dispatches on
 where its tensors lie:
@@ -19,7 +19,9 @@ import torch
 from . import ref
 
 LAUNCHES: dict[str, int] = {"l2_rows": 0, "adc_rows": 0,
-                            "frontier_select": 0, "robust_prune_fp": 0}
+                            "frontier_select": 0, "robust_prune_fp": 0,
+                            "robust_prune_sdc": 0, "delete_repair_fp": 0,
+                            "delete_repair_sdc": 0}
 
 
 def reset_launches() -> None:
@@ -183,3 +185,116 @@ def robust_prune_fp(d_p: torch.Tensor, vecs: torch.Tensor, ids: torch.Tensor,
     _launch(name, _ptr(d_p), _ptr(vecs), _ptr(ids), _ptr(ok), _ptr(out),
             _ptr(cnt), B, C, vecs.shape[2], R, float(alpha), _stream(ids))
     return out, cnt
+
+
+def _check_tables(name: str, tables: torch.Tensor, m: int) -> None:
+    _check(name, tables, torch.float32, 3, "tables")
+    if (tables.shape[0] != m or tables.shape[1] != tables.shape[2]
+            or tables.shape[1] > 256):
+        raise ValueError(f"{name}: tables {tuple(tables.shape)} for m={m} "
+                         "(need [m, ksub, ksub], ksub <= 256)")
+
+
+def robust_prune_sdc(d_p: torch.Tensor, codes: torch.Tensor,
+                     tables: torch.Tensor, ids: torch.Tensor,
+                     ok: torch.Tensor, *, alpha: float, R: int,
+                     use_kernel: bool = True):
+    """RobustPrune rounds over a [B, C] block of rows with SDC cover
+    (contract: ``ref.robust_prune_sdc_ref`` on the candidates' codes
+    ``codes[ids]``): d_p [B, C] f32, codes [N, m] uint8 (the whole code
+    table; the kernel gathers the rows), tables [m, ksub, ksub] f32,
+    ids [B, C] int32, ok [B, C] bool -> (out_ids [B, R] int32
+    INVALID-padded, counts [B] int32)."""
+    name = "robust_prune_sdc"
+    _check(name, d_p, torch.float32, 2, "d_p")
+    _check(name, codes, torch.uint8, 2, "codes")
+    _check(name, ids, torch.int32, 2, "ids")
+    _check(name, ok, torch.bool, 2, "ok")
+    _check_tables(name, tables, codes.shape[1])
+    B, C = ids.shape
+    if d_p.shape != (B, C) or ok.shape != (B, C):
+        raise ValueError(f"{name}: mismatched operand shapes")
+    if not _on_cuda(name, (d_p, codes, tables, ids, ok), use_kernel):
+        cand = codes[ids.clamp(min=0).long()]
+        return ref.robust_prune_sdc_ref(d_p, cand, tables, ids, ok,
+                                        alpha=alpha, R=R)
+    dev = ids.device
+    out = torch.empty((B, R), dtype=torch.int32, device=dev)
+    cnt = torch.empty((B,), dtype=torch.int32, device=dev)
+    m, ksub = codes.shape[1], tables.shape[1]
+    _launch(name, _ptr(d_p), _ptr(codes), _ptr(tables), _ptr(ids), _ptr(ok),
+            _ptr(out), _ptr(cnt), B, C, codes.shape[0], m, ksub, R,
+            float(alpha), _stream(ids))
+    return out, cnt
+
+
+def _check_repair(name, adjacency, deleted, usable, node_ids, R):
+    _check(name, adjacency, torch.int32, 2, "adjacency")
+    _check(name, deleted, torch.bool, 1, "deleted")
+    _check(name, usable, torch.bool, 1, "usable")
+    _check(name, node_ids, torch.int32, 1, "node_ids")
+    N = adjacency.shape[0]
+    if adjacency.shape[1] != R or deleted.shape != (N,) or (
+            usable.shape != (N,)):
+        raise ValueError(f"{name}: adjacency {tuple(adjacency.shape)}, "
+                         f"deleted {tuple(deleted.shape)}, usable "
+                         f"{tuple(usable.shape)} for R={R}")
+
+
+def delete_repair_fp(adjacency: torch.Tensor, deleted: torch.Tensor,
+                     usable: torch.Tensor, table: torch.Tensor,
+                     node_ids: torch.Tensor, *, alpha: float, R: int,
+                     use_kernel: bool = True) -> torch.Tensor:
+    """Algorithm 4 for the nodes ``node_ids`` [B] (ids in [0, N)):
+    adjacency [N, R] int32, deleted and usable [N] bool, table [N, d] f32
+    (the prune distances' table) -> their new rows [B, R] int32, read from
+    ``adjacency`` as it is (the kernel does the gathers; contract:
+    ``ref.delete_repair_fp_ref`` on ``ref.repair_operands_fp``)."""
+    name = "delete_repair_fp"
+    _check_repair(name, adjacency, deleted, usable, node_ids, R)
+    _check(name, table, torch.float32, 2, "table")
+    if table.shape[0] != adjacency.shape[0]:
+        raise ValueError(f"{name}: table {tuple(table.shape)} for "
+                         f"{adjacency.shape[0]} slots")
+    if not _on_cuda(name, (adjacency, deleted, usable, table, node_ids),
+                    use_kernel):
+        return ref.delete_repair_fp_ref(
+            *ref.repair_operands_fp(adjacency, deleted, usable, table,
+                                    node_ids), alpha=alpha, R=R)
+    B = node_ids.shape[0]
+    out = torch.empty((B, R), dtype=torch.int32, device=adjacency.device)
+    _launch(name, _ptr(adjacency), _ptr(deleted), _ptr(usable), _ptr(table),
+            _ptr(node_ids), _ptr(out), B, adjacency.shape[0], R,
+            table.shape[1], float(alpha), _stream(adjacency))
+    return out
+
+
+def delete_repair_sdc(adjacency: torch.Tensor, deleted: torch.Tensor,
+                      usable: torch.Tensor, codes: torch.Tensor,
+                      tables: torch.Tensor, node_ids: torch.Tensor, *,
+                      alpha: float, R: int, cap: int,
+                      use_kernel: bool = True) -> torch.Tensor:
+    """``delete_repair_fp`` with SDC distances from the PQ codes
+    [N, m] uint8 and tables [m, ksub, ksub] f32, expanding at most the
+    first ``cap`` deleted neighbours of each node (contract:
+    ``ref.delete_repair_sdc_ref`` on ``ref.repair_operands_sdc``)."""
+    name = "delete_repair_sdc"
+    _check_repair(name, adjacency, deleted, usable, node_ids, R)
+    _check(name, codes, torch.uint8, 2, "codes")
+    _check_tables(name, tables, codes.shape[1])
+    if codes.shape[0] != adjacency.shape[0] or not 1 <= cap <= R:
+        raise ValueError(f"{name}: codes {tuple(codes.shape)}, cap {cap} "
+                         f"for {adjacency.shape[0]} slots, R={R}")
+    if not _on_cuda(name, (adjacency, deleted, usable, codes, tables,
+                           node_ids), use_kernel):
+        return ref.delete_repair_sdc_ref(
+            *ref.repair_operands_sdc(adjacency, deleted, usable, codes,
+                                     tables, node_ids, cap),
+            alpha=alpha, R=R)
+    B = node_ids.shape[0]
+    out = torch.empty((B, R), dtype=torch.int32, device=adjacency.device)
+    _launch(name, _ptr(adjacency), _ptr(deleted), _ptr(usable), _ptr(codes),
+            _ptr(tables), _ptr(node_ids), _ptr(out), B, adjacency.shape[0],
+            R, codes.shape[1], tables.shape[1], int(cap), float(alpha),
+            _stream(adjacency))
+    return out

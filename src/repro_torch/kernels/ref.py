@@ -8,10 +8,20 @@ copy the contracts of the JAX package's ``kernels/ref.py``:
                                  identity form, clamped at 0;
   ``adc_distances_ref``          ``out[n] = sum_m lut[m, codes[n, m]]``;
   ``frontier_select{,_batch}_ref``  one beam-search round step;
-  ``robust_prune_fp_ref``        R rounds of Algorithm 3, full precision.
+  ``robust_prune_fp_ref``        R rounds of Algorithm 3, full precision;
+  ``robust_prune_sdc_ref``       the same rounds, cover from PQ codes (SDC);
+  ``delete_repair_{fp,sdc}_ref`` Algorithm 4 for a block of nodes:
+                                 candidate assembly
+                                 (``delete_repair_assemble_ref``), the prune
+                                 rounds, the changed-row select.
 
-``l2_rows_ref`` and ``adc_rows_ref`` are the gather-fused forms the Hopper
-kernels compute (the engine gathered rows before the TPU kernels ran).
+All of them are batched over a leading row axis [B, ...] (the JAX
+contracts are per row and vmapped).  ``l2_rows_ref`` and ``adc_rows_ref``
+are the gather-fused forms the Hopper kernels compute (the engine gathered
+rows before the TPU kernels ran); ``repair_operands_{fp,sdc}`` do the
+gathers of the JAX package's repair engine, turning (adjacency, flags,
+table, node ids) -- what the fused ``delete_repair`` kernels take -- into
+the operands of the two repair contracts.
 """
 from __future__ import annotations
 
@@ -130,20 +140,16 @@ def frontier_select_ref(cand_ids, cand_d, new_ids, new_d, vis_ids, vis_d,
     return tuple(x[0] for x in out)
 
 
-def robust_prune_fp_ref(d_p: torch.Tensor, vecs: torch.Tensor,
-                        ids: torch.Tensor, ok: torch.Tensor, *,
-                        alpha: float, R: int):
-    """RobustPrune (Algorithm 3) rounds over a block of candidate rows.
-
-    d_p [B, C] raw anchor distances, vecs [B, C, d], ids [B, C] int32,
-    ok [B, C] bool.  Exactly R rounds: the alive candidate with the least
-    distance wins (lowest column on ties), its id is emitted, and every
-    candidate it alpha-covers (``alpha * d(star, c) <= d(p, c)``) retires.
-    Returns (out_ids [B, R] INVALID-padded, counts [B] int32).
-    """
+def _prune_rounds(d_p: torch.Tensor, ids: torch.Tensor, ok: torch.Tensor,
+                  cover, *, alpha: float, R: int):
+    """Exactly R RobustPrune rounds over [B, C] rows: the alive candidate
+    with the least anchor distance wins (lowest column on ties), its id is
+    emitted, and every candidate it alpha-covers (``alpha * cover(star)[c]
+    <= d_p[c]``) retires; a round without a finite winner retires the row.
+    ``cover(star)`` maps the winners' columns [B] to [B, C] distances.
+    Returns (out_ids [B, R] INVALID-padded, counts [B] int32)."""
     B, C = ids.shape
     dev = ids.device
-    vecs = vecs.float()
     inf = torch.tensor(float("inf"), device=dev)
     dp = torch.where(ok, d_p.float(), inf)
     alive = ok & torch.isfinite(dp)
@@ -158,8 +164,149 @@ def robust_prune_fp_ref(d_p: torch.Tensor, vecs: torch.Tensor,
         out[:, i] = torch.where(okr, ids[rows, star].int(),
                                 torch.full_like(star, INVALID).int())
         cnt += okr.int()
-        diff = vecs[rows, star][:, None, :] - vecs           # [B, C, d]
-        d_star = (diff * diff).sum(-1)
-        covered = alpha * d_star <= dp
+        covered = alpha * cover(star) <= dp
         alive = alive & ~covered & (cols != star[:, None]) & okr[:, None]
     return out, cnt
+
+
+def robust_prune_fp_ref(d_p: torch.Tensor, vecs: torch.Tensor,
+                        ids: torch.Tensor, ok: torch.Tensor, *,
+                        alpha: float, R: int):
+    """RobustPrune (Algorithm 3) rounds over a block of candidate rows.
+
+    d_p [B, C] raw anchor distances, vecs [B, C, d], ids [B, C] int32,
+    ok [B, C] bool.  Cover distances ``|v* - v_c|^2`` in the elementwise
+    form.  Returns (out_ids [B, R] INVALID-padded, counts [B] int32).
+    """
+    vecs = vecs.float()
+    rows = torch.arange(ids.shape[0], device=ids.device)
+
+    def cover(star):
+        diff = vecs[rows, star][:, None, :] - vecs           # [B, C, d]
+        return (diff * diff).sum(-1)
+
+    return _prune_rounds(d_p, ids, ok, cover, alpha=alpha, R=R)
+
+
+def sdc_cover_ref(tables: torch.Tensor, codes: torch.Tensor,
+                  star: torch.Tensor) -> torch.Tensor:
+    """SDC distances from each row's candidate ``star`` [B] to all its
+    candidates: ``sum_m T[m, codes[b, star, m], codes[b, c, m]]`` ->
+    [B, C] (tables [m, ksub, ksub], codes [B, C, m] int)."""
+    B, C, m = codes.shape
+    rows = torch.arange(B, device=codes.device)
+    ar = torch.arange(m, device=codes.device)
+    lut = tables.float()[ar[None, :], codes[rows, star].long()]  # [B, m, k]
+    g = torch.gather(lut, 2, codes.long().permute(0, 2, 1))      # [B, m, C]
+    return g.sum(1)
+
+
+def robust_prune_sdc_ref(d_p: torch.Tensor, codes: torch.Tensor,
+                         tables: torch.Tensor, ids: torch.Tensor,
+                         ok: torch.Tensor, *, alpha: float, R: int):
+    """The rounds of ``robust_prune_fp_ref`` with candidate-candidate
+    distances from PQ codes: codes [B, C, m] int, tables [m, ksub, ksub]
+    (``pq.sdc_tables``).  Returns (out_ids [B, R], counts [B] int32)."""
+    return _prune_rounds(d_p, ids, ok,
+                         lambda star: sdc_cover_ref(tables, codes, star),
+                         alpha=alpha, R=R)
+
+
+def delete_repair_assemble_ref(row, nbr_del, exp, exp_ok, usable_c, p):
+    """Algorithm-4 candidate assembly for a block of nodes.
+
+    row [B, R] out-neighbours, nbr_del [B, R] bool (the neighbour is
+    deleted), exp [B, E, R] expansion rows, exp_ok [B, E] bool (the
+    expansion parent is a deleted neighbour), usable_c [B, C] bool, the
+    usability of the raw ``concat(row, exp)`` candidates, p [B] node ids.
+    Returns (cand_ids [B, C], INVALID on masked lanes; ok [B, C]) with
+    C = R + E * R: a kept lane is valid when its edge exists and its target
+    is not deleted, an expansion lane when its parent is deleted.
+    """
+    B, R = row.shape
+    exp_flat = exp.reshape(B, -1)
+    exp_flat_ok = (exp_ok.repeat_interleave(exp.shape[2], dim=1)
+                   & (exp_flat >= 0))
+    raw = torch.cat([row, exp_flat], 1)
+    src_ok = torch.cat([(row >= 0) & ~nbr_del, exp_flat_ok], 1)
+    ok = src_ok & usable_c & (raw != p[:, None])
+    return torch.where(src_ok, raw, torch.full_like(raw, INVALID)), ok
+
+
+def _changed(row, nbr_del, live):
+    return live & (nbr_del & (row >= 0)).any(1)
+
+
+def delete_repair_fp_ref(row, nbr_del, exp, exp_ok, usable_c, d_p, vecs, p,
+                         live, *, alpha: float, R: int) -> torch.Tensor:
+    """One block of Algorithm 4, full precision: assemble the candidates
+    (kept live edges + neighbours of deleted neighbours), RobustPrune them
+    and emit the new rows [B, R] -- the old row where the node is dead
+    (``live`` False) or has no deleted neighbour.  d_p [B, C], vecs
+    [B, C, d] and usable_c follow the raw ``concat(row, exp)`` order."""
+    cand, ok = delete_repair_assemble_ref(row, nbr_del, exp, exp_ok,
+                                          usable_c, p)
+    new, _ = robust_prune_fp_ref(d_p, vecs, cand, ok, alpha=alpha, R=R)
+    return torch.where(_changed(row, nbr_del, live)[:, None], new, row)
+
+
+def delete_repair_sdc_ref(row, nbr_del, exp, exp_ok, usable_c, d_p, codes,
+                          tables, p, live, *, alpha: float, R: int
+                          ) -> torch.Tensor:
+    """``delete_repair_fp_ref`` with SDC cover from the candidates' PQ
+    codes [B, C, m]."""
+    cand, ok = delete_repair_assemble_ref(row, nbr_del, exp, exp_ok,
+                                          usable_c, p)
+    new, _ = robust_prune_sdc_ref(d_p, codes, tables, cand, ok, alpha=alpha,
+                                  R=R)
+    return torch.where(_changed(row, nbr_del, live)[:, None], new, row)
+
+
+def _repair_rows(adjacency, deleted, node_ids):
+    rows = adjacency[node_ids.long()]                        # [B, R]
+    nbr_del = (rows >= 0) & deleted[rows.clamp(min=0).long()]
+    return rows, nbr_del
+
+
+def first_deleted(nbr_del: torch.Tensor, cap: int):
+    """The first ``cap`` deleted columns of each row in column order, as
+    ``lax.top_k`` over the 0/1 indicator gives them (then the lowest
+    non-deleted columns): (idx [B, cap] int64, take [B, cap] bool)."""
+    idx = torch.sort((~nbr_del).to(torch.int8), dim=1,
+                     stable=True).indices[:, :cap]
+    return idx, nbr_del.gather(1, idx)
+
+
+def repair_operands_fp(adjacency, deleted, usable, table, node_ids):
+    """The JAX repair engine's gathers for ``delete_repair_fp_ref``:
+    (row, nbr_del, exp [B, R, R], exp_ok, usable_c, d_p, vecs, p, live),
+    d_p in the elementwise L2 form."""
+    rows, nbr_del = _repair_rows(adjacency, deleted, node_ids)
+    exp = adjacency[rows.clamp(min=0).long()]                # [B, R, R]
+    B = rows.shape[0]
+    safe_raw = torch.cat([rows, exp.reshape(B, -1)], 1).clamp(min=0).long()
+    vecs = table[safe_raw].float()                           # [B, C, d]
+    diff = table[node_ids.long()].float()[:, None, :] - vecs
+    d_p = (diff * diff).sum(-1)
+    return (rows, nbr_del, exp, nbr_del, usable[safe_raw], d_p, vecs,
+            node_ids, usable[node_ids.long()])
+
+
+def repair_operands_sdc(adjacency, deleted, usable, codes, tables, node_ids,
+                        cap: int):
+    """The JAX repair engine's gathers for ``delete_repair_sdc_ref``
+    (expansion capped at the first ``cap`` deleted neighbours):
+    (row, nbr_del, exp [B, cap, R], exp_ok, usable_c, d_p, codes [B, C, m],
+    tables, p, live), d_p = ``adc(codes[c], sdc_lut(tables, codes[p]))``."""
+    rows, nbr_del = _repair_rows(adjacency, deleted, node_ids)
+    idx, take = first_deleted(nbr_del, cap)
+    dn = rows.gather(1, idx).masked_fill(~take, 0)
+    exp = adjacency[dn.long()]                               # [B, cap, R]
+    B, m = rows.shape[0], codes.shape[1]
+    safe_raw = torch.cat([rows, exp.reshape(B, -1)], 1).clamp(min=0).long()
+    cc = codes[safe_raw].long()                              # [B, C, m]
+    ar = torch.arange(m, device=codes.device)
+    lut = tables.float()[ar[None, :], codes[node_ids.long()].long()]
+    d_p = torch.gather(lut, 2, cc.permute(0, 2, 1)).sum(1)   # [B, C]
+    return (rows, nbr_del, exp, take, usable[safe_raw], d_p, cc, tables,
+            node_ids, usable[node_ids.long()])

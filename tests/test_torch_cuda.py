@@ -15,6 +15,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread per test process: the suite runs in several
+# processes at once, and torch's default of one thread per core makes them
+# contend for the cores.
+torch.set_num_threads(1)
 
 from repro_torch.kernels import ops, ref  # noqa: E402
 
@@ -99,6 +103,68 @@ def test_robust_prune_fp_exact_on_integers(dev, B, C, d, R):
     go, gc = ops.robust_prune_fp(*args, alpha=1.2, R=R)
     wo, wc = ref.robust_prune_fp_ref(*args, alpha=1.2, R=R)
     assert torch.equal(go, wo) and torch.equal(gc, wc)
+
+
+@pytest.mark.parametrize("B,C,m,ksub,R", [(16, 203, 32, 256, 64),
+                                          (8, 128, 32, 256, 64),
+                                          (4, 9, 5, 200, 16)])
+def test_robust_prune_sdc_exact_on_integers(dev, B, C, m, ksub, R):
+    g = np.random.default_rng(C + m)
+    N = 500
+    codes = _t(g.integers(0, ksub, (N, m)).astype(np.uint8), dev)
+    tables = _t(g.integers(0, 9, (m, ksub, ksub)).astype(np.float32), dev)
+    ids_np = g.integers(0, N, (B, C)).astype(np.int32)
+    ids_np[g.random((B, C)) < 0.1] = -1
+    ok_np = (ids_np >= 0) & (g.random((B, C)) > 0.2)
+    ok_np[0] = False
+    ids, ok = _t(ids_np, dev), _t(ok_np, dev)
+    d_p = _t(g.integers(0, 9 * m, (B, C)).astype(np.float32), dev)
+    go, gc = ops.robust_prune_sdc(d_p, codes, tables, ids, ok, alpha=1.2,
+                                  R=R)
+    wo, wc = ref.robust_prune_sdc_ref(d_p, codes[ids.clamp(min=0).long()],
+                                      tables, ids, ok, alpha=1.2, R=R)
+    assert torch.equal(go, wo) and torch.equal(gc, wc)
+
+
+def _repair_graph(g, N, R, frac_deleted):
+    adj = g.integers(0, N, (N, R)).astype(np.int32)
+    adj[g.random((N, R)) < 0.1] = -1
+    deleted = g.random(N) < frac_deleted
+    usable = ~deleted & (g.random(N) > 0.02)
+    # Node 0 has every neighbour deleted: the widest candidate list.
+    deleted[adj[0][adj[0] >= 0]] = True
+    usable[0] = True
+    return adj, deleted, usable
+
+
+@pytest.mark.parametrize("R,d", [(64, 128), (8, 7)])
+def test_delete_repair_fp_exact_on_integers(dev, R, d):
+    g = np.random.default_rng(R + d)
+    N, B = 3000, 96
+    adj, deleted, usable = _repair_graph(g, N, R, 0.05)
+    table = g.integers(-3, 4, (N, d)).astype(np.float32)
+    node_ids = np.concatenate([[0], g.integers(0, N, B - 1)]).astype(np.int32)
+    args = [_t(x, dev) for x in (adj, deleted, usable, table, node_ids)]
+    got = ops.delete_repair_fp(*args, alpha=1.2, R=R)
+    want = ref.delete_repair_fp_ref(*ref.repair_operands_fp(*args),
+                                    alpha=1.2, R=R)
+    assert torch.equal(got, want)
+    assert not torch.equal(got[0], args[0][0])           # node 0 repaired
+
+
+@pytest.mark.parametrize("R,m,ksub,cap", [(64, 32, 256, 8), (8, 4, 16, 3)])
+def test_delete_repair_sdc_exact_on_integers(dev, R, m, ksub, cap):
+    g = np.random.default_rng(R + m + cap)
+    N, B = 3000, 96
+    adj, deleted, usable = _repair_graph(g, N, R, 0.05)
+    codes = g.integers(0, ksub, (N, m)).astype(np.uint8)
+    tables = g.integers(0, 9, (m, ksub, ksub)).astype(np.float32)
+    node_ids = np.concatenate([[0], g.integers(0, N, B - 1)]).astype(np.int32)
+    a = [_t(x, dev) for x in (adj, deleted, usable, codes, tables, node_ids)]
+    got = ops.delete_repair_sdc(*a, alpha=1.2, R=R, cap=cap)
+    want = ref.delete_repair_sdc_ref(*ref.repair_operands_sdc(*a, cap),
+                                     alpha=1.2, R=R)
+    assert torch.equal(got, want)
 
 
 def test_launches_counted_and_plain_refused_on_cuda(dev):

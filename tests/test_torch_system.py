@@ -8,10 +8,12 @@ and of a buffered point, a re-insert, and ``search_batch`` with a ragged
 request over ``batch_queries`` chunks.
 
 Integer fixture: external ids and distances are equal.  Gaussian fixture:
-5-recall@5 within 0.01.  Also: unported knobs and reaching
-``merge_threshold`` raise ``NotImplementedError``; CPU tensors never reach
-a kernel; the default device needs CUDA; and neither the port nor
-``chip_smoke.py`` imports ``jax`` or ``repro``.
+5-recall@5 within 0.01.  Also: unported knobs raise
+``NotImplementedError`` while the merge knobs run; reaching
+``merge_threshold`` merges; CPU tensors never reach a kernel; the default
+device needs CUDA (``convert`` included); and neither the port nor
+``chip_smoke.py`` imports ``jax`` or ``repro``.  The merge itself is held
+against the reference in ``tests/test_torch_merge.py``.
 """
 import ast
 import dataclasses
@@ -21,6 +23,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread per test process: the suite runs in several
+# processes at once, and torch's default of one thread per core makes them
+# contend for the cores.
+torch.set_num_threads(1)
 
 from repro.core import config as jconfig  # noqa: E402
 from repro.core import system as jsystem  # noqa: E402
@@ -137,8 +143,7 @@ def test_cpu_path_never_reaches_a_kernel(systems):
 
 
 _KNOBS = [dict(wal_dir="w"), dict(snapshot_dir="s"), dict(storage_dir="d"),
-          dict(shard_lti=2), dict(filter_words=1), dict(locality_order=True),
-          dict(background_merge=True), dict(autotune_beam=True),
+          dict(shard_lti=2), dict(filter_words=1), dict(autotune_beam=True),
           dict(batch_fanout=False)]
 
 
@@ -146,6 +151,14 @@ _KNOBS = [dict(wal_dir="w"), dict(snapshot_dir="s"), dict(storage_dir="d"),
 def test_unported_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="slice"):
         tsystem.FreshDiskANN(_cfg(tconfig, **knob), device="cpu")
+
+
+@pytest.mark.parametrize("knob", [dict(locality_order=True),
+                                  dict(background_merge=True)],
+                         ids=lambda k: next(iter(k)))
+def test_merge_knobs_are_ported(knob):
+    s = tsystem.FreshDiskANN(_cfg(tconfig, **knob), device="cpu")
+    assert getattr(s.cfg, next(iter(knob))) is True
 
 
 def test_unported_calls_raise():
@@ -157,19 +170,19 @@ def test_unported_calls_raise():
         s.insert(1, v, tenant=2)
     with pytest.raises(NotImplementedError, match="slice"):
         s.search_batch(np.zeros((1, D), np.float32), k=1, filter=object())
-    with pytest.raises(NotImplementedError, match="merge slice"):
-        s.merge()
 
 
 def test_reaching_merge_threshold_raises():
+    """Reaching ``merge_threshold`` raised before StreamingMerge was
+    ported; now it merges the RO tiers into the (here empty) LTI."""
     s = tsystem.FreshDiskANN(
         _cfg(tconfig, ro_snapshot_points=16, merge_threshold=32),
         device="cpu")
     g = np.random.default_rng(0)
-    with pytest.raises(NotImplementedError, match="merge slice"):
-        for i in range(64):
-            s.insert(i, g.integers(-3, 4, D).astype(np.float32))
-    assert len(s.ro) == 2
+    for i in range(64):
+        s.insert(i, g.integers(-3, 4, D).astype(np.float32))
+    assert s.stats.merges == 2 and not s.ro
+    assert int(s.lti.graph.active.sum()) == 64 and s.size == 64
 
 
 def test_empty_system_and_k_over_l():
@@ -191,6 +204,14 @@ def test_default_device_needs_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tsystem.bootstrap_system(np.zeros((8, D), np.float32), np.arange(8),
                                  _cfg(tconfig))
+    fields = {k: np.zeros(v, np.float32) for k, v in (
+        ("vectors", (4, D)), ("adjacency", (4, 2)), ("active", 4),
+        ("deleted", 4), ("start", ()), ("n_total", ()))}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.graph_state(fields)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.lti_state(fields, np.zeros((4, 2), np.uint8),
+                          np.zeros((2, 4, D // 2), np.float32))
 
 
 def test_kernel_enabled_by_device():
