@@ -4,30 +4,43 @@
 
 Phases:
 
-  build    compile the seven CUDA kernels of ``src/repro_torch/kernels/csrc``
+  build    compile the eight CUDA kernels of ``src/repro_torch/kernels/csrc``
            with nvcc into ``build/`` (one nvcc per source, all at once);
   kernels  run each kernel against its plain PyTorch version on the card at
            the main path's shapes, on integer-valued inputs (must be equal)
            and Gaussian ones (stated tolerance), and time kernel, plain
            version and, where one PyTorch call computes the same function,
-           that call (the two delete-repair kernels are held against their
-           plain versions after the main path, on its merged graph);
+           that call (the two delete-repair kernels and ``gather_rows``
+           are held against their plain versions after the main path, on
+           its merged graph);
   parity   small systems on the CPU (plain versions) and on the card
            (kernels) from integer data, through threshold merges (local and
            global Delete phases, arrival and locality order),
            ``consolidate(mode="global")`` and an SDC ``streaming_merge``:
-           results must be equal;
+           results must be equal; and a small system with ``storage_dir``,
+           ``wal_dir`` and ``snapshot_dir`` whose ``search_disk`` results
+           and IO counters (cache off) must be equal on both, then crashed
+           and recovered on the card, where it must twin the live system;
   main     bootstrap_system -> 1 % deletes -> streaming inserts with RW->RO
            rollover up to a threshold StreamingMerge -> search_batch ->
            another 1 % deletes and a global ``consolidate`` -> an SDC
            ``streaming_merge`` at the freshdiskann-1b per-chip shape, with
            launch counts, recall against brute force, self-hits, merge
            phase times and no deleted id returned.
+  storage  on the main path's merged LTI: a system with ``storage_dir``,
+           ``wal_dir`` and ``snapshot_dir`` writes the layout, serves
+           4 x 1024 queries through ``search_disk`` (recall, no deleted id,
+           equal to ``search_batch``, IO conservation), beam-searches 1024
+           queries through ``HBMSource`` (the ``gather_rows`` kernel) equal
+           to ``DenseSource``, streams inserts and deletes through a
+           threshold merge that delta-patches the layout and snapshots
+           before truncating the WAL, then "crashes" and recovers a fresh
+           system that must twin the live one.
   profile  (only when named) torch.profiler over one search micro-batch,
            one flush and one merge after the main path: device busy share
            and kernel time by name.
 
-P (the phases) defaults to build,kernels,parity,main.
+P (the phases) defaults to build,kernels,parity,main,storage.
 Prints diagnostics, then the card's name and power limit, then one JSON
 line of kernel records, and last ``{"ok": true, "device": {...}}``.  Exits
 non-zero, with no result line, if any phase fails or there is no card.
@@ -36,8 +49,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -66,7 +82,15 @@ KERNEL_META = {
     "delete_repair_sdc": (
         "src/repro_torch/kernels/csrc/delete_repair_sdc.cu",
         "src/repro/kernels/delete_repair.py:113"),
+    "gather_rows": ("src/repro_torch/kernels/csrc/gather_rows.cu",
+                    "src/repro/storage/prefetch.py:179"),
 }
+# The kernels the main path runs; gather_rows runs on the storage path.
+MAIN_KERNELS = tuple(k for k in KERNEL_META if k != "gather_rows")
+BUILD = ROOT / "build"
+IO_FIELDS = ("io_rows_read", "io_cache_hits", "io_prefetch_hits",
+             "io_bytes_read", "storage_rows_patched",
+             "storage_blocks_patched", "storage_bytes_written")
 
 
 def log(msg: str) -> None:
@@ -510,7 +534,7 @@ def phase_parity(seed: int) -> None:
         for dev in ("cpu", "cuda"):
             before = dict(ops.LAUNCHES)
             out.append(_parity_system(dev, cfg, base, new, qs, cent))
-            ran = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+            ran = {k: ops.LAUNCHES[k] - before[k] for k in MAIN_KERNELS}
             if dev == "cpu":
                 check(not any(ran.values()), f"CPU run launched kernels: {ran}")
             else:
@@ -523,6 +547,72 @@ def phase_parity(seed: int) -> None:
             f"global consolidate, the LTI graph, merge counters "
             f"{out[0][6].tolist()} [local, global repairs, Delta targets, "
             f"merges], an SDC streaming_merge)")
+    phase_storage_parity(local, base, new, qs, cent)
+
+
+def _storage_cfg(cfg, root: Path, **kw):
+    import dataclasses
+    return dataclasses.replace(
+        cfg, storage_dir=str(root / "store"), wal_dir=str(root / "wal"),
+        snapshot_dir=str(root / "snaps"), **kw)
+
+
+def phase_storage_parity(cfg, base, new, qs, cent,
+                         devs=("cpu", "cuda")) -> None:
+    """The parity stream on a system with ``storage_dir``, ``wal_dir`` and
+    ``snapshot_dir`` (cache off, prefetch depth 1) on the CPU and the card:
+    ``search_disk`` results, the system's IO and patch counters and the
+    reader's ``IOStats`` must be equal.  Then the card's system "crashes"
+    (storage and WAL closed, kept in memory as the twin) and a fresh one
+    recovers from the newest merge snapshot and the WAL suffix: ``size``,
+    the DeleteList, the LTI and ``search_batch`` must equal the twin's."""
+    import torch
+    from repro_torch.core import pq as pqm
+    from repro_torch.core.system import FreshDiskANN, bootstrap_system
+    BUILD.mkdir(exist_ok=True)
+    n0 = len(base)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        out, systems = [], {}
+        for i, dev in enumerate(devs):
+            scfg = _storage_cfg(cfg, Path(tmp) / str(i), adjacency_cache_mb=0,
+                                prefetch_depth=1)
+            s = bootstrap_system(base, np.arange(n0), scfg, device=dev,
+                                 batch=32, codebook=pqm.PQCodebook(
+                                     torch.from_numpy(cent)))
+            _stream_ops(s, new, 1000)
+            ids, d = s.search_disk(qs, k=5)
+            reader = s._disk_searcher_get().stats.snapshot()
+            out.append([ids, d, np.array([getattr(s.stats, f)
+                                          for f in IO_FIELDS]),
+                        np.array(list(reader.values()))])
+            systems[i] = (s, scfg)
+        for i, (a, b) in enumerate(zip(*out)):
+            check(np.array_equal(a, b), f"storage parity: CPU and card "
+                  f"differ in output {i}")
+        live, scfg = systems[1]
+        check(live.stats.merges >= 2 and out[1][2][4] > 0,
+              f"storage parity: {live.stats.merges} merges, "
+              f"{out[1][2][4]} rows patched")
+        live.close_storage()
+        live.wal.close()
+        rec = FreshDiskANN(scfg, device=devs[1])
+        n_rec = rec.recover()
+        check(rec.size == live.size and rec.deleted_ext == live.deleted_ext,
+              "storage parity: recovered size or DeleteList differs")
+        for f in ("adjacency", "active", "deleted"):
+            check(torch.equal(getattr(rec.lti.graph, f),
+                              getattr(live.lti.graph, f)),
+                  f"storage parity: recovered LTI {f} differs")
+        for a, b in zip(rec.search_batch(qs, k=5), live.search_batch(qs, k=5)):
+            check(np.array_equal(a, b), "storage parity: the recovered "
+                  "system's search differs from the twin's")
+        rec.close_storage()
+        rec.wal.close()
+    log(f"[parity] storage, n={n0} d={base.shape[1]}: search_disk of {len(qs)} "
+        f"queries, IO counters {dict(zip(IO_FIELDS, out[0][2].tolist()))} "
+        f"and IOStats equal on CPU and card after {live.stats.merges} "
+        f"merges; recovery on the card replayed {n_rec} records and twins "
+        f"the live system")
 
 
 def reachable(state) -> np.ndarray:
@@ -592,7 +682,8 @@ def phase_main(seed: int, n: int, centres: int = 4096, dev="cuda",
     points per cluster, the scale at which the PQ lane is meant to work.
     ``dev``, ``capacity``, ``ro_points`` and ``merge_threshold`` exist to
     rehearse the path at a small size; the card runs the defaults.
-    Returns (launch counts of the whole path, the system)."""
+    Returns (launch counts of the whole path, the system, and what the
+    storage phase reuses: the mixture's centres, the queries and k)."""
     import torch
     from repro_torch.core.config import IndexConfig, PQConfig, SystemConfig
     from repro_torch.core.lti import search_lti
@@ -781,9 +872,9 @@ def phase_main(seed: int, n: int, centres: int = 4096, dev="cuda",
     log(f"[main] launches {json.dumps(launches)}; "
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
     check(peak < 80 * 2**30, f"peak memory {peak / 2**30:.1f} GiB")
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[k] > 0 for k in MAIN_KERNELS),
           f"a kernel of the path never launched: {launches}")
-    return launches, s
+    return launches, s, dict(centers=centers, qs=qs, k=k)
 
 
 def repair_kernel_records(lti, seed: int, B: int = 1024) -> dict:
@@ -887,34 +978,328 @@ def repair_kernel_records(lti, seed: int, B: int = 1024) -> dict:
     return recs
 
 
+def gather_kernel_record(lti, seed: int, B: int = 1024, W: int = 4) -> dict:
+    """``gather_rows`` against its plain version at the main path's shape:
+    B 1024 queries x W 4 frontier ids into the merged LTI's adjacency
+    (R 64), some ids negative and some repeated (within and across rows);
+    must be equal.  Times kernel, plain
+    version and ``torch.index_select`` (the one PyTorch call for the same
+    gather, without the INVALID rows, on the ids clamped at 0)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    adj = lti.graph.adjacency
+    N, R = adj.shape
+    dev = adj.device
+    rng = np.random.default_rng(seed + 9)
+    live = torch.nonzero(lti.graph.active)[:, 0].cpu().numpy()
+    ids_np = rng.choice(live, (B, W)).astype(np.int32)
+    ids_np[rng.random((B, W)) < 0.1] = -1
+    ids_np[1::7, 1] = ids_np[1::7, 0]              # repeated within a row
+    ids_np[2::5] = ids_np[0]                       # repeated across rows
+    ids = torch.from_numpy(ids_np).to(dev)
+    check(torch.equal(ops.gather_rows(adj, ids),
+                      ref.gather_rows_ref(adj, ids)),
+          "gather_rows differs from its plain version")
+    safe = ids.clamp(min=0).flatten().long()
+    ms = time_ms(lambda: ops.gather_rows(adj, ids))
+    plain = time_ms(lambda: ref.gather_rows_ref(adj, ids))
+    lib = time_ms(lambda: torch.index_select(adj, 0, safe))
+    n_valid = int((ids_np >= 0).sum())
+    nbytes = n_valid * R * 4 + B * W * R * 4 + B * W * 4
+    bnd = bound_ms(nbytes, 0.0)
+    log(f"[kernels] gather_rows B={B} W={W} R={R} N={N}: bit-identical "
+        f"({B * W - n_valid} negative ids)  kernel {ms:.4f} ms  plain "
+        f"{plain:.4f} ms  index_select {lib:.4f} ms  bound {bnd[0]:.4f} ms "
+        f"({bnd[1]})")
+    return {"gather_rows": kernel_record(
+        "gather_rows", err=0.0, ms=ms, plain_ms=plain, nbytes=nbytes,
+        nflops=0.0, library_ms=lib,
+        shape=f"B={B} W={W} R={R} N={N}, {B * W - n_valid} ids < 0")}
+
+
+STORAGE_KERNELS = ("l2_rows", "adc_rows", "frontier_select",
+                   "robust_prune_fp", "delete_repair_fp", "gather_rows")
+
+
+def phase_storage(s, data: dict, seed: int, min_free_gib: float = 8.0,
+                  profile: bool = False) -> dict:
+    """The storage tier at the main path's shape, on its merged LTI (no
+    second bootstrap):
+
+    1. a system over ``s.lti`` with ``storage_dir``, ``wal_dir`` and
+       ``snapshot_dir`` (prefetch depth 1, 8 MB cache: the defaults)
+       writes the layout; 1 % of the LTI's live points are deleted;
+    2. 4 x 1024 queries through ``search_disk``: 5-recall@5 >= 0.90, no
+       deleted id, ids and dists equal to ``search_batch``'s, and
+       io_rows_read + io_cache_hits equal to the rows requested;
+    3. 1024 queries beam-searched through ``HBMSource`` (the
+       ``gather_rows`` kernel) and ``DenseSource`` (PQ, L 100, W 4): all
+       seven result fields equal, a ``gather_rows`` launch per round;
+    4. merge_threshold + ro_points / 4 inserts (one threshold merge that
+       delta-patches the layout, snapshots ``merge_1`` and truncates the
+       WAL), then ro_points / 2 inserts and 1 % more deletes, with no
+       search between them;
+    5. a "crash" (storage and WAL closed; the live system kept as the
+       twin) and a fresh system's ``recover()``: the LTI, ``size``, the
+       DeleteList and ``search_batch`` equal the twin's, every acknowledged
+       insert found in its top-5 (>= 0.98 over the points reachable in
+       their tier), no deleted id returned.
+
+    Writes under one temporary directory in ``build/`` and fails first if
+    it has under ``min_free_gib`` free.  With ``profile``, also runs one
+    ``search_disk`` micro-batch and the ``HBMSource`` search under
+    torch.profiler (after the checks of steps 2 and 3).  Returns the
+    launch counts of the phase."""
+    import torch
+    from repro_torch.core.search import PQBackend, beam_search
+    from repro_torch.core.system import FreshDiskANN
+    from repro_torch.kernels import ops
+    from repro_torch.storage import HBMSource
+    dev = s.device
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    cfg, icfg, k, qs = s.cfg, s.cfg.index, data["k"], data["qs"]
+    g = np.random.default_rng(seed + 11)
+    n_new = cfg.merge_threshold + cfg.ro_snapshot_points // 4
+    n_tail = cfg.ro_snapshot_points // 2
+    new = _mixture(g, data["centers"], n_new + n_tail)
+    id0 = 20_000_000
+    table = s.lti_ext_ids
+    gr = s.lti.graph
+    usable = (gr.active & ~gr.deleted).cpu().numpy()
+    live_ext = table[(table >= 0) & usable]
+    perm = g.permutation(live_ext)
+    n_del = len(live_ext) // 100
+    dels, dels2 = perm[:n_del], perm[n_del:2 * n_del]
+
+    BUILD.mkdir(exist_ok=True)
+    free = shutil.disk_usage(BUILD).free
+    log(f"[storage] {free / 2**30:.1f} GiB free under {BUILD}")
+    check(free >= min_free_gib * 2**30,
+          f"under {min_free_gib} GiB free under {BUILD} for the layout, a "
+          f"snapshot layout, temps and the WAL")
+    ops.reset_launches()
+    with tempfile.TemporaryDirectory(dir=BUILD, prefix="storage-") as tmp:
+        scfg = _storage_cfg(cfg, Path(tmp))
+        sync()
+        t0 = time.perf_counter()
+        live = FreshDiskANN(scfg, lti=s.lti, lti_ext_ids=table.copy(),
+                            device=dev)
+        t_write = time.perf_counter() - t0
+        log(f"[storage] layout of capacity {icfg.capacity} written in "
+            f"{t_write:.2f} s ({live.stats.storage_bytes_written / 2**30:.2f}"
+            f" GiB: topology.bin, data.bin, meta.npz); prefetch depth "
+            f"{scfg.prefetch_depth}, cache {scfg.adjacency_cache_mb} MB")
+        for e in dels:
+            live.delete(int(e))
+
+        # 2. search_disk, micro-batch by micro-batch, beside search_batch.
+        nb = len(qs) // 1024
+        disk_ids, disk_d, t_disk = [], [], []
+        for b in range(nb):
+            q = qs[b * 1024:(b + 1) * 1024]
+            st0 = live._disk_searcher_get().stats.snapshot()
+            io0 = [getattr(live.stats, f) for f in IO_FIELDS[:3]]
+            t0 = time.perf_counter()
+            ids, d = live.search_disk(q, k=k)
+            t_disk.append(time.perf_counter() - t0)
+            st1 = live._disk_searcher_get().stats.snapshot()
+            io = {key: st1[key] - st0[key] for key in st1}
+            reads = live.stats.io_rows_read - io0[0]
+            hits = live.stats.io_cache_hits - io0[1]
+            check(reads + hits == io["rows_requested"],
+                  f"search_disk micro-batch {b}: reads {reads} + cache hits "
+                  f"{hits} != rows requested {io['rows_requested']}")
+            log(f"[storage] search_disk micro-batch {b}: "
+                f"{t_disk[-1] * 1e3:.1f} ms; IOStats {json.dumps(io)}")
+            disk_ids.append(ids)
+            disk_d.append(d)
+        disk_ids, disk_d = np.concatenate(disk_ids), np.concatenate(disk_d)
+        live.stats.search_latency = type(live.stats.search_latency)(seed=1)
+        t0 = time.perf_counter()
+        ids_b, d_b = live.search_batch(qs, k=k)
+        t_batch = time.perf_counter() - t0
+        lat = live.stats.search_latency.snapshot()
+        check(np.array_equal(disk_ids, ids_b) and np.array_equal(disk_d, d_b),
+              "search_disk differs from search_batch")
+        check(not np.isin(disk_ids, dels).any(),
+              "search_disk returned a deleted id")
+        slots = np.nonzero((table >= 0) & usable & ~np.isin(table, dels))[0]
+        recall = _recall(disk_ids, qs, gr.vectors[torch.from_numpy(
+            slots).to(dev)], table[slots], k, dev)
+        check(recall >= 0.90, f"search_disk recall {recall} < 0.90")
+        log(f"[storage] search_disk {len(qs)} queries: "
+            f"{len(qs) / sum(t_disk):.0f} queries/s, micro-batch p50 "
+            f"{np.percentile(t_disk, 50) * 1e3:.1f} ms; search_batch "
+            f"{len(qs) / t_batch:.0f} queries/s, p50 {lat['p50'] * 1e3:.1f} "
+            f"ms; equal ids and dists; 5-recall@5 {recall:.4f} over "
+            f"{len(slots)} live points")
+
+        # 3. HBMSource == DenseSource through the gather_rows kernel.
+        lg = live.lti.graph
+        qd = torch.from_numpy(qs[:1024]).to(dev)
+        backend = PQBackend(live.lti.codes, live.lti.codebook)
+        kw = dict(L=100, max_visits=icfg.visits_bound(100), beam_width=4,
+                  use_kernel=icfg.kernel_enabled(dev))
+        src = HBMSource(lg.adjacency, lg.active)
+        sync()
+        t0 = time.perf_counter()
+        dense = beam_search(lg.adjacency, lg.active, lg.start, qd, backend,
+                            **kw)
+        sync()
+        t_dense = time.perf_counter() - t0
+        before = ops.LAUNCHES["gather_rows"]
+        hbm = beam_search(None, None, lg.start, qd, backend, source=src,
+                          R=icfg.R, **kw)
+        n_gather = ops.LAUNCHES["gather_rows"] - before
+        sync()
+        t0 = time.perf_counter()
+        beam_search(None, None, lg.start, qd, backend, source=src, R=icfg.R,
+                    **kw)
+        sync()
+        t_hbm = time.perf_counter() - t0
+        rounds = int(hbm.n_hops.max())
+        for f in hbm._fields:
+            check(torch.equal(getattr(hbm, f), getattr(dense, f)),
+                  f"HBMSource differs from DenseSource in {f}")
+        check(n_gather >= rounds or not cuda,
+              f"gather_rows launched {n_gather} times for {rounds} rounds")
+        log(f"[storage] HBMSource beam search, 1024 queries, L 100, W 4: all "
+            f"seven fields equal to DenseSource; {rounds} rounds, "
+            f"{n_gather} gather_rows launches; {t_hbm * 1e3:.1f} ms vs "
+            f"DenseSource {t_dense * 1e3:.1f} ms")
+        if profile:
+            profile_run("search_disk, 1024 queries",
+                        lambda: live.search_disk(qs[:1024], k=k))
+            profile_run("HBMSource beam search, 1024 queries",
+                        lambda: beam_search(None, None, lg.start, qd,
+                                            backend, source=src, R=icfg.R,
+                                            **kw))
+
+        # 4. Inserts through a threshold merge, then a tail after it.
+        sync()
+        t0 = time.perf_counter()
+        for i in range(n_new):
+            live.insert(id0 + i, new[i])
+        sync()
+        t_ins = time.perf_counter() - t0
+        st = live.stats
+        snap = live.latest_snapshot()
+        check(st.merges == 1 and snap is not None
+              and snap.endswith("merge_1"),
+              f"expected one threshold merge and merge_1: {st.merges}, "
+              f"{snap}")
+        for i in range(n_new, n_new + n_tail):
+            live.insert(id0 + i, new[i])
+        for e in dels2:
+            live.delete(int(e))
+        ph = st.merge_phase_seconds
+        log(f"[storage] {n_new} inserts in {t_ins:.2f} s with the WAL, the "
+            f"threshold merge {st.merge_seconds:.2f} s "
+            f"({_fmt_phases(ph)}); patch: {st.storage_rows_patched} "
+            f"adjacency rows in {st.storage_blocks_patched} blocks, "
+            f"{st.storage_bytes_written / 2**20:.1f} MiB written in all; "
+            f"then {n_tail} inserts and {len(dels2)} deletes; WAL "
+            f"{os.path.getsize(live.wal.path) / 2**20:.1f} MiB")
+
+        # 5. Crash, recover, twin check.
+        live.close_storage()
+        live.wal.close()
+        sync()
+        t0 = time.perf_counter()
+        rec = FreshDiskANN(scfg, device=dev)
+        n_rec = rec.recover()
+        sync()
+        t_rec = time.perf_counter() - t0
+        log(f"[storage] recovery from {Path(snap).name} + the WAL suffix: "
+            f"{n_rec} records replayed in {t_rec:.2f} s")
+        check(n_rec == (n_new - cfg.merge_threshold) + n_tail + len(dels2),
+              f"replayed {n_rec} records")
+        for f in ("adjacency", "active", "deleted"):
+            check(torch.equal(getattr(rec.lti.graph, f),
+                              getattr(live.lti.graph, f)),
+                  f"recovered LTI {f} differs")
+        check(torch.equal(rec.lti.codes, live.lti.codes),
+              "recovered LTI codes differ")
+        check(rec.size == live.size and rec.deleted_ext == live.deleted_ext,
+              f"recovered size {rec.size} / DeleteList differ from the "
+              f"twin's {live.size}")
+        r_ids, r_d = rec.search_batch(qs[:1024], k=k)
+        t_ids, t_d = live.search_batch(qs[:1024], k=k)
+        check(np.array_equal(r_ids, t_ids) and np.array_equal(r_d, t_d),
+              "the recovered system's search differs from the twin's")
+        rd_ids, rd_d = rec.search_disk(qs[:1024], k=k)
+        check(np.array_equal(rd_ids, r_ids) and np.array_equal(rd_d, r_d),
+              "the recovered system's search_disk differs from its "
+              "search_batch")
+        ext = id0 + np.arange(n_new + n_tail)
+        hit_ids, _ = rec.search_batch(new, k=k)
+        hit = (hit_ids == ext[:, None]).any(1)
+        reach = {"lti": reachable(rec.lti.graph),
+                 "rw": reachable(rec.rw.state)}
+        loc = [rec._ext_loc[int(e)] for e in ext]
+        ok_reach = np.array([reach[t][sl] for t, sl in loc])
+        self_reach = float(hit[ok_reach].mean())
+        gone = np.concatenate([dels, dels2])
+        check(not np.isin(hit_ids, gone).any() and not np.isin(r_ids, gone)
+              .any(), "a deleted id was returned after recovery")
+        log(f"[storage] recovered system twins the live one (LTI, size "
+            f"{rec.size}, DeleteList, search_batch ids and dists; "
+            f"search_disk == search_batch); acknowledged inserts found in "
+            f"top-5: {float(hit.mean()):.4f} of {len(ext)} "
+            f"({int((~ok_reach).sum())} unreachable in their tier), "
+            f"{self_reach:.4f} over the reachable ones")
+        check(self_reach >= 0.98,
+              f"self-hit of acknowledged inserts {self_reach} < 0.98")
+        rec.close_storage()
+        rec.wal.close()
+        del rec, live
+    sync()
+    launches = dict(ops.LAUNCHES)
+    log(f"[storage] launches {json.dumps(launches)}")
+    missing = [n for n in STORAGE_KERNELS if not launches[n]]
+    check(not missing, f"kernels of the storage path never launched: "
+          f"{missing}")
+    return launches
+
+
+def profile_run(name: str, fn) -> None:
+    """Run ``fn()`` once under torch.profiler and log its wall time, the
+    device's busy and idle shares, and device time by kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            by_name[e.name] = by_name.get(e.name, 0.0) + us
+    busy = sum(by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[profile] {name}: wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy * 1e3:.1f} ms ({busy / wall:.1%}), idle "
+        f"{1 - busy / wall:.1%}; top device time: " + "; ".join(
+            f"{k[:48]} {v / 1e3:.2f} ms" for k, v in top))
+
+
 def profile_steps(s, queries, vecs, merge_vecs, first_id) -> None:
     """Device busy share and kernel time by name, from torch.profiler,
     over one search micro-batch, one flush and one StreamingMerge (a
     local Delete phase of 1 % deletes and len(merge_vecs) points, on the
     LTI, not swapped in) after the main path."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.merge import streaming_merge
-
-    def run(name, fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        by_name: dict = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                us = e.time_range.elapsed_us()
-                by_name[e.name] = by_name.get(e.name, 0.0) + us
-        busy = sum(by_name.values()) / 1e6
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        log(f"[profile] {name}: wall {wall * 1e3:.1f} ms, device busy "
-            f"{busy * 1e3:.1f} ms ({busy / wall:.1%}), idle "
-            f"{1 - busy / wall:.1%}; top device time: " + "; ".join(
-                f"{k[:48]} {v / 1e3:.2f} ms" for k, v in top))
+    run = profile_run
 
     def flush():
         for i, v in enumerate(vecs):
@@ -954,7 +1339,7 @@ def main(argv=None) -> int:
                     help="bootstrap points of the main path")
     ap.add_argument("--centres", type=int, default=4096,
                     help="Gaussian centres of the main path's corpus")
-    ap.add_argument("--phases", default="build,kernels,parity,main")
+    ap.add_argument("--phases", default="build,kernels,parity,main,storage")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -978,12 +1363,21 @@ def main(argv=None) -> int:
         if "parity" in phases:
             phase_parity(args.seed)
         if "main" in phases:
-            launches, s = phase_main(args.seed, args.n, args.centres)
+            launches, s, data = phase_main(args.seed, args.n, args.centres)
             if "kernels" in phases:
                 recs.update(repair_kernel_records(s.lti, args.seed))
+                recs.update(gather_kernel_record(s.lti, args.seed))
+            if "storage" in phases:
+                st_launches = phase_storage(s, data, args.seed,
+                                            profile="profile" in phases)
+                launches["gather_rows"] = st_launches["gather_rows"]
             for name, cnt in launches.items():
                 if name in recs:
                     recs[name]["launches"] = cnt
+            if {"kernels", "storage"} <= phases:
+                check(len(recs) == len(KERNEL_META) and all(
+                    r["launches"] > 0 for r in recs.values()),
+                    "a kernel record without launches on its path")
             if "profile" in phases:
                 g = np.random.default_rng(args.seed + 3)
                 pts = (g.standard_normal((4096 + 256, 128)) * 2.0).astype(

@@ -94,10 +94,12 @@ class SystemConfig:
     limits (``ro_snapshot_points``, ``temp_capacity``, ``insert_batch``),
     ``rerank``, ``batch_queries``, the merge (``merge_threshold``,
     ``merge_block``, ``background_merge``, ``local_repair_threshold``, the
-    ``reach_*`` probe) and ``locality_order``.  The features behind
-    ``wal_dir``, ``snapshot_dir``, ``storage_dir``, ``shard_lti``,
-    ``filter_words``, ``autotune_beam`` and ``batch_fanout=False`` raise
-    ``NotImplementedError`` until their slices land."""
+    ``reach_*`` probe), ``locality_order``, the WAL and snapshots
+    (``wal_dir``, ``snapshot_dir``) and the storage tier (``storage_dir``,
+    ``prefetch_depth``, ``adjacency_cache_mb``, ``io_latency_us``).  The
+    features behind ``shard_lti``, ``filter_words``, ``autotune_beam`` and
+    ``batch_fanout=False`` raise ``NotImplementedError`` until their slices
+    land."""
 
     index: IndexConfig
     pq: PQConfig

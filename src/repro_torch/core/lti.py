@@ -5,7 +5,9 @@ An LTI is a FreshVamana graph navigated with PQ codes (ADC) and reranked
 with exact distances over its full-precision vectors, as in DiskANN.  In
 the system it rides as the PQ lane of ``index.unified_search``;
 ``search_lti`` is the standalone engine of the same lane.  All of it --
-vectors, adjacency and codes -- lives in device memory.
+vectors, adjacency and codes -- lives in device memory; with
+``SystemConfig.storage_dir`` the system also mirrors it to the decoupled
+on-disk layout (``write_lti_layout``, ``storage.DiskLTISearcher``).
 """
 from __future__ import annotations
 
@@ -76,3 +78,27 @@ def search_lti(lti: LTIState, queries: torch.Tensor, cfg: IndexConfig, *,
         res = res._replace(dists=exact)
     ids, d = topk_results(res, k, reportable)
     return ids, d, res.n_hops, res.n_cmps
+
+
+def write_lti_layout(path: str, lti: LTIState, *, ext_ids=None,
+                     generation: int = 0):
+    """Serialise an LTI into the decoupled on-disk layout (adjacency rows to
+    ``topology.bin``, vectors and PQ codes to ``data.bin``, flags, ext ids
+    and codebook to the side tables) and return it opened;
+    ``storage.DiskLTISearcher`` over it equals ``search_lti`` on this
+    state."""
+    from ..storage.layout import write_layout
+    return write_layout(path, lti.graph, codes=lti.codes,
+                        codebook=lti.codebook, ext_ids=ext_ids,
+                        generation=generation)
+
+
+def lti_from_layout(path: str, device="cuda") -> LTIState:
+    """The ``LTIState`` of a decoupled layout on ``device`` (recovery and
+    tests; serving streams rows through ``storage.DiskSource``)."""
+    from ..storage.layout import open_layout
+    lay = open_layout(path)
+    try:
+        return lay.lti_state(device)
+    finally:
+        lay.close()

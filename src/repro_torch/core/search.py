@@ -14,7 +14,19 @@ list, picks the next frontier and appends it to the visited set.
 
 Counters per row, as in the reference: ``n_hops`` IO rounds, ``n_cmps``
 distance computations against fresh neighbours, ``n_reads`` adjacency rows
-fetched (the visit count, every row being an in-memory fetch).
+fetched.  For an in-memory source every expanded row is a fetch, so
+``n_reads`` is the visit count.  A disk-backed source
+(``repro_torch.storage.DiskSource``) reports a per-row ``fetched`` mask
+instead: rows its block cache served are not reads (they are counted as
+``SystemStats.io_cache_hits``), rows the prefetcher read ahead still are;
+with the cache off, disk ``n_reads`` equals the dense count.
+
+Graph rows come through a ``GraphSource`` (``rows``, ``node_ok``):
+``DenseSource`` over device tensors by default, ``storage.HBMSource``
+through the ``gather_rows`` kernel, or ``storage.DiskSource`` off the
+on-disk layout.  A source with the hinted extension (``rows_hinted`` and
+``hint_width``) also receives each round's lookahead hint (``_lookahead``)
+so that a prefetcher can stage the next round's rows.
 
 Several graphs can be searched as one batch: their tensors are
 concatenated into one table and each query row carries a ``base`` offset
@@ -29,7 +41,7 @@ codes; the ``adc_rows`` kernel when ``use_kernel``).  Without
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Protocol
 
 import torch
 
@@ -81,6 +93,26 @@ class PQBackend(NamedTuple):
         return pqm.adc_gather(self.codes, ctx, ids)
 
 
+class GraphSource(Protocol):
+    """Adjacency and navigability access for the engine.
+
+    A source may also implement the hinted extension: ``rows_hinted(ids,
+    hints) -> (rows, fetched)`` and an integer ``hint_width``.  Its
+    presence routes the engine onto the frontier -> prefetch handshake:
+    each round hands the source its frontier and the next ``hint_width``
+    open candidates, and ``n_reads`` sums the returned ``fetched`` masks.
+    """
+
+    def rows(self, ids: torch.Tensor) -> torch.Tensor:
+        """ids [B, W] int32 -> adjacency rows [B, W, R]; INVALID rows for
+        ids < 0."""
+        ...
+
+    def node_ok(self, ids: torch.Tensor) -> torch.Tensor:
+        """ids [B, K] int32 -> bool [B, K]: valid (>= 0) and navigable."""
+        ...
+
+
 class DenseSource(NamedTuple):
     """Dense adjacency/navigability access (ids into the whole table)."""
 
@@ -114,25 +146,56 @@ class SearchResult(NamedTuple):
     n_reads: torch.Tensor        # [B] adjacency rows fetched
 
 
-def beam_search(adjacency: torch.Tensor, navigable: torch.Tensor,
+def _lookahead(cand_ids: torch.Tensor, cand_d: torch.Tensor,
+               vis_ids: torch.Tensor, hint_w: int) -> torch.Tensor:
+    """The engine half of the frontier -> prefetch handshake: after a
+    ``frontier_select`` the list is sorted and the frontier is already
+    visited, so the first ``hint_w`` entries of each row that are valid,
+    unvisited and finite are the nodes the next frontier is drawn from
+    (unless a fresh discovery outranks them).  [B, L] -> [B, min(hint_w,
+    L)], INVALID-padded; a pure function of the loop state."""
+    B, L = cand_ids.shape
+    if hint_w <= 0:
+        return torch.full((B, 0), INVALID, dtype=torch.int32,
+                          device=cand_ids.device)
+    in_vis = (cand_ids[:, :, None] == vis_ids[:, None, :]).any(2)
+    open_ = (cand_ids >= 0) & ~in_vis & torch.isfinite(cand_d)
+    # Open entries first, in list (= distance) order.
+    key = torch.where(open_, torch.arange(L, dtype=torch.int32,
+                                          device=cand_ids.device), L)
+    order = torch.sort(key, dim=1, stable=True).indices[:, :hint_w]
+    return torch.where(open_.gather(1, order), cand_ids.gather(1, order),
+                       torch.full_like(cand_ids[:, :1], INVALID))
+
+
+def beam_search(adjacency: Optional[torch.Tensor],
+                navigable: Optional[torch.Tensor],
                 start: torch.Tensor, queries: torch.Tensor, backend, *,
                 L: int, max_visits: int, beam_width: int = 1,
                 use_kernel: bool = False,
-                base: Optional[torch.Tensor] = None) -> SearchResult:
+                base: Optional[torch.Tensor] = None,
+                source: Optional[GraphSource] = None,
+                R: Optional[int] = None) -> SearchResult:
     """Batched beam-width Algorithm 1 over ``queries`` [B, ...].
 
     ``start`` is a scalar entry point or one per row [B] (row-local id).
     ``base`` [B] offsets each row's ids into ``adjacency``/``navigable``
-    and the backend's table (None: one graph for every row).
+    and the backend's table (None: one graph for every row).  ``source``
+    replaces the dense row access (a source without device-resident
+    topology, ``storage.DiskSource``, comes with ``adjacency=None`` and an
+    explicit ``R``).
     """
     if beam_width < 1:
         raise ValueError(f"beam_width must be >= 1, got {beam_width}")
-    R = adjacency.shape[1]
+    if R is None:
+        R = adjacency.shape[1]
     W = min(beam_width, L)
     K = W * R
     B = queries.shape[0]
-    dev = adjacency.device
-    src = DenseSource(adjacency, navigable)
+    dev = queries.device
+    src = DenseSource(adjacency, navigable) if source is None else source
+    hinted = hasattr(src, "rows_hinted")
+    hint_w = int(getattr(src, "hint_width", 0)) if hinted else 0
     ctx = backend.prepare(queries)
     i32 = torch.int32
     inf = float("inf")
@@ -161,6 +224,9 @@ def beam_search(adjacency: torch.Tensor, navigable: torch.Tensor,
                  vis_cnt)
     n_cmps = torch.zeros(B, dtype=i32, device=dev)
     n_hops = torch.zeros(B, dtype=i32, device=dev)
+    if hinted:
+        n_reads = torch.zeros(B, dtype=i32, device=dev)
+        hint = _lookahead(state[0], state[1], state[4], hint_w)
     earlier = (torch.tril(torch.ones((K, K), dtype=torch.bool, device=dev),
                           diagonal=-1) if W > 1 else None)
 
@@ -169,8 +235,15 @@ def beam_search(adjacency: torch.Tensor, navigable: torch.Tensor,
         live = (f_ids >= 0).any(1)              # rows with a frontier
         if not bool(live.any()):
             break
-        # One-shot W x R adjacency gather (one IO round).
-        nbrs = src.rows(globalize(f_ids, base)).reshape(B, K)
+        # One-shot W x R adjacency gather (one IO round).  Finished rows
+        # hand the source their frozen (all-INVALID) frontier and frozen
+        # hint, as the lanes of a vmapped while_loop do.
+        if hinted:
+            frows, fetched = src.rows_hinted(globalize(f_ids, base),
+                                             globalize(hint, base))
+            nbrs = frows.reshape(B, K)
+        else:
+            nbrs = src.rows(globalize(f_ids, base)).reshape(B, K)
         ok = src.node_ok(globalize(nbrs, base))
         in_list = (nbrs[:, :, None] == cand_ids[:, None, :]).any(2)
         in_vis = (nbrs[:, :, None] == vis_ids[:, None, :]).any(2)
@@ -190,10 +263,16 @@ def beam_search(adjacency: torch.Tensor, navigable: torch.Tensor,
                                   a, b) for a, b in zip(nxt, state))
         n_cmps = n_cmps + torch.where(live, new.sum(1, dtype=i32), 0)
         n_hops = n_hops + live.to(i32)
+        if hinted:
+            n_reads = n_reads + torch.where(live, fetched.sum(1, dtype=i32),
+                                            0)
+            hint = torch.where(live[:, None], _lookahead(
+                nxt[0], nxt[1], nxt[4], hint_w), hint)
 
     cand_ids, cand_d, _, _, vis_ids, vis_d, vis_cnt = state
+    # Dense sources fetch every visited row; hinted ones counted fetches.
     return SearchResult(cand_ids, cand_d, vis_ids, vis_d, n_hops, n_cmps,
-                        vis_cnt)
+                        n_reads if hinted else vis_cnt)
 
 
 def rerank_candidates(ids: torch.Tensor, reportable: torch.Tensor

@@ -12,6 +12,22 @@ reaching ``merge_threshold`` (on a worker thread with
 ``consolidate()``.  Everything lives on one device (CUDA unless the caller
 asks for the CPU).
 
+Durability and the storage tier (paper §5.1, §5.6):
+
+* ``wal_dir``: every insert and delete is appended to the redo log
+  (``core/wal.py``) before it is applied; ``recover()`` loads the newest
+  snapshot and replays the log suffix past it.
+* ``snapshot_dir``: each merge snapshots the system (``save``) before it
+  truncates the log into a new epoch; without it the log is never
+  truncated.  Snapshots use the reference's files and are readable by
+  either package: the port pickles only builtins and numpy arrays, and
+  reads the reference's pickles without importing it.
+* ``storage_dir``: the LTI is mirrored to the decoupled on-disk layout
+  (``storage/layout.py``), written whole at construction and delta-patched
+  after every merge and consolidation; ``search_disk`` serves the LTI lane
+  off that layout (``storage.DiskLTISearcher``) and the temp tiers from
+  memory.
+
 A merge builds a NEW LTI (``merge.streaming_merge`` writes only copies)
 while searches read the old one; the (LTI, external-id table) pair is
 swapped as one tuple once the merge's device work has finished, and the RO
@@ -22,11 +38,10 @@ canonical order: ``_flush_lock`` -> ``_insert_lock`` -> ``_ro_lock``, and
 ``_merge_lock`` around merges and consolidations.
 
 Not ported yet, and raising ``NotImplementedError`` naming the slice that
-ports it: the WAL and snapshots (``wal_dir``, ``snapshot_dir``), the disk
-layout (``storage_dir``), the sharded LTI lane (``shard_lti``), filters and
-tenants (``filter_words``, ``labels``, ``tenant``), the beam-width
-autotuner (``autotune_beam``) and the sequential per-tier query path
-(``batch_fanout=False``).
+ports it: the sharded LTI lane (``shard_lti``), filters and tenants
+(``filter_words``, ``labels``, ``tenant``, labelled WAL records and
+snapshots), the beam-width autotuner (``autotune_beam``) and the
+sequential per-tier query path (``batch_fanout=False``).
 
 External ids are user-provided int64s; the system maps them to
 (tier, slot).
@@ -34,6 +49,8 @@ External ids are user-provided int64s; the system maps them to
 from __future__ import annotations
 
 import dataclasses
+import os
+import pickle
 import threading
 import time
 from dataclasses import dataclass, field
@@ -50,13 +67,15 @@ from .distance import INVALID
 from .graph import GraphState, empty_graph, pad_graph, stack_lanes
 from .locality import locality_order
 from .lti import LTIState, build_lti
-from .merge import streaming_merge
+from .merge import adjacency_delta_mask, streaming_merge
 from .reach import unreachable_fraction
+from .wal import (OP_DELETE, OP_INSERT, OP_INSERT_LABELED, WriteAheadLog,
+                  log_epoch, replay)
+from ..storage import (DiskLTISearcher, is_layout, open_layout,
+                       patch_layout, write_layout)
+from ..storage.layout import host
 
 _UNPORTED = (
-    ("wal_dir", None, "the WAL and snapshot slice"),
-    ("snapshot_dir", None, "the WAL and snapshot slice"),
-    ("storage_dir", None, "the storage slice"),
     ("shard_lti", 0, "the serving and sharding slice"),
     ("filter_words", 0, "the filters slice"),
     ("autotune_beam", False, "the autotune slice"),
@@ -142,7 +161,19 @@ class SystemStats:
     #   engine (MergeStats.n_prune_rows: what the port launched)
     merge_phase_seconds: dict = field(default_factory=dict)  # port only:
     #   seconds per merge phase ("delete", "insert", "patch") summed over
-    #   merges, the device synchronized at each phase boundary
+    #   merges, the device synchronized at each phase boundary, and, with
+    #   storage_dir and snapshot_dir, the layout patch ("layout_patch") and
+    #   the snapshot before the log truncation ("snapshot")
+    # Storage tier (cfg.storage_dir).  Rows obey the conservation law
+    # io_rows_read + io_cache_hits == rows the engine requested.
+    io_rows_read: int = 0        # adjacency rows read off topology.bin
+    #   (demand reads + prefetch-staged reads: the engine's n_reads)
+    io_cache_hits: int = 0       # rows the block cache served, no file IO
+    io_prefetch_hits: int = 0    # ... of io_rows_read, staged ahead
+    io_bytes_read: int = 0       # topology.bin bytes read (whole blocks)
+    storage_rows_patched: int = 0    # adjacency rows the delta patches wrote
+    storage_blocks_patched: int = 0  # distinct 4 KB blocks of those rows
+    storage_bytes_written: int = 0   # bytes of patches and full writes
     insert_latency: Reservoir = field(default_factory=Reservoir, repr=False)
     search_latency: Reservoir = field(
         default_factory=lambda: Reservoir(seed=1), repr=False)
@@ -204,6 +235,18 @@ class FreshDiskANN:
         self._fanout_cache: Optional[tuple] = None
         self._drop_cache: Optional[tuple] = None
         self._delete_epoch = 0
+        self._wal_offset: Optional[int] = None  # WAL bytes a snapshot covers
+        self._wal_epoch: Optional[int] = None   # ... and of which log epoch
+        self.wal: Optional[WriteAheadLog] = None
+        if cfg.wal_dir:
+            os.makedirs(cfg.wal_dir, exist_ok=True)
+            self.wal = WriteAheadLog(
+                os.path.join(cfg.wal_dir, "wal.bin"), icfg.dim)
+        # The live layout mirrors the LTI; the searcher over it is cached
+        # per layout generation (a sync closes it, reopened lazily).
+        self._disk_searcher: Optional[DiskLTISearcher] = None
+        if cfg.storage_dir:
+            self._sync_storage()
 
     @property
     def lti(self) -> LTIState:
@@ -223,6 +266,8 @@ class FreshDiskANN:
                 "yet; they come with the filters slice")
         t0 = time.perf_counter()
         with self._insert_lock:
+            if self.wal:
+                self.wal.log_insert(ext_id, vec)
             self._insert_buf_id.append(int(ext_id))
             self._insert_buf_v.append(np.asarray(vec, np.float32))
             # A re-insert revives the id at once (not at flush time).
@@ -240,6 +285,8 @@ class FreshDiskANN:
         """DeleteList append -- no graph edits (paper §4.2)."""
         e = int(ext_id)
         with self._insert_lock:
+            if self.wal:
+                self.wal.log_delete(ext_id)
             if e in self._insert_buf_id:
                 # Only buffered: drop it there, or the next flush would
                 # revive it and invert the op order.
@@ -337,6 +384,8 @@ class FreshDiskANN:
     def _merge_body(self, ro: list, t0: float) -> None:
         staged = sum(t.n for t in ro)
         icfg = self.cfg.index
+        # The pre-merge adjacency anchors the layout's delta patch.
+        old_adj = self.lti.graph.adjacency if self.cfg.storage_dir else None
         del_snapshot = set(self.deleted_ext)
         dl = np.fromiter(del_snapshot, np.int64, len(del_snapshot))
         # Stage the RO points in tier and slot order, minus re-deleted ones.
@@ -396,7 +445,27 @@ class FreshDiskANN:
         with self._ro_lock:
             self.ro = self.ro[len(ro):]
             self._merge_inflight = 0
+        timings = self.stats.merge_phase_seconds
+        if self.cfg.storage_dir:
+            # Only the adjacency rows this merge rewrote reach topology.bin.
+            t1 = time.perf_counter()
+            self._sync_storage(adj_changed=host(adjacency_delta_mask(
+                old_adj, new_lti.graph.adjacency)))
+            timings["layout_patch"] = (timings.get("layout_patch", 0.0)
+                                       + time.perf_counter() - t1)
         self._retire_deletes(del_snapshot)
+        if self.wal and self.cfg.snapshot_dir:
+            # Snapshot BEFORE truncating (§5.6), as one step against
+            # concurrent WAL writers (_flush_lock first, the canonical
+            # order); the restart goes through the live handle.  Without
+            # snapshot_dir the whole log is kept.
+            t1 = time.perf_counter()
+            with self._flush_lock, self._insert_lock:
+                self._save_locked(os.path.join(
+                    self.cfg.snapshot_dir, f"merge_{self.stats.merges + 1}"))
+                self.wal.restart(self.stats.merges + 1)
+            timings["snapshot"] = (timings.get("snapshot", 0.0)
+                                   + time.perf_counter() - t1)
         self.stats.merges += 1
         self.stats.merge_seconds += time.perf_counter() - t0
         self._probe_reachability(repair_mode)
@@ -476,6 +545,11 @@ class FreshDiskANN:
             g = lti.graph
             g = g._replace(deleted=g.deleted | torch.as_tensor(dmask).to(
                 self.device))
+            # The rows that change are known beforehand: the affected rows
+            # are repaired, the deleted ones cleared.  They anchor the
+            # layout's delta patch.
+            changed = host(affected_mask(g.adjacency, g.deleted,
+                                         g.active & ~g.deleted)) | dmask
             decoded = pqm.decode(lti.codebook, lti.codes, self.cfg.pq)
             new_g = consolidate_deletes(g, icfg, block=self.cfg.merge_block,
                                         prune_table=decoded, mode=mode)
@@ -488,6 +562,8 @@ class FreshDiskANN:
             new_ids = self._retire_lti_rows(dmask)
             self._lti_pair = (LTIState(new_g, lti.codes, lti.codebook),
                               new_ids)
+            if self.cfg.storage_dir:
+                self._sync_storage(adj_changed=changed)
             self._retire_deletes(del_snapshot)
             self.stats.consolidations += 1
             self._probe_reachability(mode)
@@ -694,6 +770,304 @@ class FreshDiskANN:
         if staged >= self.cfg.merge_threshold:
             self.merge(background=self.cfg.background_merge)
 
+    # --------------------------------------------------------- storage tier
+    def _storage_path(self) -> str:
+        return os.path.join(self.cfg.storage_dir, "lti")
+
+    def _sync_storage(self, adj_changed: Optional[np.ndarray] = None) -> None:
+        """Mirror the live (LTI, ext-table) pair to the layout at
+        ``cfg.storage_dir``: a full write the first time, a delta patch
+        afterwards (``adj_changed``: the rows a merge or consolidation
+        rewrote).  An open disk searcher is closed first: its side tables
+        would go stale."""
+        self.close_storage()
+        path = self._storage_path()
+        os.makedirs(self.cfg.storage_dir, exist_ok=True)
+        lti, table = self._lti_pair
+        bits, tenant = _no_labels(lti.graph.capacity)
+        if is_layout(path):
+            ps = patch_layout(path, lti.graph, codes=lti.codes,
+                              ext_ids=table, adj_changed=adj_changed,
+                              label_bits=bits, label_tenant=tenant)
+            self.stats.storage_rows_patched += ps.adj_rows
+            self.stats.storage_blocks_patched += ps.adj_blocks
+            self.stats.storage_bytes_written += ps.bytes_written
+        else:
+            lay = write_layout(path, lti.graph, codes=lti.codes,
+                               codebook=lti.codebook, ext_ids=table,
+                               label_bits=bits, label_tenant=tenant)
+            self.stats.storage_bytes_written += (
+                lay.capacity * (lay.row_bytes + lay.dim * 4 + lay.m))
+            lay.close()
+
+    def _disk_searcher_get(self) -> DiskLTISearcher:
+        """The cached searcher over the live layout (reopened after every
+        sync, so it serves the current generation)."""
+        if self._disk_searcher is None:
+            self._disk_searcher = DiskLTISearcher(
+                open_layout(self._storage_path()), self.cfg.index,
+                cache_mb=self.cfg.adjacency_cache_mb,
+                prefetch_depth=self.cfg.prefetch_depth,
+                latency_us=self.cfg.io_latency_us, device=self.device)
+        return self._disk_searcher
+
+    def close_storage(self) -> None:
+        """Stop the prefetch thread and drop the layout's mmaps (no-op when
+        no disk searcher is open)."""
+        if self._disk_searcher is not None:
+            s, self._disk_searcher = self._disk_searcher, None
+            s.close()
+            s.layout.close()
+
+    def search_disk(self, queries: np.ndarray, k: int,
+                    L: Optional[int] = None,
+                    beam_width: Optional[int] = None, filter=None
+                    ) -> tuple[np.ndarray, np.ndarray]:
+        """The §5.2 fan-out with the LTI lane served off the layout: PQ
+        navigation on in-memory codes, adjacency rows from ``topology.bin``
+        through the block cache and the prefetch pipeline
+        (``cfg.adjacency_cache_mb``, ``cfg.prefetch_depth``), the exact
+        rerank from ``data.bin``; the temp tiers, memory-resident, go
+        through ``index.search`` one by one.  Returns (ext_ids [B, k],
+        dists [B, k]) equal to ``search_batch``'s; the reader's IO deltas
+        are folded into ``stats.io_*``."""
+        if filter is not None:
+            raise NotImplementedError(
+                "filtered search is not ported to repro_torch yet; it comes "
+                "with the filters slice")
+        if not self.cfg.storage_dir:
+            raise ValueError("search_disk needs SystemConfig.storage_dir")
+        self._flush_inserts()
+        L = L or self.cfg.index.L_search
+        if k > L:
+            raise ValueError(f"search(k={k}, L={L}): k must be <= L")
+        W = beam_width or self.cfg.index.beam_width
+        kk = min(max(k * 2, k + 8), L)
+        q = np.asarray(queries, np.float32)
+        B = q.shape[0]
+        self.stats.searches += B
+        if B == 0:
+            return (np.zeros((0, k), np.int64), np.zeros((0, k), np.float32))
+        rw_t, ro_temps, lti_entry = self._capture_lanes()
+        cands: list[tuple[np.ndarray, np.ndarray]] = []
+        if lti_entry is not None:
+            s = self._disk_searcher_get()
+            before = s.stats.snapshot()
+            ids, d, _, _, _ = s.search(q, k=kk, L=L, beam_width=W,
+                                       rerank=self.cfg.rerank)
+            ids, d = host(ids), host(d)
+            self.stats.search_dispatches += 1
+            after = s.stats.snapshot()
+
+            def delta(key):
+                return after[key] - before[key]
+
+            self.stats.io_rows_read += (delta("demand_reads")
+                                        + delta("prefetch_hits"))
+            self.stats.io_cache_hits += delta("cache_hits")
+            self.stats.io_prefetch_hits += delta("prefetch_hits")
+            self.stats.io_bytes_read += delta("bytes_read")
+            cands.append((self._map_ext(ids, s.layout.ext_ids), d))
+        qd = torch.from_numpy(q).to(self.device)
+        for t in ([rw_t] if rw_t is not None else []) + ro_temps:
+            ids, d, _, _ = mem.search(t.state, qd, self.temp_cfg, k=kk, L=L,
+                                      beam_width=W)
+            self.stats.search_dispatches += 1
+            cands.append((self._map_ext(host(ids), t.ext_ids), host(d)))
+        return self._aggregate(cands, k, B)
+
+    @staticmethod
+    def _map_ext(slot_ids: np.ndarray, table: np.ndarray) -> np.ndarray:
+        out = np.full(slot_ids.shape, -1, np.int64)
+        ok = slot_ids >= 0
+        out[ok] = table[slot_ids[ok]]
+        return out
+
+    def _aggregate(self, cands, k, nq):
+        """Host fan-in of per-tier candidates: DeleteList drop, cross-tier
+        dedupe keeping the closest copy (lexsort by (id, dist)), global
+        top-k, (-1, +inf) padding."""
+        if not cands:
+            return (np.full((nq, k), -1, np.int64),
+                    np.full((nq, k), np.inf, np.float32))
+        ids = np.concatenate([c[0] for c in cands], axis=1)
+        ds = np.concatenate([c[1] for c in cands], axis=1).astype(np.float32)
+        deleted = self.deleted_ext.copy()
+        bad = ids < 0
+        if deleted:
+            dl = np.fromiter(deleted, np.int64, len(deleted))
+            bad |= np.isin(ids, dl)
+        ds[bad] = np.inf
+        order = np.lexsort((ds, ids), axis=1)
+        sid = np.take_along_axis(ids, order, axis=1)
+        sd = np.take_along_axis(ds, order, axis=1)
+        dup = np.zeros_like(sid, bool)
+        dup[:, 1:] = (sid[:, 1:] == sid[:, :-1]) & (sid[:, 1:] >= 0)
+        sd[dup] = np.inf
+        top = np.argsort(sd, axis=1, kind="stable")[:, :k]
+        res_d = np.take_along_axis(sd, top, axis=1)
+        res_i = np.where(np.isfinite(res_d),
+                         np.take_along_axis(sid, top, axis=1), -1)
+        if res_i.shape[1] < k:
+            pad = k - res_i.shape[1]
+            res_i = np.pad(res_i, ((0, 0), (0, pad)), constant_values=-1)
+            res_d = np.pad(res_d, ((0, 0), (0, pad)),
+                           constant_values=np.inf)
+        return res_i.astype(np.int64), res_d.astype(np.float32)
+
+    # ------------------------------------------------------------ snapshots
+    def save(self, path: str) -> None:
+        """Snapshot the system into the directory ``path`` (the reference's
+        files: ``layout/`` with ``storage_dir`` else ``lti.npz``, and
+        ``temps.pkl``, ``meta.pkl``)."""
+        with self._flush_lock, self._insert_lock:
+            self._save_locked(path)
+
+    def _save_locked(self, path: str) -> None:
+        # Caller holds _flush_lock + _insert_lock (RLocks; the flush nests).
+        self._flush_inserts()
+        os.makedirs(path, exist_ok=True)
+        lti, table = self._lti_pair
+        bits, tenant = _no_labels(lti.graph.capacity)
+        if self.cfg.storage_dir:
+            write_layout(os.path.join(path, "layout"), lti.graph,
+                         codes=lti.codes, codebook=lti.codebook,
+                         ext_ids=table, generation=self.stats.merges,
+                         label_bits=bits, label_tenant=tenant).close()
+        else:
+            np.savez_compressed(
+                os.path.join(path, "lti.npz"),
+                **{f"g_{k}": host(v) for k, v in lti.graph._asdict().items()},
+                codes=host(lti.codes), centroids=host(lti.codebook.centroids),
+                ext_ids=table, label_bits=bits, label_tenant=tenant)
+        # Only builtins and numpy: a temp is (graph fields in GraphState
+        # order, ext ids, n, label bits, tenants), as the reference reads.
+        temps = [(tuple(host(x) for x in t.state), t.ext_ids, t.n,
+                  *_no_labels(len(t.ext_ids))) for t in self.ro + [self.rw]]
+        with open(os.path.join(path, "temps.pkl"), "wb") as f:
+            pickle.dump(temps, f)
+        # How much of the WAL (and which epoch) the snapshot covers, so
+        # recovery replays only the suffix.
+        wal_offset = wal_epoch = None
+        if self.wal and os.path.exists(self.wal.path):
+            wal_offset = os.path.getsize(self.wal.path)
+            wal_epoch = log_epoch(self.wal.path)
+        with open(os.path.join(path, "meta.pkl"), "wb") as f:
+            pickle.dump({"deleted": set(self.deleted_ext),
+                         "cfg": dataclasses.asdict(self.cfg),
+                         "wal_offset": wal_offset, "wal_epoch": wal_epoch}, f)
+
+    @classmethod
+    def load(cls, path: str, cfg: SystemConfig,
+             device="cuda") -> "FreshDiskANN":
+        """A system from a snapshot written by either package (its WAL and
+        layout opened under ``cfg``)."""
+        dev = resolve_device(device)
+        lay_path = os.path.join(path, "layout")
+        if is_layout(lay_path):
+            lay = open_layout(lay_path)
+            lti = lay.lti_state(dev)
+            ext_ids = lay.ext_ids.copy()
+            _check_no_labels(lay.label_bits, lay.label_tenant, lay_path)
+            lay.close()
+        else:
+            with np.load(os.path.join(path, "lti.npz")) as z:
+                g = GraphState(*(torch.from_numpy(z[f"g_{k}"]).to(dev)
+                                 for k in GraphState._fields))
+                lti = LTIState(g, torch.from_numpy(z["codes"]).to(dev),
+                               pqm.PQCodebook(torch.from_numpy(
+                                   z["centroids"]).to(dev)))
+                ext_ids = z["ext_ids"].copy()
+                if "label_tenant" in z.files:
+                    _check_no_labels(z["label_bits"], z["label_tenant"],
+                                     path)
+        sys_ = cls(cfg, lti=lti, lti_ext_ids=ext_ids, device=dev)
+        with open(os.path.join(path, "temps.pkl"), "rb") as f:
+            temps = _SnapshotUnpickler(f).load()
+        for i, entry in enumerate(temps):
+            s, e, n = entry[:3]
+            if len(entry) >= 5:
+                _check_no_labels(entry[3], entry[4], path)
+            t = _Temp(GraphState(*(torch.from_numpy(np.array(x)).to(dev)
+                                   for x in s)),
+                      np.array(e, np.int64), int(n))
+            # The last entry is the RW tier, the others RO snapshots.
+            is_rw = i == len(temps) - 1
+            if is_rw:
+                sys_.rw = t
+            else:
+                sys_.ro.append(t)
+            tag = "rw" if is_rw else "ro"
+            for slot in np.nonzero(t.ext_ids >= 0)[0]:
+                sys_._ext_loc[int(t.ext_ids[slot])] = (tag, int(slot))
+        with open(os.path.join(path, "meta.pkl"), "rb") as f:
+            meta = _SnapshotUnpickler(f).load()
+        sys_.deleted_ext = {int(e) for e in meta["deleted"]}
+        sys_._wal_offset = meta.get("wal_offset")
+        sys_._wal_epoch = meta.get("wal_epoch")
+        return sys_
+
+    def latest_snapshot(self) -> Optional[str]:
+        """The most recent merge snapshot under ``cfg.snapshot_dir``."""
+        d = self.cfg.snapshot_dir
+        if not d or not os.path.isdir(d):
+            return None
+        snaps = [s for s in os.listdir(d) if s.startswith("merge_")]
+        if not snaps:
+            return None
+        return os.path.join(d, max(snaps, key=lambda s: int(s.split("_")[1])))
+
+    def recover(self, snapshot_path: Optional[str] = None) -> int:
+        """Crash recovery (§5.6): restore ``snapshot_path`` (default: the
+        newest merge snapshot under ``cfg.snapshot_dir``), then replay the
+        WAL suffix it does not cover.  Returns the records replayed."""
+        start = epoch = None
+        if snapshot_path is None:
+            snapshot_path = self.latest_snapshot()
+        if snapshot_path:
+            restored = FreshDiskANN.load(snapshot_path, self.cfg,
+                                         device=self.device)
+            if restored.wal:              # keep only our own WAL handle
+                restored.wal.close()
+            self._lti_pair = restored._lti_pair
+            self.rw = restored.rw
+            self.ro = restored.ro
+            self.deleted_ext = restored.deleted_ext
+            self._ext_loc = restored._ext_loc
+            self._insert_buf_v, self._insert_buf_id = [], []
+            self._fanout_cache = self._drop_cache = None
+            self._delete_epoch += 1
+            # The restored system re-synced the live layout; a searcher
+            # still open over the old generation must reopen.
+            self.close_storage()
+            start, epoch = restored._wal_offset, restored._wal_epoch
+        n = 0
+        wal_path = self.wal.path if self.wal else None
+        if wal_path and os.path.exists(wal_path):
+            # A snapshot of an older epoch (the log was truncated since),
+            # or an offset past the end: replay the whole log.
+            if start is not None and (start > os.path.getsize(wal_path)
+                                      or epoch != log_epoch(wal_path)):
+                start = None
+            records = list(replay(wal_path, start))
+            if any(op == OP_INSERT_LABELED for op, _, _ in records):
+                raise NotImplementedError(
+                    "the WAL holds labelled inserts, which are not ported "
+                    "to repro_torch yet; they come with the filters slice")
+            # Replay without logging again: the records are in the log.
+            wal, self.wal = self.wal, None
+            try:
+                for op, ext_id, vec in records:
+                    if op == OP_INSERT:
+                        self.insert(ext_id, vec)
+                    elif op == OP_DELETE:
+                        self.delete(ext_id)
+                    n += 1
+                self._flush_inserts()
+            finally:
+                self.wal = wal
+        return n
+
     # -------------------------------------------------------------- helpers
     @property
     def size(self) -> int:
@@ -729,3 +1103,51 @@ def bootstrap_system(vectors: np.ndarray, ext_ids: np.ndarray,
     table = np.full(cfg.index.capacity, -1, np.int64)
     table[:len(ext_ids)] = ext_ids
     return FreshDiskANN(cfg, lti=lti, lti_ext_ids=table, device=device)
+
+
+def _no_labels(capacity: int) -> tuple[np.ndarray, np.ndarray]:
+    """The label side tables of a label-free tier, as the reference writes
+    them: bits uint32 [capacity, 0] and tenants int32 [capacity] of -1."""
+    return (np.zeros((capacity, 0), np.uint32),
+            np.full(capacity, -1, np.int32))
+
+
+def _check_no_labels(bits, tenant, where: str) -> None:
+    if ((tenant is not None and (np.asarray(tenant) != -1).any())
+            or (bits is not None and np.asarray(bits).any())):
+        raise NotImplementedError(
+            f"{where} holds point labels or tenants, which are not ported "
+            "to repro_torch yet; they come with the filters slice")
+
+
+class _FieldTuple(tuple):
+    """A pickled ``repro.core.graph`` NamedTuple (``GraphState``), read as
+    the plain tuple of its fields."""
+
+    def __new__(cls, *fields):
+        return tuple.__new__(cls, fields)
+
+
+class _FieldDict(dict):
+    """A pickled ``repro.core.config`` dataclass, read as a dict of its
+    fields."""
+
+    def __setstate__(self, state):
+        self.update(state)
+
+
+class _SnapshotUnpickler(pickle.Unpickler):
+    """Reads snapshot pickles of either package without importing the
+    reference: its ``GraphState`` and config classes become plain
+    containers, and any other class of ``repro`` is refused."""
+
+    def find_class(self, module, name):
+        if module == "repro.core.graph":
+            return _FieldTuple
+        if module == "repro.core.config":
+            return _FieldDict
+        if module == "repro" or module.startswith("repro."):
+            raise pickle.UnpicklingError(
+                f"snapshot pickle names {module}.{name}, which repro_torch "
+                "does not read")
+        return super().find_class(module, name)

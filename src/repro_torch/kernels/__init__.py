@@ -13,4 +13,6 @@ versions (``ref``), the ctypes build (``build``) and the wrappers (``ops``).
                    assembly, the prune rounds, the changed-row select
                    (merge Delete phase, ``consolidate``)
   delete_repair_sdc the same with SDC distances and a capped expansion
+  gather_rows      the row gather table[ids], INVALID rows for ids < 0
+                   (``storage.HBMSource``, the device-resident graph source)
 """

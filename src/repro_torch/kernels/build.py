@@ -30,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signature of each kernel's entry point (after the pointers: sizes, then
 # the stream).  The function is named like its source file.
 SIGNATURES = {
@@ -40,6 +41,7 @@ SIGNATURES = {
     "robust_prune_sdc": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P],
     "delete_repair_fp": [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P],
     "delete_repair_sdc": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P],
+    "gather_rows": [_P] * 3 + [_L, _I, _P],
 }
 
 _lock = threading.Lock()

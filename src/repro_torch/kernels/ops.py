@@ -1,4 +1,4 @@
-"""Wrappers of the seven Hopper kernels.
+"""Wrappers of the eight Hopper kernels.
 
 Each wrapper checks device, dtype, shape and contiguity, then dispatches on
 where its tensors lie:
@@ -21,7 +21,7 @@ from . import ref
 LAUNCHES: dict[str, int] = {"l2_rows": 0, "adc_rows": 0,
                             "frontier_select": 0, "robust_prune_fp": 0,
                             "robust_prune_sdc": 0, "delete_repair_fp": 0,
-                            "delete_repair_sdc": 0}
+                            "delete_repair_sdc": 0, "gather_rows": 0}
 
 
 def reset_launches() -> None:
@@ -297,4 +297,25 @@ def delete_repair_sdc(adjacency: torch.Tensor, deleted: torch.Tensor,
             _ptr(tables), _ptr(node_ids), _ptr(out), B, adjacency.shape[0],
             R, codes.shape[1], tables.shape[1], int(cap), float(alpha),
             _stream(adjacency))
+    return out
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor, *,
+                use_kernel: bool = True) -> torch.Tensor:
+    """table [N, R] int32, ids [..., W] int32 -> [..., W, R] int32:
+    ``out[..., w, :] = table[ids[..., w]]``, INVALID (-1) rows where
+    ``ids < 0`` (contract: ``ref.gather_rows_ref``).  An id >= N raises on
+    the CPU and is undefined on the card, as in the reference's Pallas
+    gather."""
+    name = "gather_rows"
+    _check(name, table, torch.int32, 2, "table")
+    if ids.dtype != torch.int32 or ids.dim() < 1:
+        raise TypeError(f"{name}: ids must be int32 [..., W], got "
+                        f"{ids.dtype} {tuple(ids.shape)}")
+    if not _on_cuda(name, (table, ids), use_kernel):
+        return ref.gather_rows_ref(table, ids)
+    R = table.shape[1]
+    out = torch.empty((*ids.shape, R), dtype=torch.int32, device=ids.device)
+    _launch(name, _ptr(table), _ptr(ids), _ptr(out), ids.numel(), R,
+            _stream(ids))
     return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four kernels of the main path.
+"""Plain PyTorch versions of the port's kernels.
 
 Each function here is the contract its CUDA kernel in ``csrc/`` must meet,
 and the version a wrapper in ``ops`` takes for a tensor on the CPU.  They
@@ -13,7 +13,9 @@ copy the contracts of the JAX package's ``kernels/ref.py``:
   ``delete_repair_{fp,sdc}_ref`` Algorithm 4 for a block of nodes:
                                  candidate assembly
                                  (``delete_repair_assemble_ref``), the prune
-                                 rounds, the changed-row select.
+                                 rounds, the changed-row select;
+  ``gather_rows_ref``            the row gather ``table[ids]`` with INVALID
+                                 rows for ids < 0 (``hbm_gather_rows``).
 
 All of them are batched over a leading row axis [B, ...] (the JAX
 contracts are per row and vmapped).  ``l2_rows_ref`` and ``adc_rows_ref``
@@ -51,6 +53,14 @@ def l2_rows_ref(queries: torch.Tensor, table: torch.Tensor,
     qx = torch.bmm(x, q[:, :, None])[:, :, 0]                # [B, K]
     d = torch.clamp(qn - 2.0 * qx + xn, min=0.0)
     return torch.where(ids >= 0, d, torch.full_like(d, float("inf")))
+
+
+def gather_rows_ref(table: torch.Tensor, ids: torch.Tensor
+                    ) -> torch.Tensor:
+    """table [N, R], ids [..., W] -> [..., W, R]: ``table[ids]``, INVALID
+    rows where ids < 0 (an id >= N raises ``IndexError`` on the CPU)."""
+    r = table[ids.clamp(min=0).long()]
+    return torch.where((ids >= 0)[..., None], r, torch.full_like(r, INVALID))
 
 
 def adc_distances_ref(codes: torch.Tensor, lut: torch.Tensor

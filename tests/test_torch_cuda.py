@@ -8,8 +8,8 @@ fixtures of ``tests/conftest.py``):
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
 Integer-valued inputs make every f32 sum exact, so kernel and plain
-version must be equal; the frontier step is compared bit for bit on any
-input.  ``chip_smoke.py`` repeats these checks at the main path's shapes.
+version must be equal; the frontier step and the row gather are compared
+bit for bit on any input.  ``chip_smoke.py`` repeats these checks at the main path's shapes.
 """
 import numpy as np
 import pytest
@@ -165,6 +165,23 @@ def test_delete_repair_sdc_exact_on_integers(dev, R, m, ksub, cap):
     want = ref.delete_repair_sdc_ref(*ref.repair_operands_sdc(*a, cap),
                                      alpha=1.2, R=R)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("R,shape", [(64, (1024, 4)), (8, (7,)),
+                                     (24, (3, 5)), (7, (2, 9))])
+def test_gather_rows_bit_identical(dev, R, shape):
+    """Rows equal the plain version's for int4 and 4-byte copies (R 7),
+    with negative and repeated ids; use_kernel=False raises."""
+    g = np.random.default_rng(R)
+    table = _t(g.integers(-1, 5000, (500, R)).astype(np.int32), dev)
+    ids_np = g.integers(-1, 500, shape).astype(np.int32)
+    ids_np.reshape(-1)[:2] = ids_np.reshape(-1)[-1]          # repeated
+    ids = _t(ids_np, dev)
+    got = ops.gather_rows(table, ids)
+    assert got.shape == (*shape, R)
+    assert torch.equal(got, ref.gather_rows_ref(table, ids))
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        ops.gather_rows(table, ids, use_kernel=False)
 
 
 def test_launches_counted_and_plain_refused_on_cuda(dev):

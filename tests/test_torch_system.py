@@ -12,7 +12,10 @@ Integer fixture: external ids and distances are equal.  Gaussian fixture:
 ``NotImplementedError`` while the merge knobs run; reaching
 ``merge_threshold`` merges; CPU tensors never reach a kernel; the default
 device needs CUDA (``convert`` included); and neither the port nor
-``chip_smoke.py`` imports ``jax`` or ``repro``.  The merge itself is held
+``chip_smoke.py`` imports ``jax`` or ``repro`` (also checked in a fresh
+interpreter by ``tests/test_torch_imports.py``).  The WAL, snapshot and
+storage knobs run (``tests/test_torch_storage.py``,
+``tests/test_torch_recovery.py``).  The merge itself is held
 against the reference in ``tests/test_torch_merge.py``.
 """
 import ast
@@ -142,8 +145,7 @@ def test_cpu_path_never_reaches_a_kernel(systems):
     assert ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES}
 
 
-_KNOBS = [dict(wal_dir="w"), dict(snapshot_dir="s"), dict(storage_dir="d"),
-          dict(shard_lti=2), dict(filter_words=1), dict(autotune_beam=True),
+_KNOBS = [dict(shard_lti=2), dict(filter_words=1), dict(autotune_beam=True),
           dict(batch_fanout=False)]
 
 
@@ -161,6 +163,20 @@ def test_merge_knobs_are_ported(knob):
     assert getattr(s.cfg, next(iter(knob))) is True
 
 
+@pytest.mark.parametrize("knob", ["wal_dir", "snapshot_dir", "storage_dir"])
+def test_storage_knobs_are_ported(knob, tmp_path):
+    """The WAL, snapshot and storage knobs run since the storage slice:
+    the log and the layout appear on disk at construction."""
+    s = tsystem.FreshDiskANN(_cfg(tconfig, **{knob: str(tmp_path / knob)}),
+                             device="cpu")
+    if knob == "wal_dir":
+        assert (tmp_path / knob / "wal.bin").is_file()
+        s.wal.close()
+    elif knob == "storage_dir":
+        assert (tmp_path / knob / "lti" / "topology.bin").is_file()
+    assert getattr(s.cfg, knob) == str(tmp_path / knob)
+
+
 def test_unported_calls_raise():
     s = tsystem.FreshDiskANN(_cfg(tconfig), device="cpu")
     v = np.zeros(D, np.float32)
@@ -170,6 +186,8 @@ def test_unported_calls_raise():
         s.insert(1, v, tenant=2)
     with pytest.raises(NotImplementedError, match="slice"):
         s.search_batch(np.zeros((1, D), np.float32), k=1, filter=object())
+    with pytest.raises(NotImplementedError, match="slice"):
+        s.search_disk(np.zeros((1, D), np.float32), k=1, filter=object())
 
 
 def test_reaching_merge_threshold_raises():
