@@ -4,7 +4,7 @@
 
 Phases:
 
-  build    compile the eight CUDA kernels of ``src/repro_torch/kernels/csrc``
+  build    compile the nine CUDA kernels of ``src/repro_torch/kernels/csrc``
            with nvcc into ``build/`` (one nvcc per source, all at once);
   kernels  run each kernel against its plain PyTorch version on the card at
            the main path's shapes, on integer-valued inputs (must be equal)
@@ -12,7 +12,8 @@ Phases:
            version and, where one PyTorch call computes the same function,
            that call (the two delete-repair kernels and ``gather_rows``
            are held against their plain versions after the main path, on
-           its merged graph);
+           its merged graph; ``block_topk`` at the cross-shard merge's
+           shapes, with ties, +-inf and a NaN row);
   parity   small systems on the CPU (plain versions) and on the card
            (kernels) from integer data, through threshold merges (local and
            global Delete phases, arrival and locality order),
@@ -36,11 +37,19 @@ Phases:
            threshold merge that delta-patches the layout and snapshots
            before truncating the WAL, then "crashes" and recovers a fresh
            system that must twin the live one.
+  serving  on the main path's merged system: ``shard_lti`` and the sharded
+           serving step over 4 shards on the card (equal to the unsharded
+           program, counters included), the sequential per-tier oracle,
+           the beam-width autotuner, a wall-clock ``BatchScheduler`` in
+           front of a ``ReplicaSet``, the freshdiskann-1b shard deployment
+           (``launch.ann_steps``: 4 sub-indices, distributed search with
+           the ``block_topk`` merge, insert and merge; recall against
+           brute force) and ``launch.serve`` at its defaults.
   profile  (only when named) torch.profiler over one search micro-batch,
            one flush and one merge after the main path: device busy share
            and kernel time by name.
 
-P (the phases) defaults to build,kernels,parity,main,storage.
+P (the phases) defaults to build,kernels,parity,main,storage,serving.
 Prints diagnostics, then the card's name and power limit, then one JSON
 line of kernel records, and last ``{"ok": true, "device": {...}}``.  Exits
 non-zero, with no result line, if any phase fails or there is no card.
@@ -48,6 +57,7 @@ non-zero, with no result line, if any phase fails or there is no card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -84,9 +94,19 @@ KERNEL_META = {
         "src/repro/kernels/delete_repair.py:113"),
     "gather_rows": ("src/repro_torch/kernels/csrc/gather_rows.cu",
                     "src/repro/storage/prefetch.py:179"),
+    "block_topk": ("src/repro_torch/kernels/csrc/block_topk.cu",
+                   "src/repro/kernels/block_topk.py:77"),
 }
-# The kernels the main path runs; gather_rows runs on the storage path.
-MAIN_KERNELS = tuple(k for k in KERNEL_META if k != "gather_rows")
+# The kernels the main path runs; gather_rows runs on the storage and
+# serving paths, block_topk on the serving path.
+MAIN_KERNELS = tuple(k for k in KERNEL_META
+                     if k not in ("gather_rows", "block_topk"))
+# The serving phase: the sharded lane (gather_rows, adc_rows, l2_rows,
+# frontier_select), the shard builds and inserts (robust_prune_fp), the
+# merges' global Delete phases (delete_repair_fp) and the cross-shard merge.
+SERVING_KERNELS = ("l2_rows", "adc_rows", "frontier_select",
+                   "robust_prune_fp", "delete_repair_fp", "gather_rows",
+                   "block_topk")
 BUILD = ROOT / "build"
 IO_FIELDS = ("io_rows_read", "io_cache_hits", "io_prefetch_hits",
              "io_bytes_read", "storage_rows_patched",
@@ -1017,6 +1037,54 @@ def gather_kernel_record(lti, seed: int, B: int = 1024, W: int = 4) -> dict:
         shape=f"B={B} W={W} R={R} N={N}, {B * W - n_valid} ids < 0")}
 
 
+def topk_kernel_record(seed: int, Q: int = 1024, k: int = 5) -> dict:
+    """``block_topk`` against its plain version at the cross-shard merge's
+    shapes: Q 1024 queries x N 2,560 candidates (the freshdiskann-1b
+    deployment's 512 shards x k 5) and N 20 (this script's 4 shards x k 5),
+    k 5.  Gaussian distances, and integer ones with ties, +-inf and a NaN
+    row: values and ids must be equal (NaN where the plain version has
+    NaN).  Times kernel, plain version and ``torch.topk(largest=False,
+    sorted=True)`` (which breaks ties otherwise: time only); the record is
+    the N 2,560 shape."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    g = np.random.default_rng(seed + 13)
+    rec = None
+    for N in (2560, 20):
+        ids = torch.from_numpy(g.permutation(1 << 22)[:N].astype(
+            np.int32)).to(dev)
+        di = g.integers(0, 6, (Q, N)).astype(np.float32)
+        di[g.random((Q, N)) < 0.1] = np.inf
+        di[g.random((Q, N)) < 0.02] = -np.inf
+        di[Q // 3, N // 2] = np.nan
+        dg = g.standard_normal((Q, N)).astype(np.float32)
+        for kind, x in (("integer", di), ("Gaussian", dg)):
+            xd = torch.from_numpy(x).to(dev)
+            gd, gi = ops.block_topk(xd, ids, k)
+            wd, wi = ref.block_topk_ref(xd, ids, k)
+            nan = torch.isnan(wd)
+            check(torch.equal(gi, wi) and torch.equal(torch.isnan(gd), nan)
+                  and torch.equal(gd[~nan], wd[~nan]),
+                  f"block_topk N={N} ({kind}) differs from its plain version")
+        xd = torch.from_numpy(dg).to(dev)
+        ms = time_ms(lambda: ops.block_topk(xd, ids, k))
+        plain = time_ms(lambda: ref.block_topk_ref(xd, ids, k))
+        lib = time_ms(lambda: torch.topk(xd, k, dim=1, largest=False,
+                                         sorted=True))
+        nbytes = Q * N * 4 + N * 4 + Q * k * 8
+        bnd = bound_ms(nbytes, float(Q * N))
+        log(f"[kernels] block_topk Q={Q} N={N} k={k}: bit-identical on "
+            f"integer (ties, +-inf, a NaN row) and Gaussian inputs  kernel "
+            f"{ms:.4f} ms  plain {plain:.4f} ms  torch.topk {lib:.4f} ms  "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if rec is None:
+            rec = kernel_record("block_topk", err=0.0, ms=ms, plain_ms=plain,
+                                nbytes=nbytes, nflops=float(Q * N),
+                                library_ms=lib, shape=f"Q={Q} N={N} k={k}")
+    return {"block_topk": rec}
+
+
 STORAGE_KERNELS = ("l2_rows", "adc_rows", "frontier_select",
                    "robust_prune_fp", "delete_repair_fp", "gather_rows")
 
@@ -1267,6 +1335,346 @@ def phase_storage(s, data: dict, seed: int, min_free_gib: float = 8.0,
     return launches
 
 
+@contextlib.contextmanager
+def _knobs(s, **kw):
+    """Run with ``s.cfg`` replaced by a copy with ``kw``; restored after."""
+    import dataclasses
+    old = s.cfg
+    s.cfg = dataclasses.replace(old, **kw)
+    try:
+        yield s
+    finally:
+        s.cfg = old
+
+
+def phase_serving(s, data: dict, seed: int,
+                  shard_points: int = 131_072) -> dict:
+    """The serving slice at the main path's shape, on its merged system (no
+    second bootstrap of its LTI):
+
+    1. ``search_batch`` with ``shard_lti=4`` (capped at the card count)
+       equals ``shard_lti=0``; ``make_sharded_unified_step`` over an
+       explicit group of 4 shards on the one card serves 4 x 1024 queries
+       with the unsharded ``unified_search``'s ids, dists, hops and cmps;
+    2. ``batch_fanout=False`` (one search per tier, host aggregation)
+       equals the unified fan-out;
+    3. ``autotune_beam`` calibrates W: each ``BeamPoint`` and the pick;
+    4. a ``BatchScheduler`` on the wall clock in front of a ``ReplicaSet``
+       (4 replicas asked, degraded to the card count) serves the 4,096
+       queries submitted in bursts of 512: every ticket's row equals the
+       direct ``search_batch``'s;
+    5. the freshdiskann-1b shard deployment (``launch.ann_steps``) over 4
+       shards on the card: shard 0 the merged LTI, shards 1-3 built from
+       ``shard_points`` further points each of the same mixture, at the
+       same capacity, with shard 0's codebook.  ``make_distributed_search``
+       (one ``block_topk`` launch per call) reaches 5-recall@5 >= 0.90 over
+       the union and equals the per-shard ``search_lti``s merged on the
+       host by a stable sort; ``make_distributed_insert`` takes 4,096
+       points (1,024 a shard); ``make_distributed_merge`` takes 4,096 more
+       with 1 % of each shard's live points deleted: no deleted point is
+       returned after it, recall stays >= 0.90;
+    6. ``launch.serve.main`` at its defaults.
+
+    Returns the launch counts of the phase."""
+    import torch
+    from repro_torch.core import autotune
+    from repro_torch.core import index as mem
+    from repro_torch.core.graph import LaneStack, shard_lti
+    from repro_torch.core.lti import build_lti, search_lti
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.ann_steps import (make_distributed_insert,
+                                              make_distributed_merge,
+                                              make_distributed_search,
+                                              shard_block, stack_blocks)
+    from repro_torch.serving import BatchScheduler, ReplicaSet
+    from repro_torch.serving.steps import make_sharded_unified_step
+    dev = s.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    cfg, icfg, k, qs = s.cfg, s.cfg.index, data["k"], data["qs"]
+    bq, L, W = cfg.batch_queries, icfg.L_search, icfg.beam_width
+    nb = len(qs) // bq
+    kk = min(max(k * 2, k + 8), L)
+    ops.reset_launches()
+
+    # 1. The row-sharded lane.
+    want = s.search_batch(qs, k=k)
+    with _knobs(s, shard_lti=4):
+        got = s.search_batch(qs, k=k)
+        n_eff = s.lti_shards
+    check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+          "search_batch with shard_lti=4 differs from shard_lti=0")
+    rw_t, ro_temps, lti_entry = s._capture_lanes()
+    key, stack, t_tabs, l_tab, tables_np = s._lane_bundle(rw_t, ro_temps,
+                                                          lti_entry)
+    t_drop, l_drop = s._drop_mask(key, tables_np)
+    group = [dev] * 4
+    step = make_sharded_unified_step(group, icfg, k=k, k_lane=kk, L=L,
+                                     beam_width=W)
+    sg, sc = shard_lti(stack.lti, stack.codes, 4, devices=group)
+    sstack = LaneStack(stack.temps, sg, sc, stack.codebook)
+    t_sh, t_un = [], []
+    for b in range(nb):
+        q = torch.from_numpy(qs[b * bq:(b + 1) * bq]).to(dev)
+        sync()
+        t0 = time.perf_counter()
+        a = step(sstack, t_tabs, l_tab, t_drop, l_drop, q)
+        sync()
+        t1 = time.perf_counter()
+        u = mem.unified_search(stack, t_tabs, l_tab, t_drop, l_drop, q, icfg,
+                               k=k, k_lane=kk, L=L, beam_width=W,
+                               rerank=cfg.rerank)
+        sync()
+        t_sh.append(t1 - t0)
+        t_un.append(time.perf_counter() - t1)
+        for x, y, nm in zip(a, u, ("ids", "dists", "hops", "cmps")):
+            check(torch.equal(x, y), f"sharded step micro-batch {b}: {nm} "
+                  "differ from the unsharded unified_search")
+    log(f"[serving] shard_lti=4 -> {n_eff} shard(s) on this card: "
+        f"search_batch of {len(qs)} queries equal to shard_lti=0; "
+        f"make_sharded_unified_step over 4 shards on {dev} (blocks of "
+        f"{sg[0].capacity} rows): ids, dists, hops, cmps equal to "
+        f"unified_search in {nb} micro-batches of {bq}; ms per micro-batch "
+        f"sharded {[round(t * 1e3, 1) for t in t_sh]} vs unsharded "
+        f"{[round(t * 1e3, 1) for t in t_un]}")
+    del sg, sc, sstack
+
+    # 2. The sequential oracle.
+    with _knobs(s, batch_fanout=False):
+        d0 = s.stats.search_dispatches
+        sync()
+        t0 = time.perf_counter()
+        seq = s.search_batch(qs[:bq], k=k)
+        t_seq = time.perf_counter() - t0
+        n_disp = s.stats.search_dispatches - d0
+    check(all(np.array_equal(a, b[:bq]) for a, b in zip(seq, want)),
+          "batch_fanout=False differs from the unified fan-out")
+    log(f"[serving] batch_fanout=False: {bq} queries in {t_seq * 1e3:.1f} "
+        f"ms over {n_disp} per-tier searches (LTI, RW, {len(s.ro)} RO), "
+        f"equal to the unified fan-out")
+
+    # 3. The autotuner.
+    with _knobs(s, autotune_beam=True):
+        s._tuned_w = None
+        t0 = time.perf_counter()
+        points = s._beam_sweep(qs)
+        t_cal = time.perf_counter() - t0
+        pick = autotune.pick_beam_width(points)
+        ids_a, d_a = s.search_batch(qs[:bq], k=k)
+        tuned = s._tuned_w
+    s._tuned_w = None
+    check(tuned == pick and ids_a.shape == (bq, k)
+          and bool(np.isfinite(d_a).all()),
+          f"autotune: cached W {tuned} != the sweep's pick {pick}")
+    for p in points:
+        log(f"[serving] BeamPoint W={p.W}: hops {p.hops:.3f} cmps "
+            f"{p.cmps:.3f} cost {p.cost(autotune.BeamCostModel()):.3f} "
+            f"({p.seconds * 1e3:.1f} ms)")
+    log(f"[serving] autotune_beam picks W={pick} (sweep {t_cal:.2f} s, "
+        f"probe of 8 queries through the unified fan-out)")
+
+    # 4. BatchScheduler (wall clock, worker thread) -> ReplicaSet.
+    rs = ReplicaSet(s, 4)
+    with _knobs(s, slo_ms=250.0, serve_queue_capacity=len(qs),
+                dispatch_estimate_ms=60.0):
+        st = s.stats
+        shed0, batches0 = st.shed_requests, st.batches_dispatched
+        miss0 = st.deadline_misses
+        sched = BatchScheduler(s, k=k, serve=rs.search_batch)
+        sched.start()
+        tickets = []
+        t0 = time.perf_counter()
+        try:
+            for lo in range(0, len(qs), 512):
+                tickets += [sched.submit(q) for q in qs[lo:lo + 512]]
+                time.sleep(0.03)
+            for t in tickets:
+                if t is not None:
+                    t.result(timeout=300.0)
+        finally:
+            sched.stop()
+        t_sched = time.perf_counter() - t0
+    served = [i for i, t in enumerate(tickets) if t is not None]
+    for i in served:
+        check(np.array_equal(tickets[i].ids, want[0][i])
+              and np.array_equal(tickets[i].dists, want[1][i]),
+              f"scheduled ticket {i} differs from the direct search_batch")
+    lat = np.array([tickets[i].latency for i in served])
+    log(f"[serving] BatchScheduler (WallClock, slo 250 ms) -> ReplicaSet of "
+        f"{rs.n_replicas} replica(s) x {rs.n_shards} shard(s): "
+        f"{len(served)} of {len(qs)} queries served in {t_sched:.2f} s "
+        f"({len(served) / t_sched:.0f} queries/s), every row equal to "
+        f"search_batch; ticket latency p50 {np.percentile(lat, 50) * 1e3:.1f}"
+        f" ms p99 {np.percentile(lat, 99) * 1e3:.1f} ms; "
+        f"{st.batches_dispatched - batches0} batches, mean occupancy "
+        f"{sched.mean_occupancy:.3f}; shed {st.shed_requests - shed0}; "
+        f"deadline misses {st.deadline_misses - miss0}; dispatches per "
+        f"replica {rs.dispatches}")
+    check(len(served) + st.shed_requests - shed0 == len(qs),
+          "scheduler: a request was neither served nor shed")
+
+    # 5. The shard deployment.
+    g = np.random.default_rng(seed + 17)
+    cap = icfg.capacity
+    sync()
+    t0 = time.perf_counter()
+    blocks = [s.lti]
+    for _ in range(3):
+        pts = _mixture(g, data["centers"], shard_points)
+        blocks.append(build_lti(pts, icfg, cfg.pq, codebook=s.lti.codebook,
+                                device=dev))
+    sync()
+    t_build = time.perf_counter() - t0
+    lti = stack_blocks(blocks, dev)
+    del blocks, pts
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[serving] shards 1-3: {3 * shard_points} points built in "
+        f"{t_build:.1f} s ({3 * shard_points / t_build:.0f} points/s) with "
+        f"shard 0's codebook; stacked LTI of 4 x {cap} rows, live per shard "
+        f"{[int(x) for x in (lti.graph.active & ~lti.graph.deleted).view(4, -1).sum(1)]}")
+
+    def live(lt):
+        m = lt.graph.active & ~lt.graph.deleted
+        slots = torch.nonzero(m)[:, 0]
+        return lt.graph.vectors[slots], slots.cpu().numpy()
+
+    def serve_all(lt):
+        out_i, out_d, secs = [], [], []
+        for b in range(nb):
+            q = torch.from_numpy(qs[b * bq:(b + 1) * bq]).to(dev)
+            sync()
+            t0 = time.perf_counter()
+            i, d = search(lt, q)
+            sync()
+            secs.append(time.perf_counter() - t0)
+            out_i.append(i.cpu().numpy())
+            out_d.append(d.cpu().numpy())
+        return np.concatenate(out_i), np.concatenate(out_d), secs
+
+    search = make_distributed_search(group, icfg, k=k)
+    n0 = ops.LAUNCHES["block_topk"]
+    ids, dists, secs = serve_all(lti)
+    check(ops.LAUNCHES["block_topk"] - n0 == nb or dev.type != "cuda",
+          f"block_topk launched {ops.LAUNCHES['block_topk'] - n0} times for "
+          f"{nb} distributed searches")
+    lv, ls = live(lti)
+    recall = _recall(ids, qs, lv, ls, k, dev)
+    del lv
+    check(recall >= 0.90, f"distributed search recall {recall} < 0.90")
+    for b in range(nb):
+        q = torch.from_numpy(qs[b * bq:(b + 1) * bq]).to(dev)
+        parts_i, parts_d = [], []
+        for sh in range(4):
+            i_, d_, _, _ = search_lti(shard_block(lti, sh, cap, dev), q, icfg,
+                                      k=k, L=L)
+            i_ = i_.cpu().numpy()
+            parts_i.append(np.where(i_ >= 0, i_ + sh * cap, i_))
+            parts_d.append(d_.cpu().numpy())
+        fi, fd = np.concatenate(parts_i, 1), np.concatenate(parts_d, 1)
+        o = np.argsort(fd, axis=1, kind="stable")[:, :k]
+        check(np.array_equal(np.take_along_axis(fi, o, 1),
+                             ids[b * bq:(b + 1) * bq])
+              and np.array_equal(np.take_along_axis(fd, o, 1),
+                                 dists[b * bq:(b + 1) * bq]),
+              f"distributed search micro-batch {b} differs from the host "
+              "merge of the per-shard searches")
+    from_shard = np.bincount(ids[ids >= 0] // cap, minlength=4)
+    log(f"[serving] make_distributed_search, 4 shards: {len(qs)} queries, "
+        f"ms per micro-batch {[round(t * 1e3, 1) for t in secs]}, one "
+        f"block_topk launch each; 5-recall@5 {recall:.4f} over {len(ls)} "
+        f"live points of the union; equal to the host's stable merge of the "
+        f"per-shard searches; results per shard {from_shard.tolist()}")
+
+    ins = _mixture(g, data["centers"], 4096)
+    act0 = int(lti.graph.active.sum())
+    insert = make_distributed_insert(group, icfg, per_shard=1024)
+    sync()
+    t0 = time.perf_counter()
+    lti = insert(lti, torch.from_numpy(ins).to(dev))
+    sync()
+    t_ins = time.perf_counter() - t0
+    check(int(lti.graph.active.sum()) - act0 == 4096,
+          f"distributed insert added {int(lti.graph.active.sum()) - act0}")
+    top1, _ = search(lti, torch.from_numpy(ins[:bq]).to(dev))
+    top1 = top1[:, 0].long()
+    self_hit = float((lti.graph.vectors[top1.clamp(min=0)] == torch.from_numpy(
+        ins[:bq]).to(dev)).all(1).float().mean())
+    log(f"[serving] make_distributed_insert of 4096 points (1024 a shard): "
+        f"{t_ins:.2f} s; rank-1 self-hit of {bq} of them {self_hit:.4f}")
+    check(self_hit >= 0.90, f"inserted points found at rank 1: {self_hit}")
+
+    usable = (lti.graph.active & ~lti.graph.deleted).cpu().numpy()
+    dmask = np.zeros(4 * cap, bool)
+    for sh in range(4):
+        sl = np.nonzero(usable[sh * cap:(sh + 1) * cap])[0]
+        dmask[sh * cap + g.choice(sl, len(sl) // 100, replace=False)] = True
+    dead = np.nonzero(dmask)[0]
+    dead_t = torch.from_numpy(dead).to(dev)
+    old = lti.graph.vectors[dead_t].clone()
+    act1 = int(lti.graph.active.sum())
+    mvecs = _mixture(g, data["centers"], 4096)
+    merge = make_distributed_merge(group, icfg, cfg.pq,
+                                   insert_chunk=cfg.insert_batch,
+                                   block=cfg.merge_block)
+    sync()
+    t0 = time.perf_counter()
+    lti = merge(lti, torch.from_numpy(mvecs).to(dev),
+                torch.ones(4096, dtype=torch.bool, device=dev),
+                torch.from_numpy(dmask).to(dev))
+    sync()
+    t_merge = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    refilled = (lti.graph.active[dead_t]
+                & (lti.graph.vectors[dead_t] != old).any(1)).cpu().numpy()
+    stale = dead[~refilled]
+    check(not lti.graph.active[torch.from_numpy(stale).to(dev)].any(),
+          "a deleted slot is still active after the distributed merge")
+    check(int(lti.graph.active.sum()) == act1 - len(dead) + 4096,
+          "distributed merge: live count off")
+    ids2, _, secs2 = serve_all(lti)
+    check(not np.isin(ids2, stale).any(),
+          "a deleted point was returned after the distributed merge")
+    lv, ls = live(lti)
+    recall2 = _recall(ids2, qs, lv, ls, k, dev)
+    del lv
+    check(recall2 >= 0.90, f"recall after the distributed merge {recall2}")
+    log(f"[serving] make_distributed_merge of 4096 points and {len(dead)} "
+        f"deletes (1 % of each shard): {t_merge:.2f} s; {int(refilled.sum())}"
+        f" freed slots refilled; no deleted point returned; 5-recall@5 "
+        f"{recall2:.4f}; ms per micro-batch "
+        f"{[round(t * 1e3, 1) for t in secs2]}")
+    del lti
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 6. The serving driver at its defaults.
+    t0 = time.perf_counter()
+    summary = serve.main(["--device", dev.type])
+    t_drv = time.perf_counter() - t0
+    # Its defaults: 4,096 points of dim 32, 1,984 inserts and as many
+    # deletes, PQ 8 x 64 (0.829 on the CPU); a floor that catches a break.
+    check(summary["inserts"] == summary["deletes"] == 1984
+          and summary["size"] == 4096 and summary["recall_mean"] >= 0.70,
+          f"launch.serve: {summary}")
+    log(f"[serving] launch.serve.main at its defaults: {t_drv:.1f} s, "
+        f"recall_mean {summary['recall_mean']:.4f}, {summary['merges']} "
+        f"merges, size {summary['size']}")
+
+    sync()
+    launches = dict(ops.LAUNCHES)
+    log(f"[serving] launches {json.dumps(launches)}")
+    missing = [n for n in SERVING_KERNELS if not launches[n]]
+    check(not missing, f"kernels of the serving path never launched: "
+          f"{missing}")
+    return launches
+
+
 def profile_run(name: str, fn) -> None:
     """Run ``fn()`` once under torch.profiler and log its wall time, the
     device's busy and idle shares, and device time by kernel name."""
@@ -1339,7 +1747,8 @@ def main(argv=None) -> int:
                     help="bootstrap points of the main path")
     ap.add_argument("--centres", type=int, default=4096,
                     help="Gaussian centres of the main path's corpus")
-    ap.add_argument("--phases", default="build,kernels,parity,main,storage")
+    ap.add_argument("--phases",
+                    default="build,kernels,parity,main,storage,serving")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1360,6 +1769,7 @@ def main(argv=None) -> int:
         log(f"[device] {ident}")
         if "kernels" in phases:
             recs = phase_kernels(args.seed, n_table=args.n)
+            recs.update(topk_kernel_record(args.seed))
         if "parity" in phases:
             phase_parity(args.seed)
         if "main" in phases:
@@ -1371,10 +1781,13 @@ def main(argv=None) -> int:
                 st_launches = phase_storage(s, data, args.seed,
                                             profile="profile" in phases)
                 launches["gather_rows"] = st_launches["gather_rows"]
+            if "serving" in phases:
+                sv_launches = phase_serving(s, data, args.seed)
+                launches["block_topk"] = sv_launches["block_topk"]
             for name, cnt in launches.items():
                 if name in recs:
                     recs[name]["launches"] = cnt
-            if {"kernels", "storage"} <= phases:
+            if {"kernels", "storage", "serving"} <= phases:
                 check(len(recs) == len(KERNEL_META) and all(
                     r["launches"] > 0 for r in recs.values()),
                     "a kernel record without launches on its path")

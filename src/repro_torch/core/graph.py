@@ -126,6 +126,33 @@ def stack_lanes(temp_states: list[GraphState], *,
     return LaneStack(stacked, lti, codes, codebook)
 
 
+def shard_lti(graph: GraphState, codes: torch.Tensor, n_shards: int, *,
+              devices=None) -> tuple[list[GraphState], list[torch.Tensor]]:
+    """Row-partition the LTI graph and its PQ codes over ``n_shards``.
+
+    Pads the capacity up to a multiple of ``n_shards`` (``pad_graph``:
+    padding slots are inert, and their codes zero) and splits it into equal
+    contiguous row blocks, shard s owning slots ``[s*cap/n, (s+1)*cap/n)``
+    (``distributed.sharding.place_lti_lane``).  ``devices`` places shard s
+    on ``devices[s]``; by default every block stays on the graph's device,
+    where the blocks are views (no copy unless the capacity was padded).
+    The entry point and the watermark ride with every block.  The sharded
+    lane (``serving.steps.make_sharded_unified_step``) consumes this layout,
+    with results equal to the unsharded lane's for any shard count.
+    """
+    from ..distributed.sharding import place_lti_lane
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    cap = -(-graph.capacity // n_shards) * n_shards
+    graph = pad_graph(graph, cap)
+    if codes.shape[0] < cap:
+        codes = torch.cat([codes, codes.new_zeros(
+            (cap - codes.shape[0], codes.shape[1]))])
+    if devices is None:
+        devices = [graph.device] * n_shards
+    return place_lti_lane(devices, graph, codes)
+
+
 def medoid(vectors: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Index of the point nearest the masked mean (the entry point); the
     first such index on ties, as ``jnp.argmin``."""

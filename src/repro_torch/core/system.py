@@ -37,11 +37,22 @@ which the cross-tier dedupe resolves).  The reference's locks keep their
 canonical order: ``_flush_lock`` -> ``_insert_lock`` -> ``_ro_lock``, and
 ``_merge_lock`` around merges and consolidations.
 
-Not ported yet, and raising ``NotImplementedError`` naming the slice that
-ports it: the sharded LTI lane (``shard_lti``), filters and tenants
-(``filter_words``, ``labels``, ``tenant``, labelled WAL records and
-snapshots), the beam-width autotuner (``autotune_beam``) and the
-sequential per-tier query path (``batch_fanout=False``).
+Serving knobs (paper §5.2, §6.2):
+
+* ``shard_lti``: the LTI lane's arrays row-sharded over a device group
+  (``serving.steps``), with results equal to the unsharded lane's; capped
+  at the CUDA device count on the card, uncapped on the CPU, where every
+  shard is the host (``distributed.sharding``).
+* ``batch_fanout=False``: the sequential per-tier query path, one search
+  per tier and a host-side aggregation -- the oracle the unified fan-out
+  is held to.
+* ``autotune_beam``: W calibrated from the hop/cmp counters of a probe
+  (``core.autotune``), cached until the next merge or consolidation.
+
+``serving.BatchScheduler`` and ``serving.ReplicaSet`` sit in front of
+``search_batch``.  Not ported yet, and raising ``NotImplementedError``
+naming the slice that ports it: filters and tenants (``filter_words``,
+``labels``, ``tenant``, labelled WAL records and snapshots).
 
 External ids are user-provided int64s; the system maps them to
 (tier, slot).
@@ -59,6 +70,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import autotune
 from . import index as mem
 from . import pq as pqm
 from .config import SystemConfig, resolve_device
@@ -66,7 +78,7 @@ from .delete import affected_mask, consolidate_deletes
 from .distance import INVALID
 from .graph import GraphState, empty_graph, pad_graph, stack_lanes
 from .locality import locality_order
-from .lti import LTIState, build_lti
+from .lti import LTIState, build_lti, search_lti
 from .merge import adjacency_delta_mask, streaming_merge
 from .reach import unreachable_fraction
 from .wal import (OP_DELETE, OP_INSERT, OP_INSERT_LABELED, WriteAheadLog,
@@ -76,12 +88,7 @@ from ..storage import (DiskLTISearcher, is_layout, open_layout,
 from ..storage.layout import host
 
 _UNPORTED = (
-    ("shard_lti", 0, "the serving and sharding slice"),
     ("filter_words", 0, "the filters slice"),
-    ("autotune_beam", False, "the autotune slice"),
-    ("batch_fanout", True,
-     "the serving and sharding slice, with the "
-     "sequential per-tier query path"),
 )
 
 
@@ -174,14 +181,48 @@ class SystemStats:
     storage_rows_patched: int = 0    # adjacency rows the delta patches wrote
     storage_blocks_patched: int = 0  # distinct 4 KB blocks of those rows
     storage_bytes_written: int = 0   # bytes of patches and full writes
+    # The serving front end (serving/scheduler.py), updated under the
+    # scheduler's lock.
+    scheduled_requests: int = 0  # requests admitted to the serving queue
+    shed_requests: int = 0       # requests rejected by the bounded queue
+    batches_dispatched: int = 0  # micro-batches the scheduler served
+    deadline_misses: int = 0     # requests completed after arrival + slo_ms
+    queue_depth: int = 0         # gauge: pending requests after the last
+    #   submit or close
+    batch_occupancy: float = 0.0  # gauge: fill (n / batch_queries) of the
+    #   last dispatched micro-batch
+    # Latency reservoirs: insert_latency per insert() (the lock-held
+    # append), flush_latency per flush, search_latency per dispatched
+    # micro-batch, serve_latency per scheduled request (arrival ->
+    # completion on the scheduler's clock).
     insert_latency: Reservoir = field(default_factory=Reservoir, repr=False)
     search_latency: Reservoir = field(
         default_factory=lambda: Reservoir(seed=1), repr=False)
+    serve_latency: Reservoir = field(
+        default_factory=lambda: Reservoir(seed=2), repr=False)
     flush_latency: Reservoir = field(
         default_factory=lambda: Reservoir(seed=3), repr=False)
 
     def record_latency(self, seconds: float) -> None:
         self.insert_latency.record(seconds)
+
+    def serving_snapshot(self) -> dict:
+        """p50/p99 of each latency reservoir and the queue and batch
+        counters, as the reference reports them (its filter and tenant
+        counters come with the filters slice)."""
+        return {
+            "search": self.search_latency.snapshot(),
+            "serve": self.serve_latency.snapshot(),
+            "insert": self.insert_latency.snapshot(),
+            "flush": self.flush_latency.snapshot(),
+            "flushes": self.flushes,
+            "scheduled_requests": self.scheduled_requests,
+            "shed_requests": self.shed_requests,
+            "batches_dispatched": self.batches_dispatched,
+            "deadline_misses": self.deadline_misses,
+            "queue_depth": self.queue_depth,
+            "batch_occupancy": self.batch_occupancy,
+        }
 
 
 class FreshDiskANN:
@@ -229,6 +270,11 @@ class FreshDiskANN:
         self._merge_thread: Optional[threading.Thread] = None
         self._force_global_repair = False     # set by a reachability probe
         self._reach_baseline: Optional[float] = None
+        self._tuned_w: Optional[int] = None   # cached autotuned beam width
+        # Sharded-lane caches (cfg.shard_lti, see _sharded_program).
+        self._shard_group: Optional[list] = None
+        self._shard_place: Optional[tuple] = None
+        self._shard_steps: dict = {}
         # Fan-out caches keyed by tier-state identity (a flush, rollover or
         # merge replaces the state object) and, for the drop mask, the
         # DeleteList epoch (bumped on every DeleteList change).
@@ -323,7 +369,7 @@ class FreshDiskANN:
             raise ValueError(
                 f"search(k={k}, L={L}): k must be <= L -- the candidate list "
                 f"holds only L entries; raise L or lower k")
-        W = beam_width or self.cfg.index.beam_width
+        W = beam_width or self._beam_width(queries)
         kk = min(max(k * 2, k + 8), L)    # over-fetch for drops and dedupe
         q = np.asarray(queries, np.float32)
         B = q.shape[0]
@@ -445,6 +491,8 @@ class FreshDiskANN:
         with self._ro_lock:
             self.ro = self.ro[len(ro):]
             self._merge_inflight = 0
+        self._tuned_w = None        # the graph changed: re-calibrate W
+        self._shard_place = None    # the old LTI's sharded blocks likewise
         timings = self.stats.merge_phase_seconds
         if self.cfg.storage_dir:
             # Only the adjacency rows this merge rewrote reach topology.bin.
@@ -562,6 +610,8 @@ class FreshDiskANN:
             new_ids = self._retire_lti_rows(dmask)
             self._lti_pair = (LTIState(new_g, lti.codes, lti.codebook),
                               new_ids)
+            self._tuned_w = None
+            self._shard_place = None
             if self.cfg.storage_dir:
                 self._sync_storage(adj_changed=changed)
             self._retire_deletes(del_snapshot)
@@ -581,22 +631,157 @@ class FreshDiskANN:
         return out
 
     def _search_dispatch_impl(self, queries, k, kk, L, W):
+        """Serve one fixed-shape micro-batch: the unified fan-out (its LTI
+        lane sharded with ``shard_lti``), or with ``batch_fanout=False``
+        one search per tier and the host aggregation."""
         q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
         nq = queries.shape[0]
         rw_t, ro_temps, lti_entry = self._capture_lanes()
         if rw_t is None and not ro_temps and lti_entry is None:
-            return (np.full((nq, k), -1, np.int64),
-                    np.full((nq, k), np.inf, np.float32))
-        key, stack, t_tabs, l_tab, tables_np = self._lane_bundle(
-            rw_t, ro_temps, lti_entry)
-        t_drop, l_drop = self._drop_mask(key, tables_np)
-        ids, d, _, _ = mem.unified_search(
-            stack, t_tabs, l_tab, t_drop, l_drop, q, self.cfg.index, k=k,
-            k_lane=kk, L=L, beam_width=W,
-            rerank=self.cfg.rerank and lti_entry is not None)
-        self.stats.search_dispatches += 1
-        return (ids.cpu().numpy().astype(np.int64),
-                d.cpu().numpy().astype(np.float32))
+            return self._aggregate([], k, nq)
+        if self.cfg.batch_fanout:
+            key, stack, t_tabs, l_tab, tables_np = self._lane_bundle(
+                rw_t, ro_temps, lti_entry)
+            t_drop, l_drop = self._drop_mask(key, tables_np)
+            # The rerank only matters to the PQ lane.
+            do_rerank = self.cfg.rerank and lti_entry is not None
+            if lti_entry is not None and self._shard_count():
+                step, sstack = self._sharded_program(
+                    stack, k=k, kk=kk, L=L, W=W, rerank=do_rerank)
+                ids, d, _, _ = step(sstack, t_tabs, l_tab, t_drop, l_drop,
+                                    q)
+            else:
+                ids, d, _, _ = mem.unified_search(
+                    stack, t_tabs, l_tab, t_drop, l_drop, q,
+                    self.cfg.index, k=k, k_lane=kk, L=L, beam_width=W,
+                    rerank=do_rerank)
+            self.stats.search_dispatches += 1
+            return (ids.cpu().numpy().astype(np.int64),
+                    d.cpu().numpy().astype(np.float32))
+        # The sequential oracle: one search per tier, host aggregation.
+        cands: list[tuple[np.ndarray, np.ndarray]] = []
+        if lti_entry is not None:
+            ids, d, _, _ = search_lti(lti_entry[0], q, self.cfg.index, k=kk,
+                                      L=L, beam_width=W,
+                                      rerank=self.cfg.rerank)
+            self.stats.search_dispatches += 1
+            cands.append((self._map_ext(host(ids), lti_entry[1]), host(d)))
+        for t in ([rw_t] if rw_t is not None else []) + ro_temps:
+            ids, d, _, _ = mem.search(t.state, q, self.temp_cfg, k=kk, L=L,
+                                      beam_width=W)
+            self.stats.search_dispatches += 1
+            cands.append((self._map_ext(host(ids), t.ext_ids), host(d)))
+        return self._aggregate(cands, k, nq)
+
+    # ---------------------------------------------------- sharded LTI lane
+    @property
+    def lti_shards(self) -> int:
+        """Effective LTI-lane shard count: ``cfg.shard_lti`` capped at the
+        CUDA device count on the card, uncapped on the CPU (0 =
+        unsharded)."""
+        return self._shard_count()
+
+    def _shard_count(self) -> int:
+        from ..distributed.sharding import census
+        n = self.cfg.shard_lti
+        if n <= 0:
+            return 0
+        cap = census(self.device)
+        return n if cap is None else min(n, cap)
+
+    def _sharded_program(self, stack, *, k, kk, L, W, rerank):
+        """(step, stack with the LTI's shard blocks) for the sharded
+        fan-out.  Three caches: the device group (per shard count), the
+        ``graph.shard_lti`` placement (keyed by LTI graph and codes
+        identity: a merge swaps them and misses) and the step per
+        (k, kk, L, W, rerank)."""
+        from ..distributed.sharding import data_mesh
+        from ..serving.steps import make_sharded_unified_step
+        from .graph import LaneStack, shard_lti
+        n = self._shard_count()
+        if self._shard_group is None or len(self._shard_group) != n:
+            self._shard_group = data_mesh(n, device=self.device)
+            self._shard_place = None
+            self._shard_steps = {}
+        place = self._shard_place
+        if (place is None or place[0] is not stack.lti
+                or place[1] is not stack.codes):
+            sg, sc = shard_lti(stack.lti, stack.codes, n,
+                               devices=self._shard_group)
+            place = (stack.lti, stack.codes, sg, sc)
+            self._shard_place = place
+        key = (k, kk, L, W, rerank)
+        step = self._shard_steps.get(key)
+        if step is None:
+            step = make_sharded_unified_step(
+                self._shard_group, self.cfg.index, k=k, k_lane=kk, L=L,
+                beam_width=W, rerank=rerank)
+            self._shard_steps[key] = step
+        return step, LaneStack(stack.temps, place[2], place[3],
+                               stack.codebook)
+
+    # ------------------------------------------------------------ autotune
+    def _beam_width(self, queries: np.ndarray) -> int:
+        """W: autotuned (cached until the next merge or consolidation) or
+        the configured one."""
+        if not self.cfg.autotune_beam:
+            return self.cfg.index.beam_width
+        if self._tuned_w is None:
+            tuned = self._calibrate_beam(queries)
+            if tuned is None:          # no representative tier yet: keep
+                return self.cfg.index.beam_width   # the static W, uncached
+            self._tuned_w = tuned
+        return self._tuned_w
+
+    def _beam_sweep(self, queries: np.ndarray) -> Optional[list]:
+        """The autotuner's sweep on this system: one ``BeamPoint`` per
+        ``cfg.beam_width_candidates`` width, or None when no tier holds L
+        points yet.  With ``batch_fanout`` the probe (the first 8 queries,
+        k 1) runs the unified fan-out itself: per-query IO rounds are the
+        max over lanes, distance computations the sum.  Without it, the
+        LTI alone, else the RW tier."""
+        L = self.cfg.index.L_search
+        probe = torch.as_tensor(np.asarray(queries[:8], np.float32)).to(
+            self.device)
+        rw_t, ro_temps, lti_entry = self._capture_lanes()
+        sizes = ([rw_t.n] if rw_t is not None else []) \
+            + [t.n for t in ro_temps] \
+            + ([int(lti_entry[0].graph.n_total)] if lti_entry else [])
+        if not sizes or max(sizes) < L:
+            return None
+        if self.cfg.batch_fanout:
+            key, stack, t_tabs, l_tab, tables_np = self._lane_bundle(
+                rw_t, ro_temps, lti_entry)
+            t_drop, l_drop = self._drop_mask(key, tables_np)
+
+            def run(W):
+                _, _, hops, cmps = mem.unified_search(
+                    stack, t_tabs, l_tab, t_drop, l_drop, probe,
+                    self.cfg.index, k=1, k_lane=1, L=L, beam_width=W,
+                    rerank=self.cfg.rerank and lti_entry is not None)
+                return host(hops).max(axis=0), host(cmps).sum(axis=0)
+        else:
+            lti = self._lti_pair[0]
+            if int(lti.graph.n_total) >= L:
+                def run(W):
+                    _, _, hops, cmps = search_lti(lti, probe, self.cfg.index,
+                                                  k=1, L=L, beam_width=W)
+                    return host(hops), host(cmps)
+            elif self.rw.n >= L:
+                def run(W):
+                    _, _, hops, cmps = mem.search(self.rw.state, probe,
+                                                  self.temp_cfg, k=1, L=L,
+                                                  beam_width=W)
+                    return host(hops), host(cmps)
+            else:
+                return None
+        return autotune.measure_widths(run, self.cfg.beam_width_candidates)
+
+    def _calibrate_beam(self, queries: np.ndarray) -> Optional[int]:
+        """The W of the cheapest point of ``_beam_sweep`` under the
+        default cost model (None when there is no sweep yet)."""
+        points = self._beam_sweep(queries)
+        return None if points is None else autotune.pick_beam_width(points)
 
     def _capture_lanes(self):
         """Every searchable tier: (RW or None, live RO tiers, LTI entry),

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels of the main path, their plain PyTorch
+"""Hand-written Hopper kernels of the port, their plain PyTorch
 versions (``ref``), the ctypes build (``build``) and the wrappers (``ops``).
 
   l2_rows          fused id->row gather + squared L2 (temp lanes, rerank,
@@ -15,4 +15,6 @@ versions (``ref``), the ctypes build (``build``) and the wrappers (``ops``).
   delete_repair_sdc the same with SDC distances and a capped expansion
   gather_rows      the row gather table[ids], INVALID rows for ids < 0
                    (``storage.HBMSource``, the device-resident graph source)
+  block_topk       the stable smallest-k of each row with its ids (the
+                   cross-shard merge of ``launch.ann_steps``)
 """

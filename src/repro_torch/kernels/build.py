@@ -42,6 +42,7 @@ SIGNATURES = {
     "delete_repair_fp": [_P] * 6 + [_I] * 4 + [ctypes.c_float, _P],
     "delete_repair_sdc": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P],
     "gather_rows": [_P] * 3 + [_L, _I, _P],
+    "block_topk": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,4 @@
-"""Wrappers of the eight Hopper kernels.
+"""Wrappers of the nine Hopper kernels.
 
 Each wrapper checks device, dtype, shape and contiguity, then dispatches on
 where its tensors lie:
@@ -21,7 +21,8 @@ from . import ref
 LAUNCHES: dict[str, int] = {"l2_rows": 0, "adc_rows": 0,
                             "frontier_select": 0, "robust_prune_fp": 0,
                             "robust_prune_sdc": 0, "delete_repair_fp": 0,
-                            "delete_repair_sdc": 0, "gather_rows": 0}
+                            "delete_repair_sdc": 0, "gather_rows": 0,
+                            "block_topk": 0}
 
 
 def reset_launches() -> None:
@@ -319,3 +320,32 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor, *,
     _launch(name, _ptr(table), _ptr(ids), _ptr(out), ids.numel(), R,
             _stream(ids))
     return out
+
+
+BLOCK_TOPK_MAX_K = 128
+
+
+def block_topk(dists: torch.Tensor, ids: torch.Tensor, k: int, *,
+               use_kernel: bool = True):
+    """dists [Q, N] f32, ids [N] int32 -> (dists [Q, k] f32, ids [Q, k]
+    int32): the k smallest of each row, ascending, the lowest column first
+    among equal distances; a non-finite pick reports id -1, k > N pads
+    with (+inf, -1) and a row holding a NaN gives (NaN, -1) throughout
+    (contract: ``ref.block_topk_ref``).  1 <= k <= 128 on either device."""
+    name = "block_topk"
+    _check(name, dists, torch.float32, 2, "dists")
+    _check(name, ids, torch.int32, 1, "ids")
+    Q, N = dists.shape
+    if ids.shape[0] != N:
+        raise ValueError(f"{name}: ids {tuple(ids.shape)} for {N} columns")
+    if not 1 <= k <= BLOCK_TOPK_MAX_K:
+        raise ValueError(f"{name}: k={k} outside [1, {BLOCK_TOPK_MAX_K}]")
+    if not _on_cuda(name, (dists, ids), use_kernel):
+        return ref.block_topk_ref(dists, ids, k)
+    out_d = torch.empty((Q, k), dtype=torch.float32, device=dists.device)
+    out_i = torch.empty((Q, k), dtype=torch.int32, device=dists.device)
+    if Q == 0:
+        return out_d, out_i
+    _launch(name, _ptr(dists), _ptr(ids), _ptr(out_d), _ptr(out_i), Q, N, k,
+            _stream(dists))
+    return out_d, out_i

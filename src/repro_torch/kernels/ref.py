@@ -15,7 +15,10 @@ copy the contracts of the JAX package's ``kernels/ref.py``:
                                  (``delete_repair_assemble_ref``), the prune
                                  rounds, the changed-row select;
   ``gather_rows_ref``            the row gather ``table[ids]`` with INVALID
-                                 rows for ids < 0 (``hbm_gather_rows``).
+                                 rows for ids < 0 (``hbm_gather_rows``);
+  ``block_topk_ref``             the stable smallest-k of each row with
+                                 its ids (``block_topk``), following the
+                                 Pallas kernel, not the JAX ``ref``.
 
 All of them are batched over a leading row axis [B, ...] (the JAX
 contracts are per row and vmapped).  ``l2_rows_ref`` and ``adc_rows_ref``
@@ -320,3 +323,37 @@ def repair_operands_sdc(adjacency, deleted, usable, codes, tables, node_ids,
     d_p = torch.gather(lut, 2, cc.permute(0, 2, 1)).sum(1)   # [B, C]
     return (rows, nbr_del, exp, take, usable[safe_raw], d_p, cc, tables,
             node_ids, usable[node_ids.long()])
+
+
+def block_topk_ref(dists: torch.Tensor, ids: torch.Tensor, k: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """dists [Q, N] f32, ids [N] int32 -> (dists [Q, k] f32, ids [Q, k]
+    int32): each row's k smallest distances in ascending order, the lowest
+    column first among equal distances (a stable sort on distance), with
+    their ids.
+
+    The rules are those of the JAX package's Pallas ``block_topk`` kernel
+    (``ops.block_topk``), which differ from its ``ref.block_topk_ref``:
+
+    * a non-finite pick (+inf or -inf) reports id -1, not the real id;
+    * k > N pads the row with (+inf, -1);
+    * a row holding a NaN returns (NaN, -1) in every column: the kernel's
+      row minimum is NaN, ``cd == m`` then matches no column, so every
+      round picks the NaN minimum and masks nothing out.
+
+    The kernel writes each round's row minimum, not the picked element;
+    only a signed zero could tell the two apart.
+    """
+    Q, N = dists.shape
+    d = dists.float()
+    n = min(k, N)
+    order = torch.sort(d, dim=1, stable=True).indices[:, :n]
+    out_d = torch.full((Q, k), float("inf"), device=d.device)
+    out_i = torch.full((Q, k), INVALID, dtype=torch.int32, device=d.device)
+    out_d[:, :n] = d.gather(1, order)
+    out_i[:, :n] = torch.where(torch.isfinite(out_d[:, :n]),
+                               ids.to(torch.int32)[order], INVALID)
+    nan = torch.isnan(d).any(1)
+    out_d[nan] = float("nan")
+    out_i[nan] = INVALID
+    return out_d, out_i

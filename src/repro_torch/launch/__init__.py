@@ -1,0 +1,2 @@
+"""Launch entry points of the port: the serving driver (``serve``) and the
+freshdiskann-1b shard deployment's distributed steps (``ann_steps``)."""

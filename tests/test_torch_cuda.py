@@ -184,6 +184,29 @@ def test_gather_rows_bit_identical(dev, R, shape):
         ops.gather_rows(table, ids, use_kernel=False)
 
 
+@pytest.mark.parametrize("Q,N,k", [(1024, 2560, 5), (1024, 20, 5),
+                                   (7, 600, 33), (5, 3, 8), (3, 200, 128)])
+def test_block_topk_bit_identical(dev, Q, N, k):
+    """Integer distances with ties, +-inf and a NaN row: values and ids
+    equal to the plain version's (NaN compared as NaN), k > N padded;
+    use_kernel=False raises."""
+    g = np.random.default_rng(Q + N + k)
+    d = g.integers(0, 6, (Q, N)).astype(np.float32)
+    d[g.random((Q, N)) < 0.1] = np.inf
+    d[g.random((Q, N)) < 0.03] = -np.inf
+    d[Q // 2, N // 2] = np.nan
+    ids = _t(g.integers(0, 1 << 20, N).astype(np.int32), dev)
+    dd = _t(d, dev)
+    got_d, got_i = ops.block_topk(dd, ids, k)
+    want_d, want_i = ref.block_topk_ref(dd, ids, k)
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(torch.isnan(got_d), torch.isnan(want_d))
+    fin = ~torch.isnan(want_d)
+    assert torch.equal(got_d[fin], want_d[fin])
+    with pytest.raises(ValueError, match="use_kernel=False"):
+        ops.block_topk(dd, ids, k, use_kernel=False)
+
+
 def test_launches_counted_and_plain_refused_on_cuda(dev):
     ops.reset_launches()
     x = torch.zeros((2, 4), device=dev)

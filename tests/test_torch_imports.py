@@ -2,7 +2,7 @@
 
 In a fresh interpreter where ``import jax`` and ``import repro`` fail
 (``sys.modules`` entries set to None), every module of ``repro_torch``
-imports, ``chip_smoke.py`` imports as a module (without running ``main``),
+imports (the serving, distributed, launch and data subpackages named), ``chip_smoke.py`` imports as a module (without running ``main``),
 and a snapshot written by the reference -- whose pickles name the
 reference's classes -- loads into the port and serves the reference's
 results.
@@ -55,9 +55,17 @@ spec.loader.exec_module(smoke)
 assert callable(smoke.main)
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k in sys.modules if sys.modules[k] is not None)
-print(len(names))
+print(" ".join(names))
 """)
-    assert int(out.split()[-1]) >= 25
+    names = set(out.split())
+    assert len(names) >= 40
+    for sub in ("serving", "distributed", "launch", "data"):
+        assert f"repro_torch.{sub}" in names
+    for mod in ("serving.steps", "serving.scheduler", "serving.replica",
+                "distributed.sharding", "distributed.ctx",
+                "launch.ann_steps", "launch.serve", "data.pipelines",
+                "core.autotune"):
+        assert f"repro_torch.{mod}" in names
 
 
 def test_reference_snapshot_loads_without_the_reference(tmp_path):

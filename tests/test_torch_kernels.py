@@ -1,4 +1,4 @@
-"""The port's four kernel contracts against the JAX package's kernels.
+"""The port's kernel contracts against the JAX package's kernels.
 
 For each kernel the JAX kernel runs through ``repro.kernels.ops`` with
 ``use_kernel=True`` (Pallas in interpret mode on the CPU, as
@@ -194,6 +194,77 @@ def test_robust_prune_fp_matches_jax_kernel(kind, alpha, B, C, d, R):
     assert (g_ids.numpy()[0] == -1).all() and int(g_cnt[0]) == 0
 
 
+def _topk_jax(d, ids, k):
+    gd, gi = jops.block_topk(jnp.asarray(d), jnp.asarray(ids), k)
+    return np.asarray(gd), np.asarray(gi)
+
+
+def _topk_port(d, ids, k):
+    gd, gi = ops.block_topk(torch.from_numpy(d), torch.from_numpy(ids), k)
+    return gd.numpy(), gi.numpy()
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("q,n,k", [(1, 300, 10), (7, 300, 10), (8, 512, 1),
+                                   (3, 1024, 64), (9, 77, 5)])
+def test_block_topk_matches_jax_kernel(kind, q, n, k):
+    """The shapes of ``tests/test_kernels.py``; integer distances put ties
+    everywhere (the lowest column first), Gaussian ones none."""
+    g = np.random.default_rng(q * 100 + n + k)
+    d = (g.integers(0, 8, (q, n)) if kind == "integer"
+         else g.standard_normal((q, n))).astype(np.float32)
+    ids = g.permutation(1 << 16)[:n].astype(np.int32)
+    want = _topk_jax(d, ids, k)
+    got = _topk_port(d, ids, k)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("case", ["inf_padding", "plus_minus_inf", "nan_row",
+                                  "k_over_n"])
+def test_block_topk_edge_rules_match_jax_kernel(case):
+    """The Pallas kernel's rules, which its ``ref.block_topk_ref`` does not
+    share: a non-finite pick reports id -1 (``test_topk_with_inf_padding``'s
+    row, and -inf), a row holding a NaN gives (NaN, -1) throughout, and
+    k > N pads with (+inf, -1)."""
+    g = np.random.default_rng(7)
+    k = 4
+    if case == "inf_padding":
+        d = np.array([[1.0, np.inf, 0.5, np.inf, 2.0]], np.float32)
+        ids = np.array([10, 11, 12, 13, 14], np.int32)
+    else:
+        d = g.integers(0, 5, (6, 700)).astype(np.float32)
+        ids = g.integers(0, 1 << 20, 700).astype(np.int32)
+        d[g.random(d.shape) < 0.2] = np.inf
+        if case == "plus_minus_inf":
+            d[g.random(d.shape) < 0.01] = -np.inf
+        elif case == "nan_row":
+            d[2, 600] = np.nan                    # in the second block
+            d[4, 3] = np.nan
+        else:
+            d, ids, k = d[:, :3], ids[:3], 9
+    want = _topk_jax(d, ids, k)
+    got = _topk_port(d, ids, k)
+    np.testing.assert_array_equal(got[0], want[0])    # NaN == NaN here
+    np.testing.assert_array_equal(got[1], want[1])
+    if case == "inf_padding":
+        assert got[1][0].tolist() == [12, 10, 14, -1]
+    elif case == "nan_row":
+        assert np.isnan(got[0][[2, 4]]).all() and (got[1][[2, 4]] == -1).all()
+    elif case == "k_over_n":
+        assert np.isinf(got[0][:, 3:]).all() and (got[1][:, 3:] == -1).all()
+
+
+def test_block_topk_rejects_k_out_of_range():
+    d = torch.zeros((2, 300))
+    ids = torch.arange(300, dtype=torch.int32)
+    for k in (0, 129):
+        with pytest.raises(ValueError, match="outside"):
+            ops.block_topk(d, ids, k)
+    with pytest.raises(ValueError):
+        ops.block_topk(d, ids[:10], 3)
+
+
 def test_cpu_tensors_never_launch():
     """Every wrapper takes its plain version for CPU tensors: no launch is
     counted and nothing is built."""
@@ -209,6 +280,8 @@ def test_cpu_tensors_never_launch():
     ops.robust_prune_fp(*[torch.from_numpy(a)
                           for a in _prune_rows(0, 2, 5, 4, "integer")],
                         alpha=1.2, R=3)
+    ops.block_topk(torch.zeros((2, 6)), torch.arange(6, dtype=torch.int32),
+                   3)
     assert ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES}
 
 

@@ -8,8 +8,8 @@ and of a buffered point, a re-insert, and ``search_batch`` with a ragged
 request over ``batch_queries`` chunks.
 
 Integer fixture: external ids and distances are equal.  Gaussian fixture:
-5-recall@5 within 0.01.  Also: unported knobs raise
-``NotImplementedError`` while the merge knobs run; reaching
+5-recall@5 within 0.01.  Also: the unported filter knob raises
+``NotImplementedError`` while the merge and serving knobs run; reaching
 ``merge_threshold`` merges; CPU tensors never reach a kernel; the default
 device needs CUDA (``convert`` included); and neither the port nor
 ``chip_smoke.py`` imports ``jax`` or ``repro`` (also checked in a fresh
@@ -145,14 +145,25 @@ def test_cpu_path_never_reaches_a_kernel(systems):
     assert ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES}
 
 
-_KNOBS = [dict(shard_lti=2), dict(filter_words=1), dict(autotune_beam=True),
-          dict(batch_fanout=False)]
+_KNOBS = [dict(filter_words=1)]
 
 
 @pytest.mark.parametrize("knob", _KNOBS, ids=lambda k: next(iter(k)))
 def test_unported_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="slice"):
         tsystem.FreshDiskANN(_cfg(tconfig, **knob), device="cpu")
+
+
+@pytest.mark.parametrize("knob", [dict(shard_lti=2), dict(autotune_beam=True),
+                                  dict(batch_fanout=False)],
+                         ids=lambda k: next(iter(k)))
+def test_serving_knobs_are_ported(knob):
+    """The serving knobs run since the serving slice (held against the
+    reference in ``tests/test_torch_serving.py``)."""
+    s = tsystem.FreshDiskANN(_cfg(tconfig, **knob), device="cpu")
+    ids, _ = s.search_batch(np.zeros((2, D), np.float32), k=3)
+    assert ids.shape == (2, 3)
+    assert getattr(s.cfg, next(iter(knob))) == next(iter(knob.values()))
 
 
 @pytest.mark.parametrize("knob", [dict(locality_order=True),
