@@ -1,6 +1,7 @@
 """Drive the PyTorch port's main path once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed S] [--n N] [--centres C] [--phases P]
+                          [--src DIR]
 
 Phases:
 
@@ -8,9 +9,12 @@ Phases:
            with nvcc into ``build/`` (one nvcc per source, all at once);
   kernels  run each kernel against its plain PyTorch version on the card at
            the main path's shapes, on integer-valued inputs (must be equal)
-           and Gaussian ones (stated tolerance), and time kernel, plain
+           and Gaussian ones (stated tolerance), and time kernel (CUDA
+           events, host us per call, torch.profiler device ms), plain
            version and, where one PyTorch call computes the same function,
-           that call (the two delete-repair kernels and ``gather_rows``
+           that call (``robust_prune_fp`` also at C 640, its tiled path;
+           ``gather_rows``' host path broken down by part; the two
+           delete-repair kernels and ``gather_rows``
            are held against their plain versions after the main path, on
            its merged graph; ``block_topk`` at the cross-shard merge's
            shapes, with ties, +-inf and a NaN row);
@@ -22,6 +26,8 @@ Phases:
            ``wal_dir`` and ``snapshot_dir`` whose ``search_disk`` results
            and IO counters (cache off) must be equal on both, then crashed
            and recovered on the card, where it must twin the live system;
+           and ``train_pq`` at the bootstrap's shape: equal bits from two
+           trainings on the card, equal initial centroids on CPU and card;
   main     bootstrap_system -> 1 % deletes -> streaming inserts with RW->RO
            rollover up to a threshold StreamingMerge -> search_batch ->
            another 1 % deletes and a global ``consolidate`` -> an SDC
@@ -43,11 +49,19 @@ Phases:
            the beam-width autotuner, a wall-clock ``BatchScheduler`` in
            front of a ``ReplicaSet``, the freshdiskann-1b shard deployment
            (``launch.ann_steps``: 4 sub-indices, distributed search with
-           the ``block_topk`` merge, insert and merge; recall against
-           brute force) and ``launch.serve`` at its defaults.
+           the ``block_topk`` merge and at k 129 with a stable sort, insert
+           and merge; recall against brute force) and ``launch.serve`` at
+           its defaults on the card and on the CPU (recall within 0.01).
   profile  (only when named) torch.profiler over one search micro-batch,
            one flush and one merge after the main path: device busy share
            and kernel time by name.
+  launch   (only when named) the launch path of the nine kernels at the
+           main path's shapes on random inputs: event ms, host us per call
+           and profiler device ms, beside ``torch.index_select`` and
+           ``torch.topk``.  With ``--src DIR`` the port is imported from DIR
+           (e.g. a parent tree unpacked with ``git archive``), so
+           ``--src DIR --phases build,launch`` times that tree's launch path
+           on the same card.
 
 P (the phases) defaults to build,kernels,parity,main,storage,serving.
 Prints diagnostics, then the card's name and power limit, then one JSON
@@ -143,21 +157,98 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return a.elapsed_time(b) / iters
 
 
+def host_us(fn, calls: int = 1000, group: int = 100) -> float:
+    """Host microseconds per call of ``fn()``: ``time.perf_counter`` around
+    ``calls`` calls in groups of ``group``, with no synchronisation inside
+    a group (a sync between groups, untimed, keeps the launch queue from
+    filling, so a slow kernel does not set the host's pace)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(calls // group):
+        t0 = time.perf_counter()
+        for _ in range(group):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / (calls // group * group) * 1e6
+
+
+def device_ms(fn, iters: int = 20, tries: int = 3,
+              pad_s: float = 0.05) -> float | None:
+    """Device milliseconds per call of ``fn()`` from torch.profiler over a
+    window of ``iters`` calls: each device activity's (kernel, copy, fill)
+    mean duration, by name, summed over the names -- every call timed here
+    runs each of its kernels once.  A mean by name, unlike a total over
+    ``iters``, is not thrown off when the profiler keeps only some of a
+    window's records.  On the card it kept fewer and fewer records the
+    longer the process ran (19, then 3, then none of 20 after the main
+    path), so the window is padded with ``pad_s`` of idle host time on
+    each side and tried up to ``tries`` times.  A window with no record
+    gives None ("not measured"): the profiler is a measuring aid here, and
+    the kernel's result and its CUDA-event time are checked and kept
+    without it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad_s)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                t, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+        if by_name:
+            kept = sum(n for _, n in by_name.values())
+            if kept < iters * len(by_name):
+                log(f"[profile] torch.profiler kept {kept} of "
+                    f"{iters * len(by_name)} device records "
+                    f"({', '.join(by_name)[:120]})")
+            return sum(t / n for t, n in by_name.values()) / 1e3
+        log(f"[profile] torch.profiler recorded no device time "
+            f"(window {attempt + 1} of {tries})")
+    return None
+
+
+def _fmt_ms(x: float | None) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def launch_times(fn) -> dict:
+    """The three times of one launch path: CUDA-event ms (``time_ms``),
+    host µs per call and profiler device ms."""
+    return dict(ms=time_ms(fn), host_us=host_us(fn), device_ms=device_ms(fn))
+
+
+def _fmt_times(t: dict) -> str:
+    return (f"{t['ms']:.4f} ms (device {_fmt_ms(t['device_ms'])}, host "
+            f"{t['host_us']:.1f} us/call)")
+
+
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
     tb = n_bytes / HBM_BYTES_PER_S * 1e3
     tf = n_flops / FP32_FLOP_PER_S * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def kernel_record(name, *, err, ms, plain_ms, nbytes, nflops, library_ms,
-                  shape) -> dict:
+def kernel_record(name, *, err, times, plain_ms, nbytes, nflops,
+                  library_ms, shape) -> dict:
     """One entry of the ``kernels`` JSON line (``launches`` is filled in
-    from the main path's counts)."""
+    from the main path's counts); ``times`` from ``launch_times``."""
     b, by = bound_ms(nbytes, nflops)
     return dict(name=name, route="cuda", source=KERNEL_META[name][0],
                 replaces=KERNEL_META[name][1], launches=0,
-                max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
-                bound_ms=b, bound_by=by, library_ms=library_ms, shape=shape)
+                max_abs_err=float(err), ms=times["ms"],
+                device_ms=times["device_ms"], host_us=times["host_us"],
+                plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=library_ms, shape=shape)
 
 
 # --------------------------------------------------------------- phase 1
@@ -217,20 +308,24 @@ def _frontier_inputs(g, B, L, K, V, W, integer: bool, dev):
                  for c in cols)
 
 
-def _prune_inputs(g, B, C, d, integer: bool, dev):
+def _prune_inputs(g, table, B, C, integer: bool):
+    """(d_p, table, ids, ok) for ``robust_prune_fp``: ids into ``table``
+    [N, d] with duplicates within each row, ids < 0 and masked lanes, and
+    the exact anchor distances to a random anchor (integer-valued when
+    ``integer``, with an integer table, so every sum is exact)."""
     import torch
-    if integer:
-        vecs = g.integers(-3, 4, (B, C, d)).astype(np.float32)
-        anchor = g.integers(-3, 4, (B, 1, d)).astype(np.float32)
-    else:
-        vecs = g.standard_normal((B, C, d)).astype(np.float32)
-        anchor = g.standard_normal((B, 1, d)).astype(np.float32)
-    ids = g.integers(0, 1 << 21, (B, C)).astype(np.int32)
+    dev = table.device
+    N, d = table.shape
+    ids = g.integers(0, N, (B, C)).astype(np.int32)
     ids[:, C // 2:C // 2 + C // 8] = ids[:, :C // 8]          # duplicates
     ids[g.random((B, C)) < 0.05] = -1
-    ok = (ids >= 0) & (g.random((B, C)) > 0.1)
-    d_p = ((anchor - vecs) ** 2).sum(-1).astype(np.float32)
-    return tuple(torch.from_numpy(x).to(dev) for x in (d_p, vecs, ids, ok))
+    ids = torch.from_numpy(ids).to(dev)
+    ok = (ids >= 0) & torch.from_numpy(g.random((B, C)) > 0.1).to(dev)
+    anchor = (g.integers(-3, 4, (B, 1, d)) if integer
+              else g.standard_normal((B, 1, d))).astype(np.float32)
+    vecs = table[ids.clamp(min=0).long()]
+    d_p = ((torch.from_numpy(anchor).to(dev) - vecs) ** 2).sum(-1)
+    return d_p, table, ids, ok
 
 
 def prune_work(d_p, ok, cover, alpha, R) -> int:
@@ -252,6 +347,17 @@ def prune_work(d_p, ok, cover, alpha, R) -> int:
         cov = alpha * cover(star) <= dp
         alive = alive & ~cov & (cols != star[:, None]) & okr[:, None]
     return total
+
+
+def prune_fp_bytes(d_p, table, ids, ok, R) -> int:
+    """Bytes ``robust_prune_fp`` must move on these inputs: d_p, ids and ok
+    of every candidate, one table row for each distinct row that an alive
+    candidate (ok, finite d_p) names, and the outputs."""
+    import torch
+    B, C = ids.shape
+    alive = ok & torch.isfinite(d_p)
+    n_rows = int(torch.unique(ids[alive].clamp(min=0)).numel())
+    return B * C * (4 + 4 + 1) + n_rows * table.shape[1] * 4 + B * (R + 1) * 4
 
 
 def fp_cover(vecs):
@@ -301,20 +407,19 @@ def phase_kernels(seed: int, n_table: int) -> dict:
         # |q|^2 + |x|^2 (about 256 here) in the norm identity.
         check(bool((err <= 1e-5 * want[fin].abs() + 1e-3).all()),
               f"l2_rows K={K}: max err {float(err.max())}")
-        ms = time_ms(lambda: ops.l2_rows(q, table, ids))
+        t = launch_times(lambda: ops.l2_rows(q, table, ids))
         plain = time_ms(lambda: ref.l2_rows_ref(q, table, ids))
         gathered = table[ids.clamp(min=0).long()]
         lib = time_ms(lambda: torch.cdist(q[:, None, :], gathered))
         nbytes = B * K * d * 4 + B * d * 4 + B * K * 4 * 2
         log(f"[kernels] l2_rows B={B} K={K} d={d}: max_abs_err "
-            f"{float(err.max()):.3g}  kernel {ms:.4f} ms  plain {plain:.4f} "
-            f"ms  cdist(gathered) {lib:.4f} ms  bound "
+            f"{float(err.max()):.3g}  kernel {_fmt_times(t)}  plain "
+            f"{plain:.4f} ms  cdist(gathered) {lib:.4f} ms  bound "
             f"{bound_ms(nbytes, 4.0 * B * K * d)[0]:.4f} ms")
         if K == 256:
-            record("l2_rows", err=err.max(), ms=ms, plain_ms=plain,
+            record("l2_rows", err=err.max(), times=t, plain_ms=plain,
                    nbytes=nbytes, nflops=4.0 * B * K * d, library_ms=lib,
                    shape=f"B={B} K={K} d={d} N={n_table}")
-    del table_int
 
     # ---- adc_rows: B 1024, K 256, m 32, ksub 256 -------------------------
     B, K, m, ksub = 1024, 256, 32, 256
@@ -337,12 +442,13 @@ def phase_kernels(seed: int, n_table: int) -> dict:
     err = (got[fin] - want[fin]).abs()
     check(bool((err <= 1e-5 * want[fin].abs() + 1e-6).all()),
           f"adc_rows: max err {float(err.max())}")
-    ms = time_ms(lambda: ops.adc_rows(luts, codes, ids))
+    t = launch_times(lambda: ops.adc_rows(luts, codes, ids))
     plain = time_ms(lambda: ref.adc_rows_ref(luts, codes, ids))
     nbytes = B * m * ksub * 4 + B * K * m + B * K * 4 * 2
     log(f"[kernels] adc_rows B={B} K={K} m={m} ksub={ksub}: max_abs_err "
-        f"{float(err.max()):.3g}  kernel {ms:.4f} ms  plain {plain:.4f} ms")
-    record("adc_rows", err=err.max(), ms=ms, plain_ms=plain, nbytes=nbytes,
+        f"{float(err.max()):.3g}  kernel {_fmt_times(t)}  plain {plain:.4f} "
+        "ms")
+    record("adc_rows", err=err.max(), times=t, plain_ms=plain, nbytes=nbytes,
            nflops=float(B * K * m), library_ms=None,
            shape=f"B={B} K={K} m={m} ksub={ksub} N={n_table}")
     del codes
@@ -358,47 +464,56 @@ def phase_kernels(seed: int, n_table: int) -> dict:
             check(gt.dtype == wt.dtype and torch.equal(gt, wt),
                   f"frontier_select ({'integer' if integer else 'uniform'}"
                   f" distances): {nm} differs")
-    ms = time_ms(lambda: ops.frontier_select(*args, W=W, max_visits=V))
+    t = launch_times(lambda: ops.frontier_select(*args, W=W, max_visits=V))
     plain = time_ms(lambda: ref.frontier_select_batch_ref(
         *args, W=W, max_visits=V))
     nbytes = B * ((2 * (L + K) + 2 * V + 1) * 4
                   + (2 * L + 2 * W + 2 * V + 1) * 4)
     log(f"[kernels] frontier_select B={B} L={L} K={K} V={V} W={W}: "
-        f"bit-identical  kernel {ms:.4f} ms  plain {plain:.4f} ms")
-    record("frontier_select", err=0.0, ms=ms, plain_ms=plain, nbytes=nbytes,
+        f"bit-identical  kernel {_fmt_times(t)}  plain {plain:.4f} ms")
+    record("frontier_select", err=0.0, times=t, plain_ms=plain, nbytes=nbytes,
            nflops=0.0, library_ms=None, shape=f"B={B} L={L} K={K} V={V} W={W}")
 
-    # ---- robust_prune_fp: insert (B 256, C 203) and Delta (B 1024, C 128)
+    # ---- robust_prune_fp: insert (B 256, C 203), Delta (B 1024, C 128),
+    # and a C past shared memory (the kernel's tiled path) ---------------
     d, R, alpha = 128, 64, 1.2
-    for B, C, tag in ((256, 203, "insert"), (1024, 128, "back-edge")):
-        a = _prune_inputs(g, B, C, d, True, dev)
+    for B, C, tag in ((256, 203, "insert"), (1024, 128, "back-edge"),
+                      (64, 640, "tiled")):
+        a = _prune_inputs(g, table_int, B, C, True)
         go, gc = ops.robust_prune_fp(*a, alpha=alpha, R=R)
-        wo, wc = ref.robust_prune_fp_ref(*a, alpha=alpha, R=R)
+        wo, wc = ref.robust_prune_fp_ref(
+            a[0], table_int[a[2].clamp(min=0).long()], *a[2:], alpha=alpha,
+            R=R)
         check(torch.equal(go, wo) and torch.equal(gc, wc),
               f"robust_prune_fp {tag}: integer inputs differ")
-        a = _prune_inputs(g, B, C, d, False, dev)
+        a = _prune_inputs(g, table, B, C, False)
+        vecs = table[a[2].clamp(min=0).long()]
         go, gc = ops.robust_prune_fp(*a, alpha=alpha, R=R)
-        wo, wc = ref.robust_prune_fp_ref(*a, alpha=alpha, R=R)
+        wo, wc = ref.robust_prune_fp_ref(a[0], vecs, *a[2:], alpha=alpha,
+                                         R=R)
         n_diff = int((go != wo).any(1).sum())
         # Cover sums are taken in another order than the plain version's,
         # so a near-tie alpha test may flip: at most 0.1 % of rows.
         check(n_diff <= 0.001 * B, f"robust_prune_fp {tag}: {n_diff} of {B}"
               " rows differ")
-        ms = time_ms(lambda: ops.robust_prune_fp(*a, alpha=alpha, R=R))
-        plain = time_ms(lambda: ref.robust_prune_fp_ref(*a, alpha=alpha,
-                                                        R=R), iters=3)
-        work = prune_work(a[0], a[3], fp_cover(a[1]), alpha, R)
-        nbytes = B * C * (4 + d * 4 + 4 + 1) + B * (R + 1) * 4
+        t = launch_times(lambda: ops.robust_prune_fp(*a, alpha=alpha, R=R))
+        plain = time_ms(lambda: ref.robust_prune_fp_ref(
+            a[0], table[a[2].clamp(min=0).long()], *a[2:], alpha=alpha, R=R),
+            iters=3)
+        work = prune_work(a[0], a[3], fp_cover(vecs), alpha, R)
+        nbytes = prune_fp_bytes(*a, R)
         nflops = 3.0 * d * work
+        del vecs
         log(f"[kernels] robust_prune_fp {tag} B={B} C={C} d={d} R={R}: "
-            f"{n_diff} rows differ  kernel {ms:.4f} ms  plain {plain:.4f} ms"
-            f"  bound {bound_ms(nbytes, nflops)[0]:.4f} ms "
+            f"integer equal, {n_diff} Gaussian rows differ  kernel "
+            f"{_fmt_times(t)}  plain {plain:.4f} ms  bound "
+            f"{bound_ms(nbytes, nflops)[0]:.4f} ms "
             f"({bound_ms(nbytes, nflops)[1]})")
         if tag == "insert":
-            record("robust_prune_fp", err=0.0, ms=ms, plain_ms=plain,
+            record("robust_prune_fp", err=0.0, times=t, plain_ms=plain,
                    nbytes=nbytes, nflops=nflops, library_ms=None,
                    shape=f"B={B} C={C} d={d} R={R} ({tag})")
-    del table
+    del table, table_int
     torch.cuda.empty_cache()
 
     # ---- robust_prune_sdc: insert (B 256, C 203) and Patch (B 1024, C 128)
@@ -439,8 +554,8 @@ def phase_kernels(seed: int, n_table: int) -> dict:
         # a near-tie alpha test may flip a row (reported; at most 1 %).
         check(n_diff <= 0.01 * B, f"robust_prune_sdc {tag}: {n_diff} of {B}"
               " rows differ")
-        ms = time_ms(lambda: ops.robust_prune_sdc(d_p, codes_tab, tabs, ids,
-                                                  ok, alpha=alpha, R=R))
+        t = launch_times(lambda: ops.robust_prune_sdc(
+            d_p, codes_tab, tabs, ids, ok, alpha=alpha, R=R))
         plain = time_ms(lambda: ref.robust_prune_sdc_ref(
             d_p, codes_tab[ids.clamp(min=0).long()], tabs, ids, ok,
             alpha=alpha, R=R), iters=3)
@@ -453,10 +568,10 @@ def phase_kernels(seed: int, n_table: int) -> dict:
         bnd = bound_ms(nbytes, nflops)
         log(f"[kernels] robust_prune_sdc {tag} B={B} C={C} m={m} ksub={ksub}"
             f" R={R}: integer equal, {n_diff} of {B} Gaussian rows differ  "
-            f"kernel {ms:.4f} ms  plain {plain:.4f} ms  bound {bnd[0]:.4f} "
-            f"ms ({bnd[1]})")
+            f"kernel {_fmt_times(t)}  plain {plain:.4f} ms  bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]})")
         if tag == "insert":
-            record("robust_prune_sdc", err=0.0, ms=ms, plain_ms=plain,
+            record("robust_prune_sdc", err=0.0, times=t, plain_ms=plain,
                    nbytes=nbytes, nflops=nflops, library_ms=None,
                    shape=f"B={B} C={C} m={m} ksub={ksub} R={R} ({tag}); "
                    f"Gaussian rows differing {n_diff}/{B}")
@@ -473,6 +588,69 @@ def phase_kernels(seed: int, n_table: int) -> dict:
     else:
         raise PhaseError("use_kernel=False on a CUDA tensor did not raise")
     return recs
+
+
+def phase_launch(seed: int, n_table: int) -> None:
+    """The launch path of the nine kernels at the main path's shapes, on
+    random inputs (the repair kernels on a random R-64 graph with 1 %
+    deleted), with no main path needed: one ``[launch]`` JSON line per
+    call with its ``launch_times``; also ``torch.index_select`` at
+    ``gather_rows``' shape and ``torch.topk`` at ``block_topk``'s N 20.
+    Uses only calls every tree of the port shares (``robust_prune_fp``
+    through its main-path caller ``FullPrecisionPrune.prune_rows``), so
+    ``--src`` can compare another checkout's launch path on the same card."""
+    import torch
+    from repro_torch.core.delete import affected_mask
+    from repro_torch.core.prune import FullPrecisionPrune
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(seed)
+    g = np.random.default_rng(seed)
+    N, d, R = n_table, 128, 64
+
+    def rows(shape, high):
+        return torch.randint(0, high, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    table = torch.randn(N, d, generator=gen, device=dev)
+    codes = rows((N, 32), 256).to(torch.uint8)
+    ids = rows((1024, 256), N)
+    q = torch.randn(1024, d, generator=gen, device=dev)
+    luts = torch.rand(1024, 32, 256, generator=gen, device=dev)
+    fr = _frontier_inputs(g, 1024, 100, 256, 166, 4, False, dev)
+    d_p, _, p_ids, ok = _prune_inputs(g, table, 256, 203, False)
+    prune = FullPrecisionPrune(table)
+    tabs = torch.rand(32, 256, 256, generator=gen, device=dev)
+    adj = rows((N, R), N)
+    deleted = torch.rand(N, generator=gen, device=dev) < 0.01
+    usable = ~deleted
+    nodes = affected_mask(adj, deleted, usable).nonzero()[:1024, 0].int()
+    g_ids = torch.from_numpy(g.choice(N, (1024, 4)).astype(np.int32)).to(dev)
+    g_ids[torch.from_numpy(g.random((1024, 4)) < 0.1).to(dev)] = -1
+    safe = g_ids.clamp(min=0).flatten().long()
+    t_d = torch.randn(1024, 20, generator=gen, device=dev)
+    t_i = torch.arange(20, dtype=torch.int32, device=dev)
+    calls = {
+        "l2_rows": lambda: ops.l2_rows(q, table, ids),
+        "adc_rows": lambda: ops.adc_rows(luts, codes, ids),
+        "frontier_select": lambda: ops.frontier_select(*fr, W=4,
+                                                       max_visits=166),
+        "robust_prune_fp": lambda: prune.prune_rows(
+            d_p, p_ids, ok, alpha=1.2, R=R, use_kernel=True),
+        "robust_prune_sdc": lambda: ops.robust_prune_sdc(
+            d_p, codes, tabs, p_ids, ok, alpha=1.2, R=R),
+        "delete_repair_fp": lambda: ops.delete_repair_fp(
+            adj, deleted, usable, table, nodes, alpha=1.2, R=R),
+        "delete_repair_sdc": lambda: ops.delete_repair_sdc(
+            adj, deleted, usable, codes, tabs, nodes, alpha=1.2, R=R, cap=8),
+        "gather_rows": lambda: ops.gather_rows(adj, g_ids),
+        "torch.index_select": lambda: torch.index_select(adj, 0, safe),
+        "block_topk": lambda: ops.block_topk(t_d, t_i, 5),
+        "torch.topk": lambda: torch.topk(t_d, 5, dim=1, largest=False,
+                                         sorted=True),
+    }
+    for name, fn in calls.items():
+        log("[launch] " + json.dumps(dict(name=name, **launch_times(fn))))
 
 
 # --------------------------------------------------------------- phase 3
@@ -568,6 +746,37 @@ def phase_parity(seed: int) -> None:
             f"{out[0][6].tolist()} [local, global repairs, Delta targets, "
             f"merges], an SDC streaming_merge)")
     phase_storage_parity(local, base, new, qs, cent)
+    pq_checks(seed)
+
+
+def pq_checks(seed: int, n: int = 65536) -> None:
+    """``train_pq`` at the main path's shape (the bootstrap's 65,536-point
+    sample, dim 128, m 32 x ksub 256, 12 iterations) on the card: two
+    trainings give equal bits; with ``kmeans_iters=0`` the CPU and the card
+    start from the same centroids."""
+    import dataclasses
+    import torch
+    from repro_torch.core import pq as pqm
+    from repro_torch.core.config import PQConfig
+    g = np.random.default_rng(seed + 19)
+    x = _mixture(g, (g.standard_normal((4096, 128)) * 2.0).astype(
+        np.float32), n)
+    cfg = PQConfig(dim=128, m=32, ksub=256)
+    xd = torch.from_numpy(x).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a = pqm.train_pq(xd, cfg).centroids
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    b = pqm.train_pq(xd, cfg).centroids
+    check(torch.equal(a, b), "train_pq on the card: two trainings differ")
+    c0 = dataclasses.replace(cfg, kmeans_iters=0)
+    check(torch.equal(pqm.train_pq(xd, c0).centroids.cpu(),
+                      pqm.train_pq(torch.from_numpy(x), c0).centroids),
+          "train_pq: the CPU and the card start from different centroids")
+    log(f"[parity] train_pq, {n} x 128, m 32 x ksub 256, "
+        f"{cfg.kmeans_iters} iterations: {secs:.2f} s on the card, equal "
+        f"bits twice; initial centroids equal on CPU and card")
 
 
 def _storage_cfg(cfg, root: Path, **kw):
@@ -970,7 +1179,8 @@ def repair_kernel_records(lti, seed: int, B: int = 1024) -> dict:
         want = plain(*operands, alpha=alpha, R=R)
         n_diff = int((got != want).any(1).sum())
         check(n_diff <= 0.01 * B, f"{name}: {n_diff} of {B} rows differ")
-        ms = time_ms(lambda: fn(adj, deleted, usable, *args_real, ids, **kw))
+        t = launch_times(lambda: fn(adj, deleted, usable, *args_real, ids,
+                                    **kw))
         ms_block = time_ms(lambda: fn(adj, deleted, usable, *args_real,
                                       block, **kw))
         plain_ms = time_ms(lambda: plain(*form(adj, deleted, usable,
@@ -986,11 +1196,11 @@ def repair_kernel_records(lti, seed: int, B: int = 1024) -> dict:
         bnd = bound_ms(nbytes, nflops)
         log(f"[kernels] {name} B={B} R={R} C={C} (1 % deleted, affected "
             f"block): integer equal, {n_diff} of {B} real-input rows differ"
-            f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+            f"  kernel {_fmt_times(t)}  plain {plain_ms:.4f} ms  bound "
             f"{bnd[0]:.4f} ms ({bnd[1]}); a block of consecutive slots "
             f"{ms_block:.4f} ms")
         recs[name] = kernel_record(
-            name, err=0.0, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
+            name, err=0.0, times=t, plain_ms=plain_ms, nbytes=nbytes,
             nflops=nflops, library_ms=None,
             shape=f"B={B} R={R} C={C} affected block, 1 % deleted; "
             f"real-input rows differing {n_diff}/{B}; consecutive block "
@@ -1021,20 +1231,55 @@ def gather_kernel_record(lti, seed: int, B: int = 1024, W: int = 4) -> dict:
                       ref.gather_rows_ref(adj, ids)),
           "gather_rows differs from its plain version")
     safe = ids.clamp(min=0).flatten().long()
-    ms = time_ms(lambda: ops.gather_rows(adj, ids))
+    t = launch_times(lambda: ops.gather_rows(adj, ids))
     plain = time_ms(lambda: ref.gather_rows_ref(adj, ids))
-    lib = time_ms(lambda: torch.index_select(adj, 0, safe))
+    lib = launch_times(lambda: torch.index_select(adj, 0, safe))
     n_valid = int((ids_np >= 0).sum())
     nbytes = n_valid * R * 4 + B * W * R * 4 + B * W * 4
     bnd = bound_ms(nbytes, 0.0)
     log(f"[kernels] gather_rows B={B} W={W} R={R} N={N}: bit-identical "
-        f"({B * W - n_valid} negative ids)  kernel {ms:.4f} ms  plain "
-        f"{plain:.4f} ms  index_select {lib:.4f} ms  bound {bnd[0]:.4f} ms "
-        f"({bnd[1]})")
+        f"({B * W - n_valid} negative ids)  kernel {_fmt_times(t)}  plain "
+        f"{plain:.4f} ms  index_select {_fmt_times(lib)}  bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]})")
+    log("[kernels] gather_rows host path, us per call: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in gather_breakdown(adj, ids).items()))
     return {"gather_rows": kernel_record(
-        "gather_rows", err=0.0, ms=ms, plain_ms=plain, nbytes=nbytes,
-        nflops=0.0, library_ms=lib,
-        shape=f"B={B} W={W} R={R} N={N}, {B * W - n_valid} ids < 0")}
+        "gather_rows", err=0.0, times=t, plain_ms=plain, nbytes=nbytes,
+        nflops=0.0, library_ms=lib["ms"],
+        shape=f"B={B} W={W} R={R} N={N}, {B * W - n_valid} ids < 0; "
+        f"index_select device {_fmt_ms(lib['device_ms'])}, host "
+        f"{lib['host_us']:.1f} us/call")}
+
+
+def gather_breakdown(table, ids) -> dict:
+    """Host microseconds per call of each part of ``ops.gather_rows``' path
+    on the card: the checks, the output's allocation, the stream handle,
+    the pointers, the bare ctypes call (which launches the kernel) and the
+    whole wrapper."""
+    import torch
+    from repro_torch.kernels import ops
+    name = "gather_rows"
+    out = torch.empty((*ids.shape, table.shape[1]), dtype=torch.int32,
+                      device=ids.device)
+    fn = ops._FNS[name]
+    args = (table.data_ptr(), ids.data_ptr(), out.data_ptr(), ids.numel(),
+            table.shape[1], ops._stream(ids))
+
+    def checks():
+        ops._check(name, table, torch.int32, 2, "table")
+        ops._on_cuda(name, (table, ids), True)
+
+    parts = {
+        "checks": checks,
+        "allocation": lambda: torch.empty(
+            (*ids.shape, table.shape[1]), dtype=torch.int32,
+            device=ids.device),
+        "stream": lambda: ops._stream(ids),
+        "pointers": lambda: (ops._ptr(table), ops._ptr(ids), ops._ptr(out)),
+        "ctypes call": lambda: fn(*args),
+        "whole wrapper": lambda: ops.gather_rows(table, ids),
+    }
+    return {k: host_us(f) for k, f in parts.items()}
 
 
 def topk_kernel_record(seed: int, Q: int = 1024, k: int = 5) -> dict:
@@ -1068,20 +1313,21 @@ def topk_kernel_record(seed: int, Q: int = 1024, k: int = 5) -> dict:
                   and torch.equal(gd[~nan], wd[~nan]),
                   f"block_topk N={N} ({kind}) differs from its plain version")
         xd = torch.from_numpy(dg).to(dev)
-        ms = time_ms(lambda: ops.block_topk(xd, ids, k))
+        t = launch_times(lambda: ops.block_topk(xd, ids, k))
         plain = time_ms(lambda: ref.block_topk_ref(xd, ids, k))
-        lib = time_ms(lambda: torch.topk(xd, k, dim=1, largest=False,
-                                         sorted=True))
+        lib = launch_times(lambda: torch.topk(xd, k, dim=1, largest=False,
+                                              sorted=True))
         nbytes = Q * N * 4 + N * 4 + Q * k * 8
         bnd = bound_ms(nbytes, float(Q * N))
         log(f"[kernels] block_topk Q={Q} N={N} k={k}: bit-identical on "
             f"integer (ties, +-inf, a NaN row) and Gaussian inputs  kernel "
-            f"{ms:.4f} ms  plain {plain:.4f} ms  torch.topk {lib:.4f} ms  "
-            f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+            f"{_fmt_times(t)}  plain {plain:.4f} ms  torch.topk "
+            f"{_fmt_times(lib)}  bound {bnd[0]:.4f} ms ({bnd[1]})")
         if rec is None:
-            rec = kernel_record("block_topk", err=0.0, ms=ms, plain_ms=plain,
-                                nbytes=nbytes, nflops=float(Q * N),
-                                library_ms=lib, shape=f"Q={Q} N={N} k={k}")
+            rec = kernel_record("block_topk", err=0.0, times=t,
+                                plain_ms=plain, nbytes=nbytes,
+                                nflops=float(Q * N), library_ms=lib["ms"],
+                                shape=f"Q={Q} N={N} k={k}")
     return {"block_topk": rec}
 
 
@@ -1583,6 +1829,7 @@ def phase_serving(s, data: dict, seed: int,
                                  dists[b * bq:(b + 1) * bq]),
               f"distributed search micro-batch {b} differs from the host "
               "merge of the per-shard searches")
+    wide(lti, group, icfg, qs[:bq], cap)
     from_shard = np.bincount(ids[ids >= 0] // cap, minlength=4)
     log(f"[serving] make_distributed_search, 4 shards: {len(qs)} queries, "
         f"ms per micro-batch {[round(t * 1e3, 1) for t in secs]}, one "
@@ -1653,18 +1900,26 @@ def phase_serving(s, data: dict, seed: int,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    # 6. The serving driver at its defaults.
+    # 6. The serving driver at its defaults, on the card and on the CPU.
     t0 = time.perf_counter()
     summary = serve.main(["--device", dev.type])
     t_drv = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = serve.main(["--device", "cpu"])
+    t_cpu = time.perf_counter() - t0
+    gap = summary["recall_mean"] - on_cpu["recall_mean"]
     # Its defaults: 4,096 points of dim 32, 1,984 inserts and as many
-    # deletes, PQ 8 x 64 (0.829 on the CPU); a floor that catches a break.
+    # deletes, PQ 8 x 64; the card's recall within 0.01 of the CPU's (the
+    # parity rule; both train the same codebook's start).
     check(summary["inserts"] == summary["deletes"] == 1984
           and summary["size"] == 4096 and summary["recall_mean"] >= 0.70,
           f"launch.serve: {summary}")
     log(f"[serving] launch.serve.main at its defaults: {t_drv:.1f} s, "
         f"recall_mean {summary['recall_mean']:.4f}, {summary['merges']} "
-        f"merges, size {summary['size']}")
+        f"merges, size {summary['size']}; on the CPU {t_cpu:.1f} s, "
+        f"recall_mean {on_cpu['recall_mean']:.4f}; gap {gap:+.4f}")
+    check(abs(gap) <= 0.01, f"launch.serve: card recall "
+          f"{summary['recall_mean']} vs CPU {on_cpu['recall_mean']}")
 
     sync()
     launches = dict(ops.LAUNCHES)
@@ -1673,6 +1928,46 @@ def phase_serving(s, data: dict, seed: int,
     check(not missing, f"kernels of the serving path never launched: "
           f"{missing}")
     return launches
+
+
+def wide(lti, group, icfg, qs, cap, k: int = 129, L: int = 160) -> None:
+    """``make_distributed_search`` at k 129, past ``block_topk``'s 128 (its
+    merge a stable device sort, no ``block_topk`` launch), equal to the
+    per-shard ``search_lti``s merged on the host by a stable sort, with
+    id -1 at every non-finite pick."""
+    import torch
+    from repro_torch.core.lti import search_lti
+    from repro_torch.kernels import ops
+    from repro_torch.launch.ann_steps import (make_distributed_search,
+                                              shard_block)
+    dev = group[0]
+    q = torch.from_numpy(qs).to(dev)
+    n0 = ops.LAUNCHES["block_topk"]
+    t0 = time.perf_counter()
+    ids, dists = make_distributed_search(group, icfg, k=k, L=L)(lti, q)
+    ids, dists = ids.cpu().numpy(), dists.cpu().numpy()
+    secs = time.perf_counter() - t0
+    parts_i, parts_d = [], []
+    for sh in range(len(group)):
+        i_, d_, _, _ = search_lti(shard_block(lti, sh, cap, dev), q, icfg,
+                                  k=k, L=L)
+        i_ = i_.cpu().numpy()
+        parts_i.append(np.where(i_ >= 0, i_ + sh * cap, i_))
+        parts_d.append(d_.cpu().numpy())
+    fi, fd = np.concatenate(parts_i, 1), np.concatenate(parts_d, 1)
+    o = np.argsort(fd, axis=1, kind="stable")[:, :k]
+    want_d = np.take_along_axis(fd, o, 1)
+    want_i = np.where(np.isfinite(want_d), np.take_along_axis(fi, o, 1), -1)
+    check(ids.shape == (len(qs), k) and np.array_equal(ids, want_i)
+          and np.array_equal(dists, want_d),
+          f"distributed search at k {k} differs from the host's stable "
+          "merge of the per-shard searches")
+    check(ops.LAUNCHES["block_topk"] == n0,
+          f"distributed search at k {k} launched block_topk")
+    log(f"[serving] make_distributed_search at k {k}, L {L}: {len(qs)} "
+        f"queries in {secs * 1e3:.1f} ms, equal to the host's stable merge "
+        f"(stable device sort, no block_topk launch); "
+        f"{int((ids < 0).sum())} ids -1")
 
 
 def profile_run(name: str, fn) -> None:
@@ -1749,8 +2044,13 @@ def main(argv=None) -> int:
                     help="Gaussian centres of the main path's corpus")
     ap.add_argument("--phases",
                     default="build,kernels,parity,main,storage,serving")
+    ap.add_argument("--src", default=None,
+                    help="import the port from this src directory instead "
+                    "(another checkout; with --phases build,launch)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
+    if args.src:
+        sys.path.insert(0, str(Path(args.src).resolve()))
 
     import torch
     if not torch.cuda.is_available():
@@ -1770,6 +2070,8 @@ def main(argv=None) -> int:
         if "kernels" in phases:
             recs = phase_kernels(args.seed, n_table=args.n)
             recs.update(topk_kernel_record(args.seed))
+        if "launch" in phases:
+            phase_launch(args.seed, n_table=args.n)
         if "parity" in phases:
             phase_parity(args.seed)
         if "main" in phases:

@@ -1,9 +1,13 @@
 """Product quantization: codebook training, encode, decode, LUTs, ADC and
 SDC tables (the PyTorch counterpart of the JAX package's ``core/pq.py``).
 
-``train_pq`` draws its initial centroids from a ``torch.Generator`` seeded
-with ``PQConfig.seed``; those are not ``jax.random``'s draws, so parity
-tests hand both packages the reference's codebook instead.
+``train_pq`` draws its initial centroids from a CPU ``torch.Generator``
+seeded with ``PQConfig.seed``, so one seed trains one codebook on the CPU
+and on the card; those are not ``jax.random``'s draws, so parity tests hand
+both packages the reference's codebook instead.  Its cluster sums are a
+one-hot contraction, as the reference's, in row chunks: a fixed order, so
+the card trains the same bits on every run (``index_add_`` sums with float
+atomics on CUDA, whose order changes from run to run).
 """
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ from .config import PQConfig
 # Rows encoded per step: [rows, m, ksub] f32 scores stay ~1 GiB at m=32,
 # ksub=256 (the JAX program encodes in one step and lets XLA tile it).
 _ENCODE_ROWS = 32768
+# Floats of the one-hot [rows, m, ksub] block per k-means step (256 MiB).
+_ONEHOT_FLOATS = 1 << 26
 
 
 class PQCodebook(NamedTuple):
@@ -29,28 +35,28 @@ def _assign(x_sub: torch.Tensor, cent: torch.Tensor) -> torch.Tensor:
     return torch.argmin(cn[None] - 2.0 * xc, dim=-1)
 
 
-def train_pq(data: torch.Tensor, cfg: PQConfig,
-             generator: torch.Generator | None = None) -> PQCodebook:
+def train_pq(data: torch.Tensor, cfg: PQConfig) -> PQCodebook:
     """Lloyd's k-means per subspace (vectorised across all m subspaces)."""
     n = data.shape[0]
     dev = data.device
     x = data.float().reshape(n, cfg.m, cfg.dsub)
-    if generator is None:
-        generator = torch.Generator(dev).manual_seed(cfg.seed)
+    gen = torch.Generator().manual_seed(cfg.seed)
     if n < cfg.ksub:
-        init = torch.randint(0, n, (cfg.ksub,), generator=generator,
-                             device=dev)
+        init = torch.randint(0, n, (cfg.ksub,), generator=gen)
     else:
-        init = torch.randperm(n, generator=generator, device=dev)[:cfg.ksub]
-    cent = x[init].permute(1, 0, 2).contiguous()             # [m, ksub, dsub]
+        init = torch.randperm(n, generator=gen)[:cfg.ksub]
+    cent = x[init.to(dev)].permute(1, 0, 2).contiguous()    # [m, ksub, dsub]
     ar = torch.arange(cfg.m, device=dev)
+    rows = max(1, _ONEHOT_FLOATS // (cfg.m * cfg.ksub))
     for _ in range(cfg.kmeans_iters):
         codes = _assign(x, cent)                             # [N, m]
+        sums = torch.zeros((cfg.m, cfg.ksub, cfg.dsub), device=dev)
+        for lo in range(0, n, rows):
+            oh = torch.nn.functional.one_hot(
+                codes[lo:lo + rows], cfg.ksub).float()       # [rows, m, k]
+            sums += torch.einsum("nmk,nmd->mkd", oh, x[lo:lo + rows])
         flat = (ar[None, :] * cfg.ksub + codes).reshape(-1)  # [N*m]
-        sums = torch.zeros((cfg.m * cfg.ksub, cfg.dsub), device=dev)
-        sums.index_add_(0, flat, x.reshape(-1, cfg.dsub))
         cnts = torch.bincount(flat, minlength=cfg.m * cfg.ksub).float()
-        sums = sums.reshape(cfg.m, cfg.ksub, cfg.dsub)
         cnts = cnts.reshape(cfg.m, cfg.ksub)
         new = sums / cnts.clamp(min=1.0)[..., None]
         cent = torch.where((cnts > 0)[..., None], new, cent)  # keep empty

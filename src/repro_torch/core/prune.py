@@ -43,10 +43,10 @@ class FullPrecisionPrune(NamedTuple):
 
     def prune_rows(self, d_p, cand_ids, cand_ok, *, alpha, R, use_kernel
                    ) -> PruneResult:
-        vecs = self.table[cand_ids.clamp(min=0).long()].float()  # [B, C, d]
         out, cnt = ops.robust_prune_fp(
-            d_p.float().contiguous(), vecs, cand_ids.int().contiguous(),
-            cand_ok.contiguous(), alpha=alpha, R=R, use_kernel=use_kernel)
+            d_p.float().contiguous(), self.table.float().contiguous(),
+            cand_ids.int().contiguous(), cand_ok.contiguous(), alpha=alpha,
+            R=R, use_kernel=use_kernel)
         return PruneResult(out, cnt)
 
 

@@ -53,9 +53,20 @@ def _check(name: str, t: torch.Tensor, dtype, ndim: int, what: str):
                          f"{tuple(t.shape)}")
 
 
-def _launch(name: str, *args) -> None:
+# Each kernel's bound ctypes entry point, filled on its first launch: later
+# launches take one dict lookup (no import, no build lock, no getattr).
+_FNS: dict = {}
+
+
+def _resolve(name: str):
     from .build import library
-    fn = getattr(library(name), name)
+    return getattr(library(name), name)
+
+
+def _launch(name: str, *args) -> None:
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = _FNS[name] = _resolve(name)
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
@@ -63,7 +74,9 @@ def _launch(name: str, *args) -> None:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of ``t``'s device, read at
+    each call (a Python ``torch.cuda.Stream`` is not built for it)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -163,28 +176,31 @@ def frontier_select(cand_ids, cand_d, new_ids, new_d, vis_ids, vis_d,
     return m_ids, m_d, f_ids, f_d, ov_ids, ov_d, ov_cnt
 
 
-def robust_prune_fp(d_p: torch.Tensor, vecs: torch.Tensor, ids: torch.Tensor,
-                    ok: torch.Tensor, *, alpha: float, R: int,
-                    use_kernel: bool = True):
+def robust_prune_fp(d_p: torch.Tensor, table: torch.Tensor,
+                    ids: torch.Tensor, ok: torch.Tensor, *, alpha: float,
+                    R: int, use_kernel: bool = True):
     """RobustPrune rounds over a [B, C] block of rows (contract:
-    ``ref.robust_prune_fp_ref``): d_p [B, C] f32, vecs [B, C, d] f32,
-    ids [B, C] int32, ok [B, C] bool -> (out_ids [B, R] int32
-    INVALID-padded, counts [B] int32)."""
+    ``ref.robust_prune_fp_ref`` on the candidates' vectors
+    ``table[ids]``, ids < 0 read as row 0): d_p [B, C] f32, table [N, d]
+    f32 (the kernel gathers the rows), ids [B, C] int32, ok [B, C] bool ->
+    (out_ids [B, R] int32 INVALID-padded, counts [B] int32).  An id >= N
+    raises on the CPU and is undefined on the card."""
     name = "robust_prune_fp"
     _check(name, d_p, torch.float32, 2, "d_p")
-    _check(name, vecs, torch.float32, 3, "vecs")
+    _check(name, table, torch.float32, 2, "table")
     _check(name, ids, torch.int32, 2, "ids")
     _check(name, ok, torch.bool, 2, "ok")
     B, C = ids.shape
-    if d_p.shape != (B, C) or ok.shape != (B, C) or vecs.shape[:2] != (B, C):
+    if d_p.shape != (B, C) or ok.shape != (B, C):
         raise ValueError(f"{name}: mismatched operand shapes")
-    if not _on_cuda(name, (d_p, vecs, ids, ok), use_kernel):
+    if not _on_cuda(name, (d_p, table, ids, ok), use_kernel):
+        vecs = table[ids.clamp(min=0).long()]
         return ref.robust_prune_fp_ref(d_p, vecs, ids, ok, alpha=alpha, R=R)
     dev = ids.device
     out = torch.empty((B, R), dtype=torch.int32, device=dev)
     cnt = torch.empty((B,), dtype=torch.int32, device=dev)
-    _launch(name, _ptr(d_p), _ptr(vecs), _ptr(ids), _ptr(ok), _ptr(out),
-            _ptr(cnt), B, C, vecs.shape[2], R, float(alpha), _stream(ids))
+    _launch(name, _ptr(d_p), _ptr(table), _ptr(ids), _ptr(ok), _ptr(out),
+            _ptr(cnt), B, C, table.shape[1], R, float(alpha), _stream(ids))
     return out, cnt
 
 

@@ -134,9 +134,9 @@ def make_distributed_search(devices: Sequence, cfg: IndexConfig, *, k: int,
     rerank is what makes distances comparable across shards) and its local
     top-k, ids offset into the stacked point axis; the lead device gathers
     the n x k candidates of each query in shard order and keeps the k
-    smallest with one ``block_topk`` launch (the reference's stable
-    ``argsort``: the lower shard first among equal distances; a non-finite
-    candidate, already id -1 from ``topk_results``, stays -1).
+    smallest with one ``block_topk`` launch, or for k above its 128 with a
+    stable sort (either is the reference's stable ``argsort``: the lower
+    shard first among equal distances; a non-finite pick gives id -1).
     """
     L = L or cfg.L_search
     W = beam_width or cfg.beam_width
@@ -168,8 +168,14 @@ def make_distributed_search(devices: Sequence, cfg: IndexConfig, *, k: int,
         Q = queries.shape[0]
         flat_i = all_i.permute(1, 0, 2).reshape(Q, n * k)
         flat_d = all_d.permute(1, 0, 2).reshape(Q, n * k).contiguous()
-        cols = torch.arange(n * k, dtype=torch.int32, device=lead)
-        out_d, col = ops.block_topk(flat_d, cols, k)
+        if k <= ops.BLOCK_TOPK_MAX_K:
+            cols = torch.arange(n * k, dtype=torch.int32, device=lead)
+            out_d, col = ops.block_topk(flat_d, cols, k)
+        else:
+            out_d, col = torch.sort(flat_d, dim=1, stable=True)
+            out_d, col = out_d[:, :k], col[:, :k]
+            col = torch.where(torch.isfinite(out_d), col,
+                              torch.full_like(col, -1))
         out_i = torch.where(col >= 0,
                             flat_i.gather(1, col.clamp(min=0).long()),
                             torch.full_like(col, -1))

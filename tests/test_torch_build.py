@@ -262,6 +262,38 @@ def test_pq_matches_reference():
     assert t_err <= 1.15 * j_err
 
 
+@pytest.mark.parametrize("n", [300, 9])
+def test_train_pq_starts_from_a_cpu_draw(n):
+    """kmeans_iters=0 returns the initial centroids: the rows ``x[init]``
+    bit for bit, ``init`` drawn on a CPU generator seeded with
+    ``PQConfig.seed`` (randperm, or randint when n < ksub), whatever the
+    data's device."""
+    from repro_torch.core import pq as tpq
+    x = torch.from_numpy(_points("gaussian", n, seed=8))
+    cfg = PQConfig(dim=D, m=4, ksub=16, kmeans_iters=0, seed=7)
+    gen = torch.Generator().manual_seed(7)
+    init = (torch.randperm(n, generator=gen)[:16] if n >= 16
+            else torch.randint(0, n, (16,), generator=gen))
+    want = x.reshape(n, 4, D // 4)[init].permute(1, 0, 2)
+    assert torch.equal(tpq.train_pq(x, cfg).centroids, want)
+
+
+def test_train_pq_chunked_sums_are_exact(monkeypatch):
+    """The one-hot cluster sums in row chunks equal one whole contraction
+    on integer data (every sum exact), and two trainings give equal
+    bits."""
+    from repro_torch.core import pq as tpq
+    x = torch.from_numpy(_points("integer", 500, seed=9))
+    cfg = PQConfig(dim=D, m=4, ksub=16, kmeans_iters=4)
+    whole = tpq.train_pq(x, cfg).centroids
+    monkeypatch.setattr(tpq, "_ONEHOT_FLOATS", 64 * 77)   # 77-row chunks
+    chunked = tpq.train_pq(x, cfg).centroids
+    assert torch.equal(chunked, whole)
+    assert torch.equal(tpq.train_pq(x, cfg).centroids, chunked)
+    assert not torch.equal(whole, tpq.train_pq(
+        x, PQConfig(dim=D, m=4, ksub=16, kmeans_iters=0)).centroids)
+
+
 def test_search_tiers_matches_per_tier_search(built):
     """search_tiers over stacked graphs (one padded to the larger capacity)
     equals search on each tier alone."""

@@ -89,20 +89,56 @@ def test_frontier_select_bit_identical(dev, L, K, V, W):
 
 
 @pytest.mark.parametrize("B,C,d,R", [(16, 203, 128, 64), (8, 128, 128, 64),
-                                     (4, 9, 5, 16)])
+                                     (4, 9, 5, 16), (6, 640, 128, 64),
+                                     (2, 9000, 7, 16), (3, 300, 260, 32)])
 def test_robust_prune_fp_exact_on_integers(dev, B, C, d, R):
+    """The kernel gathers its rows from the table: equal to the plain
+    version at the main path's two shapes, at small d, on the tiled path
+    (C 640 at d 128 and C 9,000 at d 7 do not fit in shared memory; the
+    rest of their rows is read from device memory every round) and at a
+    d past the register-held winner (d 260)."""
     g = np.random.default_rng(C)
-    vecs = g.integers(-3, 4, (B, C, d)).astype(np.float32)
+    N = 4 * B * C
+    table = g.integers(-3, 4, (N, d)).astype(np.float32)
     anchor = g.integers(-3, 4, (B, 1, d)).astype(np.float32)
-    ids = g.integers(0, 10_000, (B, C)).astype(np.int32)
+    ids = g.integers(0, N, (B, C)).astype(np.int32)
+    ids[:, C // 2:C // 2 + C // 8] = ids[:, :C // 8]       # duplicates
     ids[g.random((B, C)) < 0.1] = -1
     ok = (ids >= 0) & (g.random((B, C)) > 0.2)
     ok[0] = False
-    d_p = ((anchor - vecs) ** 2).sum(-1).astype(np.float32)
-    args = [_t(x, dev) for x in (d_p, vecs, ids, ok)]
+    d_p = ((anchor - table[np.maximum(ids, 0)]) ** 2).sum(-1).astype(
+        np.float32)
+    args = [_t(x, dev) for x in (d_p, table, ids, ok)]
     go, gc = ops.robust_prune_fp(*args, alpha=1.2, R=R)
-    wo, wc = ref.robust_prune_fp_ref(*args, alpha=1.2, R=R)
+    wo, wc = ref.robust_prune_fp_ref(args[0], args[1][args[2].clamp(
+        min=0).long()], *args[2:], alpha=1.2, R=R)
     assert torch.equal(go, wo) and torch.equal(gc, wc)
+    assert int(gc[1:].min()) > 0
+
+
+def test_train_pq_deterministic_on_card(dev):
+    """The cluster sums are a one-hot contraction in a fixed order: two
+    trainings on the card give equal bits."""
+    from repro_torch.core import pq as pqm
+    from repro_torch.core.config import PQConfig
+    g = np.random.default_rng(3)
+    x = _t(g.standard_normal((20000, 64)).astype(np.float32), dev)
+    cfg = PQConfig(dim=64, m=16, ksub=256, kmeans_iters=6)
+    assert torch.equal(pqm.train_pq(x, cfg).centroids,
+                       pqm.train_pq(x, cfg).centroids)
+
+
+@pytest.mark.parametrize("n", [20000, 100])
+def test_train_pq_same_start_on_cpu_and_card(dev, n):
+    """The initial centroids are drawn on a CPU generator: with
+    kmeans_iters=0 the card returns the CPU's centroids."""
+    from repro_torch.core import pq as pqm
+    from repro_torch.core.config import PQConfig
+    g = np.random.default_rng(4)
+    x = g.standard_normal((n, 64)).astype(np.float32)
+    cfg = PQConfig(dim=64, m=16, ksub=256, kmeans_iters=0, seed=5)
+    assert torch.equal(pqm.train_pq(_t(x, dev), cfg).centroids.cpu(),
+                       pqm.train_pq(torch.from_numpy(x), cfg).centroids)
 
 
 @pytest.mark.parametrize("B,C,m,ksub,R", [(16, 203, 32, 256, 64),

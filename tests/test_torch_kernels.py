@@ -166,17 +166,32 @@ def test_frontier_select_few_open_and_full_visited():
     assert (f_ids[1] == -1).all() and int(got[6][1]) == V
 
 
-def _prune_rows(seed, B, C, d, kind):
+def _prune_rows(seed, B, C, d, kind, N=None):
+    """(d_p, table, ids, ok): candidate ids into a table [N, d], with
+    duplicates within each row, ids < 0 and masked lanes, and an all-masked
+    row 0; the anchor distances are exact ones to a random anchor."""
     g = np.random.default_rng(seed)
-    vecs = _vals(g, kind, (B, C, d), -3, 4)
+    N = N or 2 * B * C
+    table = _vals(g, kind, (N, d), -3, 4)
     anchor = _vals(g, kind, (B, 1, d), -3, 4)
-    ids = g.permutation(10_000)[:B * C].reshape(B, C).astype(np.int32)
+    ids = g.permutation(N)[:B * C].reshape(B, C).astype(np.int32)
     ids[:, C // 2:] = ids[:, :C - C // 2]                 # duplicates
     ids[g.random((B, C)) < 0.1] = -1
     ok = (ids >= 0) & (g.random((B, C)) > 0.2)
     ok[0] = False                                          # all-inf row
-    d_p = ((anchor - vecs) ** 2).sum(-1).astype(np.float32)
-    return d_p, vecs, ids, ok
+    d_p = ((anchor - table[np.maximum(ids, 0)]) ** 2).sum(-1).astype(
+        np.float32)
+    return d_p, table, ids, ok
+
+
+def _jax_prune(d_p, table, ids, ok, alpha, R):
+    """The reference's Pallas kernel on the gathered rows (ids < 0 read
+    row 0, as the port's wrapper does; those lanes are masked)."""
+    vecs = table[np.maximum(ids, 0)]
+    w_ids, w_cnt = jops.robust_prune_fp(
+        *[jnp.asarray(a) for a in (d_p, vecs, ids, ok)], alpha=alpha, R=R,
+        use_kernel=True)
+    return np.asarray(w_ids), np.asarray(w_cnt)
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -184,14 +199,83 @@ def _prune_rows(seed, B, C, d, kind):
 @pytest.mark.parametrize("B,C,d,R", [(3, 40, 16, 8), (2, 67, 24, 12),
                                      (4, 7, 8, 16)])
 def test_robust_prune_fp_matches_jax_kernel(kind, alpha, B, C, d, R):
+    """The wrapper takes the table and the ids (the kernel gathers the
+    rows); on CPU tensors its plain version equals the Pallas kernel."""
     args = _prune_rows(C + R, B, C, d, kind)
-    w_ids, w_cnt = jops.robust_prune_fp(*[jnp.asarray(a) for a in args],
-                                        alpha=alpha, R=R, use_kernel=True)
+    w_ids, w_cnt = _jax_prune(*args, alpha, R)
     g_ids, g_cnt = ops.robust_prune_fp(*[torch.from_numpy(a) for a in args],
                                        alpha=alpha, R=R)
-    np.testing.assert_array_equal(np.asarray(w_ids), g_ids.numpy())
-    np.testing.assert_array_equal(np.asarray(w_cnt), g_cnt.numpy())
+    np.testing.assert_array_equal(w_ids, g_ids.numpy())
+    np.testing.assert_array_equal(w_cnt, g_cnt.numpy())
     assert (g_ids.numpy()[0] == -1).all() and int(g_cnt[0]) == 0
+
+
+def _emulate_prune_fp(d_p, table, ids, ok, *, alpha, R, n_res):
+    """The robust_prune_fp kernel's walk, one block per row, in torch: the
+    first ``n_res`` alive candidates' rows are staged once (rows never
+    staged read as NaN, so a stray read shows), the rest are read from the
+    table in every round; 8-lane groups own the columns c = grp + 32 i for
+    the whole kernel and keep their least surviving (key, column) while
+    they retire what the winner covers, and the block's least of those is
+    the next round's winner."""
+    groups = 32
+    B, C = ids.shape
+    out = torch.full((B, R), -1, dtype=torch.int32)
+    cnt = torch.zeros(B, dtype=torch.int32)
+    inf = float("inf")
+    for b in range(B):
+        key = [float(v) if bool(o) and np.isfinite(float(v)) else inf
+               for v, o in zip(d_p[b], ok[b])]
+        sid = [int(i) for i in ids[b]]
+        rows = table[ids[b].clamp(min=0).long()].clone()
+        for c in range(min(n_res, C)):
+            if key[c] == inf:
+                rows[c] = float("nan")            # never staged
+        best = min((key[c], c) for c in range(C)) if C else (inf, C)
+        for r in range(R):
+            if not best[0] < inf:
+                break
+            star = best[1]
+            out[b, r] = sid[star]
+            cnt[b] += 1
+            cover = ((rows[star][None] - rows) ** 2).sum(-1)
+            survivors = []
+            for g in range(groups):
+                mine = (inf, C)
+                for c in range(g, C, groups):
+                    if key[c] == inf:
+                        continue
+                    if c == star or alpha * float(cover[c]) <= key[c]:
+                        key[c] = inf
+                    else:
+                        mine = min(mine, (key[c], c))
+                survivors.append(mine)
+            best = min(survivors)
+    return out, cnt
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("B,C,d,R,n_res,alpha", [
+    (3, 70, 16, 12, 70, 1.2),       # every row resident
+    (3, 70, 16, 6, 23, 1.2),        # tiled: 23 resident, 47 read each round
+    (2, 45, 7, 16, 0, 1.2),         # nothing resident; d not a multiple of 4
+    (2, 100, 36, 40, 64, 1.2),      # more rounds than survivors
+    (3, 60, 4, 30, 60, 1.0)])       # d 4, alpha 1
+def test_robust_prune_fp_kernel_walk_matches_contract(kind, B, C, d, R,
+                                                      n_res, alpha):
+    """The kernel's resident and tiled candidate split, its group-owned
+    columns and the argmin folded into the cover pass (emulated in torch)
+    give the contract's rows: equal on integer inputs, and on Gaussian ones
+    too at these sizes (no cover test falls within the two sum orders'
+    rounding); at R 6 the rounds run out before the candidates do."""
+    args = [torch.from_numpy(a) for a in _prune_rows(C * d, B, C, d, kind)]
+    want = ref.robust_prune_fp_ref(args[0], args[1][args[2].clamp(
+        min=0).long()], args[2], args[3], alpha=alpha, R=R)
+    got = _emulate_prune_fp(*args, alpha=alpha, R=R, n_res=n_res)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(want[1][1:].min()) > 0
+    if R == 6:
+        assert int(want[1].max()) == R
 
 
 def _topk_jax(d, ids, k):
@@ -339,3 +423,47 @@ def test_single_row_forms_match_batched():
     want = l2_sq(vecs[7][None], vecs[ids.clamp(min=0).long()])
     assert torch.equal(got[[0, 2, 3]], want[[0, 2, 3]])
     assert got[1] == float("inf")
+
+
+def test_launch_resolves_each_kernel_once(monkeypatch):
+    """``_launch`` binds a kernel's C entry point on its first launch and
+    then takes it from ``ops._FNS``; a nonzero return code still raises and
+    is not counted."""
+    calls = []
+    codes = {"l2_rows": 0, "adc_rows": 719}
+
+    def resolve(name):
+        calls.append(name)
+        return lambda *args: codes[name]
+
+    monkeypatch.setattr(ops, "_FNS", {})
+    monkeypatch.setattr(ops, "_resolve", resolve)
+    monkeypatch.setattr(ops, "LAUNCHES", dict.fromkeys(ops.LAUNCHES, 0))
+    for _ in range(3):
+        ops._launch("l2_rows", 1, 2, 3)
+    assert calls == ["l2_rows"] and ops.LAUNCHES["l2_rows"] == 3
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="error 719"):
+            ops._launch("adc_rows", 4)
+    assert calls == ["l2_rows", "adc_rows"] and ops.LAUNCHES["adc_rows"] == 0
+
+
+def test_wrappers_check_devices_and_prune_operands():
+    """The device check refuses mixed and unsupported devices, and the
+    prune wrapper its table's dtype, rank and the block's
+    shapes."""
+    d_p, table, ids, ok = (torch.from_numpy(a) for a in _prune_rows(
+        1, 2, 6, 4, "integer"))
+    meta = torch.empty((2, 8), device="meta")
+    with pytest.raises(ValueError, match="several devices"):
+        ops.l2_rows(torch.zeros((2, 8)), meta,
+                    torch.zeros((2, 3), dtype=torch.int32))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.l2_rows(meta, meta, torch.zeros((2, 3), dtype=torch.int32,
+                                            device="meta"))
+    with pytest.raises(TypeError):
+        ops.robust_prune_fp(d_p, table.double(), ids, ok, alpha=1.2, R=3)
+    with pytest.raises(ValueError):
+        ops.robust_prune_fp(d_p, table[None], ids, ok, alpha=1.2, R=3)
+    with pytest.raises(ValueError, match="mismatched"):
+        ops.robust_prune_fp(d_p[:, :5], table, ids, ok, alpha=1.2, R=3)
