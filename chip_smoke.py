@@ -12,12 +12,14 @@ Phases:
            and Gaussian ones (stated tolerance), and time kernel (CUDA
            events, host us per call, torch.profiler device ms), plain
            version and, where one PyTorch call computes the same function,
-           that call (``robust_prune_fp`` also at C 640, its tiled path;
+           that call (``frontier_select`` also on unsorted candidate
+           lists; ``robust_prune_fp`` also at C 640, its tiled path;
            ``gather_rows``' host path broken down by part; the two
            delete-repair kernels and ``gather_rows``
            are held against their plain versions after the main path, on
-           its merged graph; ``block_topk`` at the cross-shard merge's
-           shapes, with ties, +-inf and a NaN row);
+           its merged graph, the repairs on a block of affected nodes and
+           on a block of consecutive slots; ``block_topk`` at the
+           cross-shard merge's shapes, with ties, +-inf and a NaN row);
   parity   small systems on the CPU (plain versions) and on the card
            (kernels) from integer data, through threshold merges (local and
            global Delete phases, arrival and locality order),
@@ -274,11 +276,14 @@ def gpu_identity() -> str:
 
 
 # --------------------------------------------------------------- phase 2
-def _frontier_inputs(g, B, L, K, V, W, integer: bool, dev):
+def _frontier_inputs(g, B, L, K, V, W, integer: bool, dev,
+                     shuffled: bool = False):
     """Engine-consistent frontier_select rows: a sorted candidate list with
     an INVALID tail, fresh neighbours with masked lanes, a visited set
     drawn from the candidates with vis_cnt == occupancy.  ``integer``
-    draws distances from a few small integers, so ties are everywhere."""
+    draws distances from a few small integers, so ties are everywhere;
+    ``shuffled`` puts each candidate list in a random order (the contract
+    does not need it sorted)."""
     import torch
     rows = []
     for _ in range(4):                      # 4 templates tiled over B rows
@@ -301,6 +306,9 @@ def _frontier_inputs(g, B, L, K, V, W, integer: bool, dev):
         taken = g.permutation(ncand)[:nvis]
         vi[:nvis] = ci[taken]
         vd[:nvis] = cd[taken]
+        if shuffled:
+            perm = g.permutation(L)
+            ci, cd = ci[perm], cd[perm]
         rows.append((ci, cd, ni, nd, vi, vd, np.int32(nvis)))
     reps = -(-B // 4)
     cols = [np.stack([r[i] for r in rows] * reps)[:B] for i in range(7)]
@@ -455,22 +463,26 @@ def phase_kernels(seed: int, n_table: int) -> dict:
 
     # ---- frontier_select: B 1024, L 100, K 256, V 166, W 4 --------------
     B, L, K, V, W = 1024, 100, 256, 166, 4
-    for integer in (True, False):
-        args = _frontier_inputs(g, B, L, K, V, W, integer, dev)
-        got = ops.frontier_select(*args, W=W, max_visits=V)
-        want = ref.frontier_select_batch_ref(*args, W=W, max_visits=V)
-        for gt, wt, nm in zip(got, want, ["m_ids", "m_d", "f_ids", "f_d",
-                                          "vis_ids", "vis_d", "vis_cnt"]):
-            check(gt.dtype == wt.dtype and torch.equal(gt, wt),
-                  f"frontier_select ({'integer' if integer else 'uniform'}"
-                  f" distances): {nm} differs")
+    for shuffled in (True, False):
+        for integer in (True, False):
+            args = _frontier_inputs(g, B, L, K, V, W, integer, dev, shuffled)
+            got = ops.frontier_select(*args, W=W, max_visits=V)
+            want = ref.frontier_select_batch_ref(*args, W=W, max_visits=V)
+            for gt, wt, nm in zip(got, want, ["m_ids", "m_d", "f_ids", "f_d",
+                                              "vis_ids", "vis_d",
+                                              "vis_cnt"]):
+                check(gt.dtype == wt.dtype and torch.equal(gt, wt),
+                      f"frontier_select ({'integer' if integer else 'uniform'}"
+                      f" distances, {'unsorted' if shuffled else 'sorted'} "
+                      f"list): {nm} differs")
     t = launch_times(lambda: ops.frontier_select(*args, W=W, max_visits=V))
     plain = time_ms(lambda: ref.frontier_select_batch_ref(
         *args, W=W, max_visits=V))
     nbytes = B * ((2 * (L + K) + 2 * V + 1) * 4
                   + (2 * L + 2 * W + 2 * V + 1) * 4)
     log(f"[kernels] frontier_select B={B} L={L} K={K} V={V} W={W}: "
-        f"bit-identical  kernel {_fmt_times(t)}  plain {plain:.4f} ms")
+        f"bit-identical (integer and uniform distances, sorted and unsorted "
+        f"lists)  kernel {_fmt_times(t)}  plain {plain:.4f} ms")
     record("frontier_select", err=0.0, times=t, plain_ms=plain, nbytes=nbytes,
            nflops=0.0, library_ms=None, shape=f"B={B} L={L} K={K} V={V} W={W}")
 
@@ -1113,8 +1125,9 @@ def repair_kernel_records(lti, seed: int, B: int = 1024) -> dict:
     nodes (the local sweep's; every node is repaired).  Integer inputs
     (an integer table, integer SDC tables) must give equal rows; on the
     real inputs (the PQ-decoded table, the codebook's SDC tables) the
-    share of differing rows is reported.  Also times a block of
-    consecutive slots (the global sweep's)."""
+    share of differing rows is reported.  Also a block of consecutive
+    slots (the global sweep's: most of its slots leave at once): equal
+    rows on integer inputs, its time and its bound."""
     import torch
     from repro_torch.core import pq as pqm
     from repro_torch.core.config import PQConfig
@@ -1181,8 +1194,19 @@ def repair_kernel_records(lti, seed: int, B: int = 1024) -> dict:
         check(n_diff <= 0.01 * B, f"{name}: {n_diff} of {B} rows differ")
         t = launch_times(lambda: fn(adj, deleted, usable, *args_real, ids,
                                     **kw))
+        got = fn(adj, deleted, usable, *args_int, block, **kw)
+        want = plain(*form(adj, deleted, usable, *args_int, block),
+                     alpha=alpha, R=R)
+        check(torch.equal(got, want),
+              f"{name}: integer inputs differ (consecutive block)")
         ms_block = time_ms(lambda: fn(adj, deleted, usable, *args_real,
                                       block, **kw))
+        ops_block = form(adj, deleted, usable, *args_real, block)
+        nb_block, nf_block = footprint(ops_block, payload_bytes, cover, fpe)
+        if "sdc" in name:
+            nb_block += m * ksub * ksub * 4
+        del ops_block
+        bnd_block = bound_ms(nb_block, nf_block)
         plain_ms = time_ms(lambda: plain(*form(adj, deleted, usable,
                                                *args_real, ids),
                                          alpha=alpha, R=R), iters=2,
@@ -1198,13 +1222,14 @@ def repair_kernel_records(lti, seed: int, B: int = 1024) -> dict:
             f"block): integer equal, {n_diff} of {B} real-input rows differ"
             f"  kernel {_fmt_times(t)}  plain {plain_ms:.4f} ms  bound "
             f"{bnd[0]:.4f} ms ({bnd[1]}); a block of consecutive slots "
-            f"{ms_block:.4f} ms")
+            f"(integer equal) {ms_block:.4f} ms, bound {bnd_block[0]:.4f} ms "
+            f"({bnd_block[1]})")
         recs[name] = kernel_record(
             name, err=0.0, times=t, plain_ms=plain_ms, nbytes=nbytes,
             nflops=nflops, library_ms=None,
             shape=f"B={B} R={R} C={C} affected block, 1 % deleted; "
             f"real-input rows differing {n_diff}/{B}; consecutive block "
-            f"{ms_block:.4f} ms")
+            f"{ms_block:.4f} ms, bound {bnd_block[0]:.4f} ms")
     return recs
 
 

@@ -14,6 +14,8 @@ and do not synchronise.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import ref
@@ -128,6 +130,26 @@ def adc_rows(luts: torch.Tensor, codes: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+_FRONTIER_OPERANDS = (
+    ("cand_ids", torch.int32, 2), ("cand_d", torch.float32, 2),
+    ("new_ids", torch.int32, 2), ("new_d", torch.float32, 2),
+    ("vis_ids", torch.int32, 2), ("vis_d", torch.float32, 2),
+    ("vis_cnt", torch.int32, 1))
+@functools.lru_cache(maxsize=64)
+def _frontier_layout(B: int, L: int, W: int, V: int):
+    """The seven outputs of ``frontier_select`` as (shape, stride, offset,
+    is_float) views of one int32 buffer, each starting 16-byte aligned,
+    and the buffer's length."""
+    views, off = [], 0
+    for cols, is_float in ((L, False), (L, True), (W, False), (W, True),
+                           (V, False), (V, True), (None, False)):
+        shape, stride = ((B,), (1,)) if cols is None else ((B, cols),
+                                                           (cols, 1))
+        views.append((shape, stride, off, is_float))
+        off += -(-B * (cols or 1) // 4) * 4
+    return tuple(views), off
+
+
 def frontier_select(cand_ids, cand_d, new_ids, new_d, vis_ids, vis_d,
                     vis_cnt, *, W: int, max_visits: int | None = None,
                     use_kernel: bool = True):
@@ -135,16 +157,13 @@ def frontier_select(cand_ids, cand_d, new_ids, new_d, vis_ids, vis_d,
     ``ref.frontier_select_batch_ref``).  ids int32, distances f32:
     cand [B, L], new [B, K], vis [B, V], vis_cnt [B] int32 -> (m_ids,
     m_d [B, L], f_ids, f_d [B, W], vis_ids', vis_d' [B, V], vis_cnt' [B]).
-    ``vis_cnt`` must equal the number of valid ids in ``vis_ids``."""
+    ``vis_cnt`` must equal the number of valid ids in ``vis_ids``.  On the
+    card the seven outputs are views of one buffer (one allocation)."""
     name = "frontier_select"
-    for t, dt, nd, what in ((cand_ids, torch.int32, 2, "cand_ids"),
-                            (cand_d, torch.float32, 2, "cand_d"),
-                            (new_ids, torch.int32, 2, "new_ids"),
-                            (new_d, torch.float32, 2, "new_d"),
-                            (vis_ids, torch.int32, 2, "vis_ids"),
-                            (vis_d, torch.float32, 2, "vis_d"),
-                            (vis_cnt, torch.int32, 1, "vis_cnt")):
-        _check(name, t, dt, nd, what)
+    ins = (cand_ids, cand_d, new_ids, new_d, vis_ids, vis_d, vis_cnt)
+    for t, (what, dt, nd) in zip(ins, _FRONTIER_OPERANDS):
+        if t.dtype != dt or t.dim() != nd:
+            _check(name, t, dt, nd, what)
     B, L = cand_ids.shape
     K = new_ids.shape[1]
     V = vis_ids.shape[1]
@@ -156,24 +175,20 @@ def frontier_select(cand_ids, cand_d, new_ids, new_d, vis_ids, vis_d,
         raise ValueError(f"{name}: need 1 <= W <= L, got W={W}, L={L}")
     if max_visits is None:
         max_visits = V
-    if not _on_cuda(name, (cand_ids, cand_d, new_ids, new_d, vis_ids, vis_d,
-                           vis_cnt), use_kernel):
+    if not _on_cuda(name, ins, use_kernel):
         return ref.frontier_select_batch_ref(
             cand_ids, cand_d, new_ids, new_d, vis_ids, vis_d, vis_cnt,
             W=W, max_visits=max_visits)
-    dev = cand_ids.device
-    m_ids = torch.empty((B, L), dtype=torch.int32, device=dev)
-    m_d = torch.empty((B, L), dtype=torch.float32, device=dev)
-    f_ids = torch.empty((B, W), dtype=torch.int32, device=dev)
-    f_d = torch.empty((B, W), dtype=torch.float32, device=dev)
-    ov_ids = torch.empty((B, V), dtype=torch.int32, device=dev)
-    ov_d = torch.empty((B, V), dtype=torch.float32, device=dev)
-    ov_cnt = torch.empty((B,), dtype=torch.int32, device=dev)
-    _launch(name, *(_ptr(t) for t in (cand_ids, cand_d, new_ids, new_d,
-                                      vis_ids, vis_d, vis_cnt, m_ids, m_d,
-                                      f_ids, f_d, ov_ids, ov_d, ov_cnt)),
+    views, n = _frontier_layout(B, L, W, V)
+    buf = torch.empty(n, dtype=torch.int32, device=cand_ids.device)
+    fbuf = buf.view(torch.float32)
+    outs = tuple((fbuf if f else buf).as_strided(shape, stride, off)
+                 for shape, stride, off, f in views)
+    base = buf.data_ptr()
+    _launch(name, *(_ptr(t) for t in ins),
+            *(base + 4 * off for _, _, off, _ in views),
             B, L, K, V, W, int(max_visits), _stream(cand_ids))
-    return m_ids, m_d, f_ids, f_d, ov_ids, ov_d, ov_cnt
+    return outs
 
 
 def robust_prune_fp(d_p: torch.Tensor, table: torch.Tensor,

@@ -57,11 +57,17 @@ def test_adc_rows_exact_on_integers(dev, m, ksub):
                        ref.adc_rows_ref(luts, codes, ids))
 
 
-@pytest.mark.parametrize("L,K,V,W", [(16, 24, 30, 4), (100, 256, 166, 4),
-                                     (75, 64, 128, 1)])
-def test_frontier_select_bit_identical(dev, L, K, V, W):
-    g = np.random.default_rng(L + K)
-    B = 64
+@pytest.mark.parametrize("B,L,K,V,W,order", [
+    (64, 16, 24, 30, 4, "sorted"), (64, 100, 256, 166, 4, "sorted"),
+    (64, 75, 64, 128, 1, "sorted"), (1024, 100, 256, 166, 4, "sorted"),
+    (1024, 100, 256, 166, 4, "unsorted"), (64, 16, 24, 30, 4, "unsorted"),
+    (8, 140, 300, 200, 16, "unsorted")])
+def test_frontier_select_bit_identical(dev, B, L, K, V, W, order):
+    """Equal to the plain version bit for bit, the main path's shape B 1024
+    x L 100 x K 256 x V 166 x W 4 included; "unsorted" shuffles each
+    candidate list, +inf gaps and all (the kernel ranks, it does not
+    merge sorted runs); the last case takes two rank and scan passes."""
+    g = np.random.default_rng(L + K + B)
     cand_d = np.sort(g.integers(0, 6, (B, L)).astype(np.float32), 1)
     cand_i = g.permutation(B * L).reshape(B, L).astype(np.int32)
     ninv = g.integers(0, L, B)
@@ -80,6 +86,10 @@ def test_frontier_select_bit_identical(dev, L, K, V, W):
         vis_i[b, :nv] = cand_i[b, :nv]
         vis_d[b, :nv] = cand_d[b, :nv]
         cnt[b] = nv
+    if order == "unsorted":
+        perm = np.argsort(g.random((B, L)), 1)
+        cand_i = np.take_along_axis(cand_i, perm, 1)
+        cand_d = np.take_along_axis(cand_d, perm, 1)
     args = [_t(x, dev) for x in (cand_i, cand_d, new_i, new_d, vis_i, vis_d,
                                  cnt)]
     got = ops.frontier_select(*args, W=W, max_visits=V)
@@ -173,19 +183,48 @@ def _repair_graph(g, N, R, frac_deleted):
     return adj, deleted, usable
 
 
-@pytest.mark.parametrize("R,d", [(64, 128), (8, 7)])
+def _repair_cases(adj, deleted, usable, g):
+    """Nodes 1-3 of the fp repair fixture: node 1 with no deleted
+    neighbour, node 2 not usable with a deleted one, node 3 repaired with
+    no candidate left after compaction (its one deleted neighbour's row
+    names only node 3)."""
+    N = adj.shape[0]
+    q = N - 1
+    adj[3] = -1
+    adj[3, 5] = q
+    adj[q] = -1
+    adj[q, :2] = 3
+    deleted[q] = True
+    deleted[1:4] = False
+    usable[[1, 3]] = True
+    usable[2] = False
+    adj[2, 0] = q
+    live = np.flatnonzero(~deleted)
+    adj[1] = g.choice(live[live > 3], adj.shape[1])
+
+
+@pytest.mark.parametrize("R,d", [(64, 128), (8, 7), (64, 260)])
 def test_delete_repair_fp_exact_on_integers(dev, R, d):
+    """Equal to the plain version on integer inputs: node 0's widest list
+    (every neighbour deleted; past the resident rows at R 64, so its other
+    rows are read from device memory), a node with no deleted neighbour,
+    one that is not usable, one left with no candidate, and random nodes;
+    d 260 takes the generic path."""
     g = np.random.default_rng(R + d)
     N, B = 3000, 96
     adj, deleted, usable = _repair_graph(g, N, R, 0.05)
+    _repair_cases(adj, deleted, usable, g)
     table = g.integers(-3, 4, (N, d)).astype(np.float32)
-    node_ids = np.concatenate([[0], g.integers(0, N, B - 1)]).astype(np.int32)
+    node_ids = np.concatenate([[0, 1, 2, 3],
+                               g.integers(0, N, B - 4)]).astype(np.int32)
     args = [_t(x, dev) for x in (adj, deleted, usable, table, node_ids)]
     got = ops.delete_repair_fp(*args, alpha=1.2, R=R)
     want = ref.delete_repair_fp_ref(*ref.repair_operands_fp(*args),
                                     alpha=1.2, R=R)
     assert torch.equal(got, want)
     assert not torch.equal(got[0], args[0][0])           # node 0 repaired
+    assert torch.equal(got[1:3], args[0][1:3])           # kept rows
+    assert (got[3] == -1).all()                          # nothing survived
 
 
 @pytest.mark.parametrize("R,m,ksub,cap", [(64, 32, 256, 8), (8, 4, 16, 3)])

@@ -166,6 +166,172 @@ def test_frontier_select_few_open_and_full_visited():
     assert (f_ids[1] == -1).all() and int(got[6][1]) == V
 
 
+FS_THREADS = 128                # frontier_select.cu's kThreads
+
+
+def _sort_key(d: float, pos: int) -> int:
+    """frontier_select.cu's ``sort_key``: the distance's bits in unsigned
+    order (-0 as +0) above the position."""
+    u = 0 if d == 0 else int(np.float32(d).view(np.uint32))
+    u = (~u & 0xFFFFFFFF) if u & 0x80000000 else (u | 0x80000000)
+    return (u << 32) | pos
+
+
+def _emulate_frontier_select(cand_ids, cand_d, new_ids, new_d, vis_ids,
+                             vis_d, vis_cnt, *, W, max_visits):
+    """frontier_select.cu's steps for each row, in numpy: warp w compacts
+    the lanes below +inf of its 32-lane chunks (w, w + 4, ...) into its
+    own segment of slots; each kept entry's rank is the count of kept keys
+    below it (entry e found at its slot as the kernel computes it), and
+    ranks < L are scattered, the rest of the merged list
+    filled with (-1, +inf); warps test the open mask on 32 merged entries
+    each (lanes striding over the visited set, a vote), a block scan of the
+    warps' ballots ranks the open entries (carried over passes of 128), and
+    the first ``allowed`` are the frontier and the visited append.  Outputs
+    start as garbage, so an entry the kernel would not write shows."""
+    warps = FS_THREADS // 32
+    B, L = cand_ids.shape
+    M = L + new_ids.shape[1]
+    V = vis_ids.shape[1]
+    nch = -(-M // 32)
+    seg = -(-nch // warps) * 32
+    m_ids = np.full((B, L), 7777, np.int32)
+    m_d = np.full((B, L), np.nan, np.float32)
+    f_ids = np.full((B, W), 7777, np.int32)
+    f_d = np.full((B, W), np.nan, np.float32)
+    ov_ids = np.full((B, V), 7777, np.int32)
+    ov_d = np.full((B, V), np.nan, np.float32)
+    ov_cnt = np.full(B, 7777, np.int32)
+    for b in range(B):
+        ids = np.concatenate([cand_ids[b], new_ids[b]])
+        d = np.concatenate([cand_d[b], new_d[b]])
+        slots = {}                                   # slot -> lane
+        for w in range(warps):
+            n_w = 0
+            for ch in range(w, nch, warps):
+                lanes = [i for i in range(ch * 32, min(ch * 32 + 32, M))
+                         if d[i] < np.inf]           # ballot; popc offsets
+                for j, i in enumerate(lanes):
+                    slots[w * seg + n_w + j] = i
+                n_w += len(lanes)
+            assert n_w <= seg
+        # Kept entry e (in segment order) sits at slot e plus the unused
+        # slots of the segments before its own.
+        w_n = [sum(1 for s_ in slots if s_ // seg == w) for w in range(warps)]
+        pre = np.cumsum([0] + w_n)
+        lanes = [slots[e + sum(seg - w_n[w - 1] for w in range(1, warps)
+                               if e >= pre[w])] for e in range(len(slots))]
+        keys = np.array([_sort_key(d[i], i) for i in lanes], dtype=np.uint64)
+        rank = (keys[None, :] < keys[:, None]).sum(1)
+        mid = np.full(L, 7777, np.int32)
+        md = np.full(L, np.nan, np.float32)
+        for r, i in zip(rank, lanes):
+            if r < L:
+                mid[r] = ids[i] if np.isfinite(d[i]) else -1
+                md[r] = d[i]
+        n_kept = len(slots)
+        m_ids[b], m_d[b] = mid, md
+        m_ids[b, n_kept:], m_d[b, n_kept:] = -1, np.inf
+        n_m = min(n_kept, L)
+        cnt0 = int(vis_cnt[b])
+        allowed = min(W, max_visits - cnt0)
+        carry = 0
+        for base in range(0, n_m, FS_THREADS):
+            opens = []
+            for w in range(warps):
+                e0 = base + 32 * w
+                flags = [False] * 32
+                for j in range(min(32, max(n_m - e0, 0))):
+                    idj = mid[e0 + j]
+                    seen = idj >= 0 and any(
+                        (vis_ids[b, lane::32] == idj).any()
+                        for lane in range(32))           # __any_sync
+                    flags[j] = bool(idj >= 0 and not seen)
+                opens.append(flags)
+            totals = [sum(f) for f in opens]
+            for w in range(warps):
+                before = carry + sum(totals[:w])
+                for lane, is_open in enumerate(opens[w]):
+                    r = before + sum(opens[w][:lane])
+                    if is_open and r < allowed:
+                        e = base + 32 * w + lane
+                        f_ids[b, r], f_d[b, r] = mid[e], md[e]
+                        if 0 <= cnt0 + r < V:
+                            ov_ids[b, cnt0 + r] = mid[e]
+                            ov_d[b, cnt0 + r] = md[e]
+            carry += sum(totals)
+        n_take = max(0, min(carry, allowed))
+        f_ids[b, n_take:], f_d[b, n_take:] = -1, np.inf
+        for v in range(V):
+            if not 0 <= v - cnt0 < n_take:
+                ov_ids[b, v], ov_d[b, v] = vis_ids[b, v], vis_d[b, v]
+        ov_cnt[b] = cnt0 + n_take
+    return m_ids, m_d, f_ids, f_d, ov_ids, ov_d, ov_cnt
+
+
+def _frontier_case(case):
+    """(args, W, max_visits) for one walk case."""
+    if case == "two_passes":            # L + K > 384 and L > 128
+        return _frontier_rows(11, 3, 140, 300, 200, "integer"), 16, 200
+    if case == "main_widths":
+        return _frontier_rows(12, 2, 100, 256, 166, "uniform"), 4, 166
+    L, K, V, W = 16, 24, 30, 4
+    args = _frontier_rows(13, 6, L, K, V, "integer", nvis_frac=0.3)
+    if case == "all_inf_row":
+        args[1][2] = np.inf
+        args[3][2] = np.inf
+    elif case == "w_over_open":         # one open entry in row 0, W 8
+        args[0][0], args[1][0] = -1, np.inf
+        args[0][0, 3], args[1][0, 3] = 4242, 2.0
+        args[3][0] = np.inf
+        W = 8
+    elif case == "full_visited":        # row 1 at its visit budget
+        args[4][1] = np.arange(20_000, 20_000 + V, dtype=np.int32)
+        args[5][1] = 1.0
+        args[6][1] = V
+    elif case == "unsorted":            # the list in any order, gaps too
+        g = np.random.default_rng(5)
+        for b in range(args[0].shape[0]):
+            perm = g.permutation(L)
+            args[0][b], args[1][b] = args[0][b, perm], args[1][b, perm]
+    elif case == "minus_inf_and_zeros":
+        g = np.random.default_rng(6)
+        for a in (args[1], args[3]):
+            fin = np.isfinite(a)
+            a[fin & (g.random(a.shape) < 0.3)] = 0.0
+            a[fin & (g.random(a.shape) < 0.2)] = -0.0
+            a[fin & (g.random(a.shape) < 0.05)] = -np.inf
+    return args, W, V
+
+
+@pytest.mark.parametrize("case", ["integer_ties", "all_inf_row",
+                                  "w_over_open", "full_visited", "unsorted",
+                                  "minus_inf_and_zeros", "two_passes",
+                                  "main_widths"])
+def test_frontier_select_kernel_walk_matches_contract(case):
+    """frontier_select.cu's compaction, rank count, scatter, open test and
+    block scan (emulated in numpy) give the contract's seven outputs bit
+    for bit: integer distances with ties everywhere, an all-+inf row, W
+    past the open entries, a full visited set, an unsorted candidate list,
+    -inf and signed zeros, two rank and scan passes, and the main path's
+    widths L 100, K 256, V 166, W 4."""
+    args, W, max_visits = _frontier_case(case)
+    want = ref.frontier_select_batch_ref(
+        *[torch.from_numpy(np.ascontiguousarray(a)) for a in args], W=W,
+        max_visits=max_visits)
+    got = _emulate_frontier_select(*args, W=W, max_visits=max_visits)
+    for w, g, name in zip(want, got, ["m_ids", "m_d", "f_ids", "f_d",
+                                      "vis_ids", "vis_d", "vis_cnt"]):
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=name)
+        assert g.dtype == w.numpy().dtype, name
+    if case == "w_over_open":
+        assert list(got[2][0]) == [4242] + [-1] * 7
+    elif case == "full_visited":
+        assert (got[2][1] == -1).all() and got[6][1] == 30
+    elif case == "all_inf_row":
+        assert (got[0][2] == -1).all() and np.isinf(got[1][2]).all()
+
+
 def _prune_rows(seed, B, C, d, kind, N=None):
     """(d_p, table, ids, ok): candidate ids into a table [N, d], with
     duplicates within each row, ids < 0 and masked lanes, and an all-masked
@@ -245,7 +411,9 @@ def _emulate_prune_fp(d_p, table, ids, ok, *, alpha, R, n_res):
                 for c in range(g, C, groups):
                     if key[c] == inf:
                         continue
-                    if c == star or alpha * float(cover[c]) <= key[c]:
+                    # alpha * cover in f32, as the kernel's product
+                    if c == star or (np.float32(alpha)
+                                     * np.float32(cover[c])) <= key[c]:
                         key[c] = inf
                     else:
                         mine = min(mine, (key[c], c))
@@ -276,6 +444,124 @@ def test_robust_prune_fp_kernel_walk_matches_contract(kind, B, C, d, R,
     assert int(want[1][1:].min()) > 0
     if R == 6:
         assert int(want[1].max()) == R
+
+
+def _repair_graph_cases(seed, N, R, d):
+    """An integer repair fixture over N slots whose first four nodes are
+    the walk's cases: node 0 has every neighbour deleted (the widest
+    list), node 1 none, node 2 a deleted neighbour but is not usable, and
+    node 3 one deleted neighbour whose row names only node 3 (repaired, no
+    candidate survives compaction)."""
+    g = np.random.default_rng(seed)
+    adj = g.integers(0, N, (N, R)).astype(np.int32)
+    adj[g.random((N, R)) < 0.1] = -1
+    deleted = g.random(N) < 0.05
+    usable = ~deleted & (g.random(N) > 0.02)
+    deleted[adj[0][adj[0] >= 0]] = True
+    q = N - 1
+    adj[3] = -1
+    adj[3, 5] = q
+    adj[q] = -1
+    adj[q, :2] = 3
+    deleted[q] = True
+    deleted[:4] = False
+    usable[[0, 1, 3]] = True
+    usable[2] = False
+    adj[2, 0] = q
+    live = np.flatnonzero(~deleted)
+    adj[1] = g.choice(live[live > 3], R)
+    table = g.integers(-3, 4, (N, d)).astype(np.float32)
+    return adj, deleted, usable, table
+
+
+def _repair_resident(n, arena, d):
+    """delete_repair_fp.cu's ``resident``: the rows that fit in the arena
+    after n ids and keys (8 bytes each, padded to 16)."""
+    row = -(-d // 4) * 16
+    return min(n, (arena - -(-n * 8 // 16) * 16) // row)
+
+
+def _emulate_delete_repair_fp(adj, deleted, usable, table, node_ids, *,
+                              alpha, R, arena):
+    """delete_repair_fp.cu's walk for each node, in torch: out-of-range
+    nodes give -1 rows; a node that is not usable or has no deleted
+    neighbour keeps its row (the early exit); otherwise the candidate
+    lanes (kept edges, then the deleted neighbours' rows) are compacted in
+    column order, the first ``resident(n)`` rows are staged and the rest
+    read from the table (the tiled path), the anchor distances are the
+    elementwise ones, and the rounds are robust_prune_fp's walk.  Returns
+    the rows and each repaired node's (n, resident rows), None for the
+    others."""
+    N = adj.shape[0]
+    out = torch.full((len(node_ids), R), 7777, dtype=torch.int32)
+    sizes = []
+    for b, p in enumerate(node_ids.tolist()):
+        if not 0 <= p < N:
+            out[b] = -1
+            sizes.append(None)
+            continue
+        row = adj[p].tolist()
+        par = [k for k, v in enumerate(row) if 0 <= v < N and deleted[v]]
+        if not par or not usable[p]:
+            out[b] = adj[p]
+            sizes.append(None)
+            continue
+        lanes = [v for v in row if 0 <= v < N and not deleted[v]]
+        for k in par:
+            lanes += [v for v in adj[row[k]].tolist() if 0 <= v < N]
+        cid = [v for v in lanes if usable[v] and v != p]
+        n = len(cid)
+        n_res = _repair_resident(n, arena, table.shape[1])
+        sizes.append((n, n_res))
+        ids = torch.tensor([cid], dtype=torch.int32).reshape(1, n)
+        d_p = ((table[p][None] - table[ids[0].long()]) ** 2).sum(-1)[None]
+        ok = torch.ones((1, n), dtype=torch.bool)
+        new, _ = _emulate_prune_fp(d_p, table, ids, ok, alpha=alpha, R=R,
+                                   n_res=n_res)
+        out[b] = new[0]
+    return out, sizes
+
+
+@pytest.mark.parametrize("R,d,arena_rows", [
+    (16, 8, None),                   # every list resident
+    (16, 8, 3),                      # three rows past the lane state
+    (8, 7, 0),                       # no row resident; d not a multiple of 4
+    (12, 20, 40)])
+def test_delete_repair_fp_kernel_walk_matches_contract(R, d, arena_rows):
+    """delete_repair_fp.cu's early exit, column-order compaction, arena
+    split into resident and tiled rows and the shared rounds (emulated in
+    torch) give the contract's rows on integer inputs: a node with no
+    deleted neighbour and one that is not usable keep their rows, a node
+    left with no candidate gets an INVALID row, the widest list runs past
+    the resident rows when the arena holds few."""
+    N = 400
+    adj, deleted, usable, table = _repair_graph_cases(R * d, N, R, d)
+    g = np.random.default_rng(R + d)
+    node_ids = np.concatenate([[0, 1, 2, 3, -1, N],
+                               g.integers(0, N, 40)]).astype(np.int32)
+    t = [torch.from_numpy(x) for x in (adj, deleted, usable, table)]
+    widest = (R + R * R) * 8
+    row = -(-d // 4) * 16
+    arena = widest + (0 if arena_rows is None else arena_rows) * row
+    if arena_rows is None:
+        arena += (R + R * R) * row
+    got, sizes = _emulate_delete_repair_fp(
+        *t, torch.from_numpy(node_ids), alpha=1.2, R=R, arena=arena)
+    ids = torch.from_numpy(node_ids[:4].copy())
+    want = ref.delete_repair_fp_ref(*ref.repair_operands_fp(*t, ids),
+                                    alpha=1.2, R=R)
+    assert torch.equal(got[:4], want)
+    inside = torch.from_numpy(node_ids[6:].copy())
+    want = ref.delete_repair_fp_ref(*ref.repair_operands_fp(*t, inside),
+                                    alpha=1.2, R=R)
+    assert torch.equal(got[6:], want)
+    assert (got[4:6] == -1).all()
+    assert torch.equal(got[1], t[0][1]) and torch.equal(got[2], t[0][2])
+    assert sizes[1] is None and sizes[2] is None
+    assert sizes[3] == (0, 0) and (got[3] == -1).all()
+    n0, res0 = sizes[0]
+    assert n0 > R and not torch.equal(got[0], t[0][0])
+    assert (res0 < n0) == (arena_rows is not None)
 
 
 def _topk_jax(d, ids, k):
@@ -380,6 +666,43 @@ def test_wrappers_reject_bad_operands():
         args = _frontier_rows(0, 2, 4, 4, 6, "integer")
         ops.frontier_select(*[torch.from_numpy(np.ascontiguousarray(a))
                               for a in args], W=5)       # W > L
+
+
+@pytest.mark.parametrize("bad", range(7))
+def test_frontier_select_checks_every_operand(bad):
+    """The one-pass operand check still refuses each operand's wrong dtype
+    and wrong rank."""
+    args = [torch.from_numpy(np.ascontiguousarray(a))
+            for a in _frontier_rows(0, 2, 4, 4, 6, "integer")]
+    wrong = list(args)
+    wrong[bad] = (args[bad].double() if args[bad].is_floating_point()
+                  else args[bad].long())
+    with pytest.raises(TypeError):
+        ops.frontier_select(*wrong, W=2)
+    wrong = list(args)
+    wrong[bad] = args[bad][None]
+    with pytest.raises(ValueError):
+        ops.frontier_select(*wrong, W=2)
+
+
+@pytest.mark.parametrize("B,L,W,V", [(1024, 100, 4, 166), (3, 7, 1, 5),
+                                     (1, 1, 1, 1)])
+def test_frontier_outputs_are_aligned_views_of_one_buffer(B, L, W, V):
+    """On the card the seven outputs are views of one int32 buffer: each
+    starts on a 16-byte boundary, none overlaps another, all fit."""
+    views, n = ops._frontier_layout(B, L, W, V)
+    assert [v[0] for v in views] == [(B, L), (B, L), (B, W), (B, W),
+                                     (B, V), (B, V), (B,)]
+    assert [v[3] for v in views] == [False, True] * 3 + [False]
+    ends = [off + int(np.prod(shape)) for shape, _, off, _ in views]
+    for (shape, stride, off, _), end, nxt in zip(
+            views, ends, [v[2] for v in views[1:]] + [n]):
+        assert off % 4 == 0 and end <= nxt
+        assert stride == ((shape[1], 1) if len(shape) == 2 else (1,))
+    buf = torch.arange(n, dtype=torch.int32)
+    for shape, stride, off, _ in views:
+        v = buf.as_strided(shape, stride, off)
+        assert v.is_contiguous() and int(v.reshape(-1)[0]) == off
 
 
 def test_plain_refs_match_contract_forms():
