@@ -12,7 +12,8 @@ Phases:
            and Gaussian ones (stated tolerance), and time kernel (CUDA
            events, host us per call, torch.profiler device ms), plain
            version and, where one PyTorch call computes the same function,
-           that call (``frontier_select`` also on unsorted candidate
+           that call (``adc_rows`` at B 1024 x K 256, B 256 and K 512;
+           ``frontier_select`` also on unsorted candidate
            lists; ``robust_prune_fp`` also at C 640, its tiled path;
            ``gather_rows``' host path broken down by part; the two
            delete-repair kernels and ``gather_rows``
@@ -34,8 +35,10 @@ Phases:
            rollover up to a threshold StreamingMerge -> search_batch ->
            another 1 % deletes and a global ``consolidate`` -> an SDC
            ``streaming_merge`` at the freshdiskann-1b per-chip shape, with
-           launch counts, recall against brute force, self-hits, merge
-           phase times and no deleted id returned.
+           launch counts (those of ``adc_rows``, ``robust_prune_sdc``
+           and ``delete_repair_sdc`` also by shape and sweep), recall
+           against brute force, self-hits, merge phase times and no
+           deleted id returned.
   storage  on the main path's merged LTI: a system with ``storage_dir``,
            ``wal_dir`` and ``snapshot_dir`` writes the layout, serves
            4 x 1024 queries through ``search_disk`` (recall, no deleted id,
@@ -429,37 +432,50 @@ def phase_kernels(seed: int, n_table: int) -> dict:
                    nbytes=nbytes, nflops=4.0 * B * K * d, library_ms=lib,
                    shape=f"B={B} K={K} d={d} N={n_table}")
 
-    # ---- adc_rows: B 1024, K 256, m 32, ksub 256 -------------------------
-    B, K, m, ksub = 1024, 256, 32, 256
+    # ---- adc_rows: B 1024 x K 256 (search, W 4), B 256 x K 256 (the
+    # merges' insert chunks) and B 1024 x K 512 (serving, W 8); m 32,
+    # ksub 256 --------------------------------------------------------------
+    m, ksub = 32, 256
     codes = torch.from_numpy(g.integers(0, ksub, (n_table, m)).astype(
         np.uint8)).to(dev)
-    ids_np = g.integers(0, n_table, (B, K)).astype(np.int32)
-    ids_np[g.random((B, K)) < 0.1] = -1
-    ids = torch.from_numpy(ids_np).to(dev)
-    luts_i = torch.from_numpy(g.integers(0, 50, (B, m, ksub)).astype(
-        np.float32)).to(dev)
-    check(torch.equal(ops.adc_rows(luts_i, codes, ids),
-                      ref.adc_rows_ref(luts_i, codes, ids)),
-          "adc_rows: integer inputs differ")
-    luts = torch.from_numpy((g.standard_normal((B, m, ksub)) ** 2).astype(
-        np.float32)).to(dev)
-    got = ops.adc_rows(luts, codes, ids)
-    want = ref.adc_rows_ref(luts, codes, ids)
-    fin = torch.isfinite(want)
-    check(torch.equal(fin, torch.isfinite(got)), "adc_rows: inf lanes")
-    err = (got[fin] - want[fin]).abs()
-    check(bool((err <= 1e-5 * want[fin].abs() + 1e-6).all()),
-          f"adc_rows: max err {float(err.max())}")
-    t = launch_times(lambda: ops.adc_rows(luts, codes, ids))
-    plain = time_ms(lambda: ref.adc_rows_ref(luts, codes, ids))
-    nbytes = B * m * ksub * 4 + B * K * m + B * K * 4 * 2
-    log(f"[kernels] adc_rows B={B} K={K} m={m} ksub={ksub}: max_abs_err "
-        f"{float(err.max()):.3g}  kernel {_fmt_times(t)}  plain {plain:.4f} "
-        "ms")
-    record("adc_rows", err=err.max(), times=t, plain_ms=plain, nbytes=nbytes,
-           nflops=float(B * K * m), library_ms=None,
-           shape=f"B={B} K={K} m={m} ksub={ksub} N={n_table}")
-    del codes
+    by_shape = []
+    for B, K in ((1024, 256), (256, 256), (1024, 512)):
+        ids_np = g.integers(0, n_table, (B, K)).astype(np.int32)
+        ids_np[g.random((B, K)) < 0.1] = -1
+        ids = torch.from_numpy(ids_np).to(dev)
+        luts_i = torch.from_numpy(g.integers(0, 50, (B, m, ksub)).astype(
+            np.float32)).to(dev)
+        check(torch.equal(ops.adc_rows(luts_i, codes, ids),
+                          ref.adc_rows_ref(luts_i, codes, ids)),
+              f"adc_rows B={B} K={K}: integer inputs differ")
+        luts = torch.from_numpy((g.standard_normal((B, m, ksub)) ** 2
+                                 ).astype(np.float32)).to(dev)
+        got = ops.adc_rows(luts, codes, ids)
+        want = ref.adc_rows_ref(luts, codes, ids)
+        fin = torch.isfinite(want)
+        check(torch.equal(fin, torch.isfinite(got)),
+              f"adc_rows B={B} K={K}: inf lanes")
+        err = (got[fin] - want[fin]).abs()
+        check(bool((err <= 1e-5 * want[fin].abs() + 1e-6).all()),
+              f"adc_rows B={B} K={K}: max err {float(err.max())}")
+        t = launch_times(lambda: ops.adc_rows(luts, codes, ids))
+        plain = time_ms(lambda: ref.adc_rows_ref(luts, codes, ids))
+        nbytes = B * m * ksub * 4 + B * K * m + B * K * 4 * 2
+        bnd = bound_ms(nbytes, float(B * K * m))
+        log(f"[kernels] adc_rows B={B} K={K} m={m} ksub={ksub}: max_abs_err "
+            f"{float(err.max()):.3g}  kernel {_fmt_times(t)}  plain "
+            f"{plain:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})")
+        shape = f"B={B} K={K} m={m} ksub={ksub} N={n_table}"
+        if (B, K) == (1024, 256):
+            record("adc_rows", err=err.max(), times=t, plain_ms=plain,
+                   nbytes=nbytes, nflops=float(B * K * m), library_ms=None,
+                   shape=shape)
+        else:
+            by_shape.append(dict(shape=shape, max_abs_err=float(err.max()),
+                                 plain_ms=plain, bound_ms=bnd[0],
+                                 bound_by=bnd[1], **t))
+    recs["adc_rows"]["by_shape"] = by_shape
+    del codes, luts, luts_i
 
     # ---- frontier_select: B 1024, L 100, K 256, V 166, W 4 --------------
     B, L, K, V, W = 1024, 100, 256, 166, 4
@@ -528,7 +544,8 @@ def phase_kernels(seed: int, n_table: int) -> dict:
     del table, table_int
     torch.cuda.empty_cache()
 
-    # ---- robust_prune_sdc: insert (B 256, C 203) and Patch (B 1024, C 128)
+    # ---- robust_prune_sdc: insert (B 256, C 203) and Patch (B 256, C 128:
+    # the Patch phase's chunks run ~230-300 rows at C = R + d_max = 128)
     from repro_torch.core import pq as pqm
     m, ksub = 32, 256
     codes_tab = torch.from_numpy(g.integers(0, ksub, (n_table, m)).astype(
@@ -538,7 +555,7 @@ def phase_kernels(seed: int, n_table: int) -> dict:
     cb = pqm.PQCodebook(torch.from_numpy(g.standard_normal(
         (m, ksub, d // m)).astype(np.float32)).to(dev))
     tabs = pqm.sdc_tables(cb).contiguous()
-    for B, C, tag in ((256, 203, "insert"), (1024, 128, "patch")):
+    for B, C, tag in ((256, 203, "insert"), (256, 128, "patch")):
         ids_np = g.integers(0, n_table, (B, C)).astype(np.int32)
         ids_np[:, C // 2:C // 2 + C // 8] = ids_np[:, :C // 8]
         ids_np[g.random((B, C)) < 0.05] = -1
@@ -606,8 +623,10 @@ def phase_launch(seed: int, n_table: int) -> None:
     """The launch path of the nine kernels at the main path's shapes, on
     random inputs (the repair kernels on a random R-64 graph with 1 %
     deleted), with no main path needed: one ``[launch]`` JSON line per
-    call with its ``launch_times``; also ``torch.index_select`` at
-    ``gather_rows``' shape and ``torch.topk`` at ``block_topk``'s N 20.
+    call with its ``launch_times``; ``adc_rows`` also at B 256 and at
+    K 512, ``delete_repair_sdc`` also on a block of 1024 consecutive slots;
+    also ``torch.index_select`` at ``gather_rows``' shape and
+    ``torch.topk`` at ``block_topk``'s N 20.
     Uses only calls every tree of the port shares (``robust_prune_fp``
     through its main-path caller ``FullPrecisionPrune.prune_rows``), so
     ``--src`` can compare another checkout's launch path on the same card."""
@@ -637,6 +656,8 @@ def phase_launch(seed: int, n_table: int) -> None:
     deleted = torch.rand(N, generator=gen, device=dev) < 0.01
     usable = ~deleted
     nodes = affected_mask(adj, deleted, usable).nonzero()[:1024, 0].int()
+    block = torch.arange(1024, dtype=torch.int32, device=dev)
+    ids512 = rows((1024, 512), N)
     g_ids = torch.from_numpy(g.choice(N, (1024, 4)).astype(np.int32)).to(dev)
     g_ids[torch.from_numpy(g.random((1024, 4)) < 0.1).to(dev)] = -1
     safe = g_ids.clamp(min=0).flatten().long()
@@ -645,6 +666,8 @@ def phase_launch(seed: int, n_table: int) -> None:
     calls = {
         "l2_rows": lambda: ops.l2_rows(q, table, ids),
         "adc_rows": lambda: ops.adc_rows(luts, codes, ids),
+        "adc_rows B=256": lambda: ops.adc_rows(luts[:256], codes, ids[:256]),
+        "adc_rows K=512": lambda: ops.adc_rows(luts, codes, ids512),
         "frontier_select": lambda: ops.frontier_select(*fr, W=4,
                                                        max_visits=166),
         "robust_prune_fp": lambda: prune.prune_rows(
@@ -655,6 +678,8 @@ def phase_launch(seed: int, n_table: int) -> None:
             adj, deleted, usable, table, nodes, alpha=1.2, R=R),
         "delete_repair_sdc": lambda: ops.delete_repair_sdc(
             adj, deleted, usable, codes, tabs, nodes, alpha=1.2, R=R, cap=8),
+        "delete_repair_sdc consecutive": lambda: ops.delete_repair_sdc(
+            adj, deleted, usable, codes, tabs, block, alpha=1.2, R=R, cap=8),
         "gather_rows": lambda: ops.gather_rows(adj, g_ids),
         "torch.index_select": lambda: torch.index_select(adj, 0, safe),
         "block_topk": lambda: ops.block_topk(t_d, t_i, 5),
@@ -894,6 +919,56 @@ def _recall(ids, queries, live_vecs, live_ids, k, dev) -> float:
                  / k)
 
 
+@contextlib.contextmanager
+def shape_census():
+    """Count the launches of ``adc_rows``, ``robust_prune_sdc`` and
+    ``delete_repair_sdc`` by the shape each call site gives them, while
+    the block runs: {name: {shape: launches}}.  The wrappers are replaced
+    in ``ops`` for the duration (the call sites look them up there at each
+    call), and ``core.delete._sweep`` is wrapped to tag each repair block
+    with its sweep (global: consecutive slots; local: affected nodes)."""
+    from repro_torch.core import delete as delete_mod
+    from repro_torch.kernels import ops
+    census: dict = {"adc_rows": {}, "robust_prune_sdc": {},
+                    "delete_repair_sdc": {}}
+    sweep = ["outside a sweep"]
+    saved = {n: getattr(ops, n) for n in census}
+    saved_sweep = delete_mod._sweep
+
+    def count(name, key):
+        census[name][key] = census[name].get(key, 0) + 1
+
+    def adc_rows(luts, codes, ids, **kw):
+        count("adc_rows", f"B={luts.shape[0]} K={ids.shape[1]}")
+        return saved["adc_rows"](luts, codes, ids, **kw)
+
+    def robust_prune_sdc(d_p, codes, tables, ids, ok, **kw):
+        count("robust_prune_sdc", f"B={ids.shape[0]} C={ids.shape[1]}")
+        return saved["robust_prune_sdc"](d_p, codes, tables, ids, ok, **kw)
+
+    def delete_repair_sdc(adjacency, deleted, usable, codes, tables,
+                          node_ids, **kw):
+        count("delete_repair_sdc", f"{sweep[0]} B={node_ids.shape[0]}")
+        return saved["delete_repair_sdc"](adjacency, deleted, usable, codes,
+                                          tables, node_ids, **kw)
+
+    def _sweep(state, rows_fn, block, mode, usable):
+        sweep[0] = f"{mode} sweep"
+        try:
+            return saved_sweep(state, rows_fn, block, mode, usable)
+        finally:
+            sweep[0] = "outside a sweep"
+
+    ops.adc_rows, ops.robust_prune_sdc = adc_rows, robust_prune_sdc
+    ops.delete_repair_sdc, delete_mod._sweep = delete_repair_sdc, _sweep
+    try:
+        yield census
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+        delete_mod._sweep = saved_sweep
+
+
 def _fmt_phases(t: dict) -> str:
     return ", ".join(f"{k} {v:.2f} s" for k, v in t.items())
 
@@ -1118,6 +1193,27 @@ def phase_main(seed: int, n: int, centres: int = 4096, dev="cuda",
     return launches, s, dict(centers=centers, qs=qs, k=k)
 
 
+def repair_inputs(lti, seed: int, B: int = 1024):
+    """The repair kernels' graph inputs on the merged LTI: its adjacency,
+    1 % of its live points deleted (drawn from ``seed + 7``), the usable
+    mask, a block of the first B affected nodes and a block of the first B
+    slots; and the generator, for the draws that follow."""
+    import torch
+    from repro_torch.core.delete import affected_mask
+    gr = lti.graph
+    dev = gr.device
+    rng = np.random.default_rng(seed + 7)
+    live = torch.nonzero(gr.active)[:, 0].cpu().numpy()
+    deleted = torch.zeros_like(gr.deleted)
+    deleted[torch.from_numpy(rng.choice(live, len(live) // 100,
+                                        replace=False)).to(dev)] = True
+    usable = gr.active & ~deleted
+    adj = gr.adjacency
+    ids = affected_mask(adj, deleted, usable).nonzero()[:B, 0].int()
+    block = torch.arange(B, dtype=torch.int32, device=dev)
+    return adj, deleted, usable, ids, block, rng
+
+
 def repair_kernel_records(lti, seed: int, B: int = 1024) -> dict:
     """The two delete-repair kernels against their plain versions at the
     main path's block shape (B 1024, R 64), on the merged LTI's real
@@ -1131,20 +1227,11 @@ def repair_kernel_records(lti, seed: int, B: int = 1024) -> dict:
     import torch
     from repro_torch.core import pq as pqm
     from repro_torch.core.config import PQConfig
-    from repro_torch.core.delete import affected_mask
     from repro_torch.kernels import ops, ref
     gr = lti.graph
     dev = gr.device
-    rng = np.random.default_rng(seed + 7)
-    live = torch.nonzero(gr.active)[:, 0].cpu().numpy()
-    deleted = torch.zeros_like(gr.deleted)
-    deleted[torch.from_numpy(rng.choice(live, len(live) // 100,
-                                        replace=False)).to(dev)] = True
-    usable = gr.active & ~deleted
-    adj = gr.adjacency
+    adj, deleted, usable, ids, block, rng = repair_inputs(lti, seed, B)
     R, alpha, cap = gr.R, 1.2, 8
-    ids = affected_mask(adj, deleted, usable).nonzero()[:B, 0].int()
-    block = torch.arange(B, dtype=torch.int32, device=dev)
     pq_cfg = PQConfig(dim=gr.dim, m=lti.codes.shape[1],
                       ksub=lti.codebook.centroids.shape[1])
     decoded = pqm.decode(lti.codebook, lti.codes, pq_cfg).contiguous()
@@ -1199,8 +1286,8 @@ def repair_kernel_records(lti, seed: int, B: int = 1024) -> dict:
                      alpha=alpha, R=R)
         check(torch.equal(got, want),
               f"{name}: integer inputs differ (consecutive block)")
-        ms_block = time_ms(lambda: fn(adj, deleted, usable, *args_real,
-                                      block, **kw))
+        t_block = launch_times(lambda: fn(adj, deleted, usable, *args_real,
+                                          block, **kw))
         ops_block = form(adj, deleted, usable, *args_real, block)
         nb_block, nf_block = footprint(ops_block, payload_bytes, cover, fpe)
         if "sdc" in name:
@@ -1222,14 +1309,19 @@ def repair_kernel_records(lti, seed: int, B: int = 1024) -> dict:
             f"block): integer equal, {n_diff} of {B} real-input rows differ"
             f"  kernel {_fmt_times(t)}  plain {plain_ms:.4f} ms  bound "
             f"{bnd[0]:.4f} ms ({bnd[1]}); a block of consecutive slots "
-            f"(integer equal) {ms_block:.4f} ms, bound {bnd_block[0]:.4f} ms "
-            f"({bnd_block[1]})")
+            f"(integer equal) {_fmt_times(t_block)}, bound "
+            f"{bnd_block[0]:.4f} ms ({bnd_block[1]})")
         recs[name] = kernel_record(
             name, err=0.0, times=t, plain_ms=plain_ms, nbytes=nbytes,
             nflops=nflops, library_ms=None,
             shape=f"B={B} R={R} C={C} affected block, 1 % deleted; "
             f"real-input rows differing {n_diff}/{B}; consecutive block "
-            f"{ms_block:.4f} ms, bound {bnd_block[0]:.4f} ms")
+            f"{t_block['ms']:.4f} ms, bound {bnd_block[0]:.4f} ms")
+        recs[name].update(
+            rows_differing=n_diff, block_ms=t_block["ms"],
+            block_device_ms=t_block["device_ms"],
+            block_host_us=t_block["host_us"], block_bound_ms=bnd_block[0],
+            block_bound_by=bnd_block[1])
     return recs
 
 
@@ -2100,10 +2192,20 @@ def main(argv=None) -> int:
         if "parity" in phases:
             phase_parity(args.seed)
         if "main" in phases:
-            launches, s, data = phase_main(args.seed, args.n, args.centres)
+            with shape_census() as census:
+                launches, s, data = phase_main(args.seed, args.n,
+                                               args.centres)
+            for name, by_shape in census.items():
+                log(f"[main] {name} launches by shape: "
+                    f"{json.dumps(by_shape)}")
+                check(sum(by_shape.values()) == launches[name],
+                      f"{name}: the census counts {by_shape}, the wrapper "
+                      f"{launches[name]}")
             if "kernels" in phases:
                 recs.update(repair_kernel_records(s.lti, args.seed))
                 recs.update(gather_kernel_record(s.lti, args.seed))
+                for name, by_shape in census.items():
+                    recs[name]["launches_by_shape"] = by_shape
             if "storage" in phases:
                 st_launches = phase_storage(s, data, args.seed,
                                             profile="profile" in phases)

@@ -227,7 +227,8 @@ def test_delete_repair_fp_exact_on_integers(dev, R, d):
     assert (got[3] == -1).all()                          # nothing survived
 
 
-@pytest.mark.parametrize("R,m,ksub,cap", [(64, 32, 256, 8), (8, 4, 16, 3)])
+@pytest.mark.parametrize("R,m,ksub,cap", [(64, 32, 256, 8), (8, 4, 16, 3),
+                                          (16, 8, 16, 4)])
 def test_delete_repair_sdc_exact_on_integers(dev, R, m, ksub, cap):
     g = np.random.default_rng(R + m + cap)
     N, B = 3000, 96
@@ -240,6 +241,67 @@ def test_delete_repair_sdc_exact_on_integers(dev, R, m, ksub, cap):
     want = ref.delete_repair_sdc_ref(*ref.repair_operands_sdc(*a, cap),
                                      alpha=1.2, R=R)
     assert torch.equal(got, want)
+
+
+def test_delete_repair_sdc_consecutive_block_exact(dev):
+    """A block of 1,024 consecutive slots at the main path's widths (R 64,
+    m 32, ksub 256, cap 8), as the global sweep launches it: nodes 0-15
+    have every neighbour deleted (lists of up to C 576, past the cap), the
+    rest 2 % deleted (short lists, nodes with no deleted neighbour, deleted
+    and unusable nodes); equal to the plain version on integer inputs."""
+    g = np.random.default_rng(1024)
+    N, R, m, ksub, cap = 3000, 64, 32, 256, 8
+    adj, deleted, usable = _repair_graph(g, N, R, 0.02)
+    for p in range(16):
+        deleted[adj[p][adj[p] >= 0]] = True
+    deleted[:16] = False
+    usable = ~deleted & usable
+    usable[:16] = True
+    codes = g.integers(0, ksub, (N, m)).astype(np.uint8)
+    tables = g.integers(0, 9, (m, ksub, ksub)).astype(np.float32)
+    node_ids = np.arange(1024, dtype=np.int32)
+    a = [_t(x, dev) for x in (adj, deleted, usable, codes, tables, node_ids)]
+    got = ops.delete_repair_sdc(*a, alpha=1.2, R=R, cap=cap)
+    want = ref.delete_repair_sdc_ref(*ref.repair_operands_sdc(*a, cap),
+                                     alpha=1.2, R=R)
+    assert torch.equal(got, want)
+    assert not torch.equal(got[:16], a[0][:16])          # wide lists repaired
+
+
+@pytest.mark.parametrize("B,K,m,ksub,layout", [
+    (1024, 512, 32, 256, "aligned"),     # serving's W 8
+    (1, 256, 32, 256, "aligned"),        # one wave: the loop kernel
+    (1000, 256, 32, 256, "aligned"),     # a partial last turn
+    (2000, 100, 32, 256, "aligned"),     # several turns a block
+    (256, 203, 32, 256, "aligned"),      # the insert chunks' d_p
+    (3000, 100, 4, 16, "aligned"),       # m % 16 != 0: the loop kernel
+    (3000, 100, 32, 256, "codes offset"),  # misaligned codes: the loop
+    (3000, 100, 32, 256, "luts offset")])  # misaligned LUTs: the loop
+def test_adc_rows_paths_exact_on_integers(dev, B, K, m, ksub, layout):
+    """The persistent bulk-copy kernel (B past one wave of one block a
+    query: 924 blocks at m 32, ksub 256 on an H100) and the loop kernel it
+    leaves the other shapes and layouts to: equal to the plain version on
+    integer inputs, ids < 0 and past the table giving +inf."""
+    g = np.random.default_rng(B + K + m)
+    N = 5000
+    lut_np = g.integers(0, 30, (B, m, ksub)).astype(np.float32)
+    codes_np = g.integers(0, ksub, (N, m)).astype(np.uint8)
+    luts, codes = _t(lut_np, dev), _t(codes_np, dev)
+    if layout == "codes offset":
+        flat = torch.zeros(N * m + 16, dtype=torch.uint8, device=dev)
+        codes = flat[3:3 + N * m].view(N, m)
+        codes.copy_(_t(codes_np, dev))
+    elif layout == "luts offset":
+        flat = torch.zeros(B * m * ksub + 4, device=dev)
+        luts = flat[1:1 + B * m * ksub].view(B, m, ksub)
+        luts.copy_(_t(lut_np, dev))
+    ids_np = g.integers(-1, N, (B, K)).astype(np.int32)
+    ids = _t(ids_np, dev)
+    got = ops.adc_rows(luts, codes, ids)
+    assert torch.equal(got, ref.adc_rows_ref(luts, codes, ids))
+    ids_np[0, :3] = N                                       # past the table
+    got = ops.adc_rows(luts, codes, _t(ids_np, dev))
+    assert torch.isinf(got[0, :3]).all()
 
 
 @pytest.mark.parametrize("R,shape", [(64, (1024, 4)), (8, (7,)),

@@ -564,6 +564,245 @@ def test_delete_repair_fp_kernel_walk_matches_contract(R, d, arena_rows):
     assert (res0 < n0) == (arena_rows is not None)
 
 
+def _sdc_sums(tables, a, cc):
+    """sum_j T[j, a_j, cc[:, j]] for each code row of cc, in j order in
+    f32 (the kernels' m loads a candidate, added one after another)."""
+    acc = np.zeros(len(cc), np.float32)
+    for j in range(tables.shape[0]):
+        acc = (acc + tables[j, a[j], cc[:, j]]).astype(np.float32)
+    return acc
+
+
+def _emulate_delete_repair_sdc(adj, deleted, usable, codes, tables,
+                               node_ids, *, alpha, R, cap, threads=256):
+    """delete_repair_sdc.cu's walk for each node, in numpy: out-of-range
+    nodes give -1 rows; a node that is not usable or has no deleted
+    neighbour keeps its row (the early exit); otherwise the candidate lanes
+    (kept edges, then the rows of the FIRST ``cap`` deleted neighbours in
+    column order) are compacted in column order, the anchor distances and
+    every cover are m table reads a candidate summed in j order (no staged
+    slice), and prune_rounds_sdc.cuh's block_rounds run: column c owned by
+    thread c % ``threads`` with an alive flag, each thread folding the
+    least (dp, column) of its surviving columns into its cover pass, the
+    block's least of those the next winner.  Returns the rows and, for
+    each repaired node, (deleted neighbours, candidates n, alive after the
+    anchor pass), None for the others."""
+    N = adj.shape[0]
+    a32 = np.float32(alpha)
+    out = np.full((len(node_ids), R), 7777, np.int32)
+    sizes = []
+    for b, p in enumerate(node_ids.tolist()):
+        if not 0 <= p < N:
+            out[b] = -1
+            sizes.append(None)
+            continue
+        row = adj[p].tolist()
+        dels = [k for k, v in enumerate(row) if 0 <= v < N and deleted[v]]
+        if not dels or not usable[p]:
+            out[b] = adj[p]
+            sizes.append(None)
+            continue
+        lanes = [v for v in row if 0 <= v < N and not deleted[v]]
+        for k in dels[:cap]:
+            lanes += [v for v in adj[row[k]].tolist() if 0 <= v < N]
+        cid = np.array([v for v in lanes if usable[v] and v != p], np.int64)
+        n = len(cid)
+        dp = _sdc_sums(tables, codes[p], codes[cid]) if n else np.zeros(0)
+        alive = np.isfinite(dp)
+        sizes.append((len(dels), n, int(alive.sum())))
+        best = min(((dp[c], c) for c in range(n) if alive[c]),
+                   default=(np.inf, n))
+        r = 0
+        while r < R and best[0] < np.inf:
+            star = best[1]
+            out[b, r] = cid[star]
+            cover = _sdc_sums(tables, codes[cid[star]], codes[cid])
+            mine = []
+            for t in range(threads):
+                cols = [c for c in range(t, n, threads) if alive[c]]
+                for c in cols:
+                    alive[c] = c != star and not a32 * cover[c] <= dp[c]
+                own = [(dp[c], c) for c in cols if alive[c]]
+                if own:
+                    mine.append(min(own))
+            best = min(mine, default=(np.inf, n))
+            r += 1
+        out[b, r:] = -1
+    return out, sizes
+
+
+@pytest.mark.parametrize("threads", [256, 4])
+@pytest.mark.parametrize("R,m,ksub,cap", [(16, 8, 16, 3), (8, 4, 16, 4),
+                                          (12, 16, 32, 2)])
+def test_delete_repair_sdc_kernel_walk_matches_contract(threads, R, m, ksub,
+                                                        cap):
+    """delete_repair_sdc.cu's early exit, column-order compaction under the
+    cap, the cover read straight from the tables in j order and the
+    block's rounds (emulated in numpy) give the contract's rows on integer
+    inputs, with the kernel's 256 threads and with 4 (each thread then
+    owns many columns and folds their argmin, lowest column first): node 0
+    has more deleted neighbours than ``cap``; node 1 none and node 2 is not
+    usable (both keep their rows); node 3 is repaired but no candidate
+    survives compaction, and node 4's candidates all lie in the deleted
+    neighbour's row, none of them usable (both get INVALID rows); -1 and N
+    are out of range."""
+    N = 400
+    adj, deleted, usable, _ = _repair_graph_cases(R * m + cap, N, R, 4)
+    g = np.random.default_rng(R + m + cap)
+    q = N - 2
+    adj[4] = -1
+    adj[4, 1] = q
+    adj[q] = g.choice(np.flatnonzero(~usable & (np.arange(N) > 4)), R)
+    deleted[q] = True
+    deleted[4] = False
+    usable[4] = True
+    codes = g.integers(0, ksub, (N, m)).astype(np.uint8)
+    tables = g.integers(0, 9, (m, ksub, ksub)).astype(np.float32)
+    node_ids = np.concatenate([[0, 1, 2, 3, 4, -1, N],
+                               g.integers(0, N, 40)]).astype(np.int32)
+    got, sizes = _emulate_delete_repair_sdc(
+        adj, deleted, usable, codes, tables, node_ids, alpha=1.2, R=R,
+        cap=cap, threads=threads)
+    ids = np.delete(node_ids, [5, 6])
+    t = [torch.from_numpy(x) for x in (adj, deleted, usable, codes, tables,
+                                       ids)]
+    want = ref.delete_repair_sdc_ref(*ref.repair_operands_sdc(*t, cap),
+                                     alpha=1.2, R=R).numpy()
+    np.testing.assert_array_equal(np.delete(got, [5, 6], 0), want)
+    assert (got[5:7] == -1).all()
+    np.testing.assert_array_equal(got[1:3], adj[1:3])
+    assert sizes[1] is None and sizes[2] is None
+    assert sizes[0][0] > cap and sizes[0][1] > R
+    assert sizes[3] == (1, 0, 0) and (got[3] == -1).all()
+    assert sizes[4] == (1, 0, 0) and (got[4] == -1).all()
+    assert not np.array_equal(got[0], adj[0])
+    if threads < 256:                    # threads own several columns
+        assert max(z[1] for z in sizes if z is not None) > 4 * threads
+
+
+def _persistent_grid(B, slots):
+    """adc_rows.cu's ``persistent_grid``: ceil(B / slots) turns a block,
+    the blocks spread evenly over them."""
+    turns = -(-B // slots)
+    return -(-B // turns)
+
+
+def _emulate_adc_rows(luts, codes, ids, *, slots, loop_slots,
+                      optin=232448, threads=256, per_thread=2):
+    """adc_rows.cu's dispatch and walk, in numpy: the bulk path when m % 16
+    == 0, m * ksub * 4 % 16 == 0, the LUTs and codes are 16-byte aligned
+    (``data_ptr``), B is past one wave of the loop kernel (``loop_slots``
+    resident blocks) and two LUTs fit a block (``slots`` resident bulk
+    blocks), else the loop kernel (one block a query).  On the bulk path,
+    block g of the persistent grid
+    scores queries g, g + G, ... on buffer t % 2 at mbarrier parity
+    (t // 2) % 2; the first two copies are issued at the start and each
+    buffer is refilled two turns ahead once scored (the walk checks that a
+    turn finds its own query's LUT there); a thread takes candidates
+    k0 + u * threads + tid, u < per_thread, for k0 in steps of
+    per_thread * threads.  Sums are in j order in f32; ids < 0 or >= N
+    give +inf.  Returns (out, path, {block: [(query, buffer, parity)]})."""
+    B, m, ksub = luts.shape
+    K = ids.shape[1]
+    N = codes.shape[0]
+    lut_np, codes_np, ids_np = luts.numpy(), codes.numpy(), ids.numpy()
+    out = np.full((B, K), np.nan, np.float32)
+
+    def score(q, lut, ks):
+        idk = ids_np[q, ks]
+        ok = (idk >= 0) & (idk < N)
+        acc = np.zeros(len(ks), np.float32)
+        cc = codes_np[np.where(ok, idk, 0)]
+        for j in range(m):
+            acc = (acc + lut[j, cc[:, j]]).astype(np.float32)
+        assert np.isnan(out[q, ks]).all()            # each lane once
+        out[q, ks] = np.where(ok, acc, np.inf)
+
+    bulk = (m % 16 == 0 and codes.data_ptr() % 16 == 0
+            and m * ksub * 4 % 16 == 0 and luts.data_ptr() % 16 == 0
+            and B > loop_slots and 2 * m * ksub * 4 + 16 <= optin)
+    if not bulk:
+        for q in range(B):
+            score(q, lut_np[q], np.arange(K))
+        return out, "loop", {}
+    G = _persistent_grid(B, slots)
+    turns = {}
+    for g in range(G):
+        buf = [None, None]
+        for s in range(2):
+            if g + s * G < B:
+                buf[s] = g + s * G
+        t, q = 0, g
+        while q < B:
+            s = t % 2
+            assert buf[s] == q
+            turns.setdefault(g, []).append((q, s, (t // 2) % 2))
+            for k0 in range(0, K, per_thread * threads):
+                for u in range(per_thread):
+                    ks = k0 + u * threads + np.arange(threads)
+                    score(q, lut_np[buf[s]], ks[ks < K])
+            if q + 2 * G < B:
+                buf[s] = q + 2 * G
+            t, q = t + 1, q + G
+    return out, "bulk", turns
+
+
+@pytest.mark.parametrize("B,K,m,ksub,slots,layout,path", [
+    (10, 37, 16, 32, 4, "aligned", "bulk"),     # 3 turns, the last partial
+    (7, 300, 32, 16, 3, "aligned", "bulk"),     # K past the thread count
+    (5, 1100, 16, 8, 8, "aligned", "bulk"),     # three candidate chunks
+    (3, 20, 16, 16, 396, "aligned", "bulk"),    # one turn, blocks idle
+    (2, 20, 16, 16, 396, "aligned", "loop"),    # within one loop wave
+    (1, 20, 16, 16, 396, "aligned", "loop"),    # B 1
+    (6, 50, 4, 16, 4, "aligned", "loop"),       # m % 16 != 0
+    (6, 50, 16, 16, 4, "codes offset", "loop"),  # misaligned codes
+    (6, 50, 16, 16, 4, "luts offset", "loop"),  # misaligned LUTs
+    (4, 50, 128, 256, 4, "aligned", "loop")])   # two LUTs past a block
+def test_adc_rows_kernel_walk_matches_contract(B, K, m, ksub, slots, layout,
+                                               path):
+    """adc_rows.cu's dispatch, persistent schedule and candidate chunks
+    (emulated in numpy, the loop kernel holding 2 resident blocks) give
+    the contract's distances on integer inputs: every query is scored
+    once, by block q % G on turn q // G, each turn finds its query's LUT in
+    its buffer, and every lane is written once; a B within one wave of the
+    loop kernel and the layouts the bulk copy cannot take run the loop
+    kernel."""
+    g = np.random.default_rng(B * K + m)
+    N = 90
+    lut_np = g.integers(0, 20, (B, m, ksub)).astype(np.float32)
+    codes_np = g.integers(0, ksub, (N, m)).astype(np.uint8)
+    ids = torch.from_numpy(g.integers(-1, N + 1, (B, K)).astype(np.int32))
+    luts = torch.from_numpy(lut_np)
+    codes = torch.from_numpy(codes_np)
+    if layout == "codes offset":
+        flat = torch.zeros(N * m + 16, dtype=torch.uint8)
+        codes = flat[1:1 + N * m].view(N, m)
+        codes.copy_(torch.from_numpy(codes_np))
+    elif layout == "luts offset":
+        flat = torch.zeros(B * m * ksub + 4)
+        luts = flat[1:1 + B * m * ksub].view(B, m, ksub)
+        luts.copy_(torch.from_numpy(lut_np))
+    else:
+        assert luts.data_ptr() % 16 == 0 and codes.data_ptr() % 16 == 0
+    got, took, turns = _emulate_adc_rows(luts, codes, ids, slots=slots,
+                                         loop_slots=2)
+    assert took == path
+    want = ref.adc_rows_ref(luts, codes, ids.clamp(max=N - 1).where(
+        ids < N, torch.tensor(-1, dtype=torch.int32))).numpy()
+    np.testing.assert_array_equal(got, want)
+    if path == "bulk":
+        G = _persistent_grid(B, slots)
+        assert G <= slots
+        assert sorted(q for t in turns.values() for q, _, _ in t) == list(
+            range(B))
+        for blk, seq in turns.items():
+            assert [q for q, _, _ in seq] == list(range(blk, B, G))
+            assert [(s, par) for _, s, par in seq] == [
+                (t % 2, (t // 2) % 2) for t in range(len(seq))]
+        assert len({len(t) for t in turns.values()}) == (1 if B % G == 0
+                                                         else 2)
+
+
 def _topk_jax(d, ids, k):
     gd, gi = jops.block_topk(jnp.asarray(d), jnp.asarray(ids), k)
     return np.asarray(gd), np.asarray(gi)
