@@ -6,7 +6,8 @@
 Phases:
 
   build    compile the nine CUDA kernels of ``src/repro_torch/kernels/csrc``
-           with nvcc into ``build/`` (one nvcc per source, all at once);
+           with nvcc into ``build/`` (one nvcc per source, all at once) and
+           print each kernel's registers, stack frame and spills (ptxas);
   kernels  run each kernel against its plain PyTorch version on the card at
            the main path's shapes, on integer-valued inputs (must be equal)
            and Gaussian ones (stated tolerance), and time kernel (CUDA
@@ -257,6 +258,45 @@ def kernel_record(name, *, err, times, plain_ms, nbytes, nflops,
 
 
 # --------------------------------------------------------------- phase 1
+def ptxas_report(text: str) -> list[str]:
+    """Each kernel's line of an ``nvcc -Xptxas=-v`` log: its (demangled)
+    name, registers, stack frame and spill bytes."""
+    import re
+    props, regs, order, cur, props_of = {}, {}, [], None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            order.append(cur)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props_of = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props_of:
+            props[props_of] = m.groups()
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            regs[cur] = m.group(1)
+    names = dict(zip(order, order))
+    if shutil.which("c++filt") and order:
+        out = subprocess.run(["c++filt"], input="\n".join(order), text=True,
+                             capture_output=True).stdout.splitlines()
+        if len(out) == len(order):
+            names = {f: re.sub(r"^void |\(anonymous namespace\)::", "",
+                               n).split("(")[0] for f, n in zip(order, out)}
+    lines = []
+    for f in order:
+        stack, st, ld = props.get(f, ("?", "?", "?"))
+        lines.append(f"{names[f]}: {regs.get(f, '?')} registers, {stack} "
+                     f"bytes stack frame, {st} bytes spill stores, {ld} "
+                     f"bytes spill loads")
+    return lines
+
+
 def phase_build() -> float:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -266,6 +306,9 @@ def phase_build() -> float:
         build.library(name)
     log(f"[build] nvcc -> {build.BUILD_DIR}: {secs:.2f} s "
         f"(per source {json.dumps({k: round(v, 2) for k, v in build.build_seconds.items()})})")
+    for name, text in getattr(build, "build_logs", {}).items():
+        for line in ptxas_report(text):
+            log(f"[build] ptxas {name}: {line}")
     return secs
 
 
@@ -1402,8 +1445,9 @@ def gather_breakdown(table, ids) -> dict:
 def topk_kernel_record(seed: int, Q: int = 1024, k: int = 5) -> dict:
     """``block_topk`` against its plain version at the cross-shard merge's
     shapes: Q 1024 queries x N 2,560 candidates (the freshdiskann-1b
-    deployment's 512 shards x k 5) and N 20 (this script's 4 shards x k 5),
-    k 5.  Gaussian distances, and integer ones with ties, +-inf and a NaN
+    deployment's 512 shards x k 5), N 20 (this script's 4 shards x k 5) and
+    N 15 (3 shards x k 5: not a multiple of 4, so the kernel's single-value
+    loads), k 5.  Gaussian distances, and integer ones with ties, +-inf and a NaN
     row: values and ids must be equal (NaN where the plain version has
     NaN).  Times kernel, plain version and ``torch.topk(largest=False,
     sorted=True)`` (which breaks ties otherwise: time only); the record is
@@ -1413,7 +1457,7 @@ def topk_kernel_record(seed: int, Q: int = 1024, k: int = 5) -> dict:
     dev = torch.device("cuda")
     g = np.random.default_rng(seed + 13)
     rec = None
-    for N in (2560, 20):
+    for N in (2560, 20, 15):
         ids = torch.from_numpy(g.permutation(1 << 22)[:N].astype(
             np.int32)).to(dev)
         di = g.integers(0, 6, (Q, N)).astype(np.float32)

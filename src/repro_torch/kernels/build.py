@@ -6,8 +6,10 @@ the checkout, compiled for ``sm_90a`` the first time it is used; the hash is
 of the source and the shared headers (``csrc/*.cuh``), so an edited kernel
 is never served from a stale library.
 All missing libraries are compiled at once, one ``nvcc`` process per
-source.  Each library exports one C function that takes raw pointers, the
-sizes and the CUDA stream, and returns ``cudaGetLastError()``.
+source; each one's ``ptxas`` report (registers, stack frame and spills of
+every kernel, ``-Xptxas=-v``) is kept in ``build_logs``.  Each library
+exports one C function that takes raw pointers, the sizes and the CUDA
+stream, and returns ``cudaGetLastError()``.
 
 Nothing here runs at import: the CPU tests import every module of the
 package, and this machine-dependent step happens on the first launch.
@@ -26,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +50,7 @@ SIGNATURES = {
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}
+build_logs: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -92,10 +95,11 @@ def build_all(names=None) -> dict[str, float]:
     took = {}
     for name, out, tmp, p in procs:
         log, _ = p.communicate()
+        text = log.decode(errors="replace")
         if p.returncode != 0:
-            errors.append(f"{name}: nvcc exited {p.returncode}\n"
-                          f"{log.decode(errors='replace')}")
+            errors.append(f"{name}: nvcc exited {p.returncode}\n{text}")
             continue
+        build_logs[name] = text
         os.replace(tmp, out)             # atomic: never a half-written .so
         took[name] = time.perf_counter() - t0
     if errors:

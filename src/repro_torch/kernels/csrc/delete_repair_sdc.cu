@@ -104,9 +104,9 @@ __global__ void __launch_bounds__(prune::kThreads, 3)
     }
   }
   sdcr::block_best(bv, bc, w_val, w_col, 0);
-  const int r =
-      sdcr::block_rounds<kVec>(tables, codes, m, ksub, cid, dp, alive, n, R,
-                               alpha, bv, bc, out_row, w_val, w_col);
+  const sdcr::TableRows rows{codes, cid, m};
+  const int r = sdcr::block_rounds<kVec>(tables, rows, ksub, dp, alive, n, R,
+                                         alpha, bv, bc, out_row, w_val, w_col);
   for (int i = r + tid; i < R; i += blockDim.x) out_row[i] = -1;
 }
 

@@ -1,6 +1,10 @@
-// Device helpers shared by the SDC prune and the delete-repair kernels
-// (robust_prune_sdc.cu, delete_repair_fp.cu, delete_repair_sdc.cu).  Every
-// helper is called by all threads of a block of kThreads threads.
+// Device helpers shared by the prune and delete-repair kernels: `better`,
+// the (value, column) order of every prune round (robust_prune_fp.cu and
+// delete_repair_fp.cu through prune_rounds_fp.cuh, robust_prune_sdc.cu and
+// delete_repair_sdc.cu through prune_rounds_sdc.cuh), and Algorithm 4's
+// row load and candidate compaction (delete_repair_fp.cu,
+// delete_repair_sdc.cu), which all threads of a block of kThreads threads
+// call.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,92 +16,16 @@ namespace prune {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
+// a before b: the lesser value, the lower column among equal values.
 __device__ __forceinline__ bool better(float va, int ca, float vb, int cb) {
   return va < vb || (va == vb && ca < cb);
 }
 
-// Scratch for block_argmin and compact (static shared memory).
+// Scratch for load_row and compact (static shared memory).
 struct Scratch {
-  float w_val[kWarps];
-  int w_col[kWarps];
   int w_cnt[kWarps];
-  int star;
   int ok;
 };
-
-// The alive column with the least dp (lowest column on ties) among
-// [0, n), or -1 when no alive column has a finite dp.  A warp-shuffle
-// reduction on (distance, column), then one thread over the warps.
-__device__ __forceinline__ int block_argmin(const float* dp,
-                                            const uint8_t* alive, int n,
-                                            Scratch& s) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float bv = CUDART_INF_F;
-  int bc = n;
-  for (int c = tid; c < n; c += blockDim.x) {
-    const float v = alive[c] ? dp[c] : CUDART_INF_F;
-    if (better(v, c, bv, bc)) {
-      bv = v;
-      bc = c;
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-    const int oc = __shfl_xor_sync(0xffffffffu, bc, o);
-    if (better(ov, oc, bv, bc)) {
-      bv = ov;
-      bc = oc;
-    }
-  }
-  if (lane == 0) {
-    s.w_val[warp] = bv;
-    s.w_col[warp] = bc;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float v = s.w_val[0];
-    int c = s.w_col[0];
-    for (int w = 1; w < kWarps; ++w)
-      if (better(s.w_val[w], s.w_col[w], v, c)) {
-        v = s.w_val[w];
-        c = s.w_col[w];
-      }
-    s.star = isfinite(v) ? c : -1;
-  }
-  __syncthreads();
-  return s.star;
-}
-
-// Stage the SDC LUT slice T[j, a_j, :] (j < m) of tables [m, ksub, ksub]
-// into lut[j * ksub + k], with 16-byte loads where the layout allows.
-__device__ __forceinline__ void stage_lut(const float* __restrict__ tables,
-                                          const uint8_t* a, int m, int ksub,
-                                          float* lut) {
-  if ((ksub & 3) == 0 && (reinterpret_cast<uintptr_t>(tables) & 15) == 0) {
-    const int q = ksub >> 2;
-    for (int i = threadIdx.x; i < m * q; i += blockDim.x) {
-      const int j = i / q, k4 = i - j * q;
-      const float4* src = reinterpret_cast<const float4*>(
-          tables + ((long long)j * ksub + a[j]) * ksub);
-      reinterpret_cast<float4*>(lut + j * ksub)[k4] = src[k4];
-    }
-  } else {
-    for (int i = threadIdx.x; i < m * ksub; i += blockDim.x) {
-      const int j = i / ksub, k = i - j * ksub;
-      lut[i] = tables[((long long)j * ksub + a[j]) * ksub + k];
-    }
-  }
-}
-
-// SDC distance of a code row to the staged slice: sum_j lut[j, row[j]],
-// summed in j order.
-__device__ __forceinline__ float sdc_sum(const float* lut,
-                                         const uint8_t* row, int m,
-                                         int ksub) {
-  float acc = 0.f;
-  for (int j = 0; j < m; ++j) acc += lut[j * ksub + row[j]];
-  return acc;
-}
 
 // Algorithm 4's first step for node p: load its row into row_s[R], and
 // list in par_s the columns of its deleted neighbours in column order, at

@@ -18,6 +18,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "prune_common.cuh"
+
 namespace fpr {
 
 constexpr int kThreads = 256;
@@ -26,9 +28,7 @@ constexpr int kLanes = 8;                     // lanes per candidate
 constexpr int kGroups = kThreads / kLanes;    // candidates in flight
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ bool better(float va, int ca, float vb, int cb) {
-  return va < vb || (va == vb && ca < cb);
-}
+using prune::better;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));

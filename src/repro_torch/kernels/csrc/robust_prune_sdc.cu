@@ -7,82 +7,109 @@
 // rows with one-hot contractions.
 //
 // Per node row b (contract: repro_torch.kernels.ref.robust_prune_sdc_ref on
-// the gathered codes codes[ids[b]]): exactly R rounds; each takes the
-// alive candidate with the least anchor distance (lowest column on ties),
-// emits its id, and retires every candidate c with
+// the gathered codes codes[clamp(ids[b], 0, N-1)]): exactly R rounds; each
+// takes the alive candidate (ok and a finite d_p) with the least anchor
+// distance (lowest column on ties), emits its raw id ids[b, star], and
+// retires every candidate c with
 //   alpha * sum_j T[j, code(star)_j, code(c)_j] <= d_p[c]
 // (the sum taken in j order).  A round that finds no finite candidate
 // retires the row: the remaining outputs are INVALID (-1).
 //
 // Bound: device-memory bytes -- d_p, ids and ok once, the alive
-// candidates' m-byte code rows once, and per round the winner's LUT slice
-// T[j, code(star)_j, :] (m * ksub * 4 = 32 KB at m=32, ksub=256; the
-// 8 MB tables stay in L2 across rows and rounds).  Design: one block per
-// row; the candidates' codes are gathered once into shared memory as u8
-// (C=203 x m=32 = 6.5 KB), the anchor distances and the alive mask sit in
-// shared memory, the argmin is a warp-shuffle reduction on (distance,
-// column), the winner's LUT slice is staged in shared memory with 16-byte
-// loads each round, and each thread scores its candidates with m
-// shared-memory lookups.  Dead candidates are skipped.
+// candidates' m-byte code rows once, the tables (8 MB at m 32, ksub 256,
+// nearly every row of which a block of 256 node rows touches) and the
+// outputs.  At the main path's shapes (B 226-298 rows, C 128 or 203) every
+// row is resident at once, so the kernel's time is one row's chain of up
+// to R rounds.  Design: one block of 256 threads a row;
+//  * one pass loads d_p, ok and the ids, marks the alive candidates, stages
+//    each alive candidate's code row once in shared memory as u8 (C 203 x
+//    m 32 = 6.5 KB; an id < 0 or >= N reads the clamped row, as the plain
+//    version's gather does) and folds the first argmin;
+//  * the rounds are prune_rounds_sdc.cuh's block_rounds over the staged
+//    rows (StagedRows): column c stays with thread c % 256, a cover is m
+//    table gathers summed in j order, so a round's only trip to L2 is those
+//    gathers (no slice of the tables is staged), and the next argmin is
+//    folded into the cover pass: one block barrier a round.
+// Shared memory: C * (9 + m) bytes, 8.3 KB at C 203.  Reading the code rows
+// from the code table each round instead (a dependent trip for the code
+// words before the table gathers) measured 7-8 % slower (PERF.md).
 #include "prune_common.cuh"
+#include "prune_rounds_sdc.cuh"
 
 namespace {
 
-using prune::kThreads;
-
-__global__ void robust_prune_sdc_kernel(
-    const float* __restrict__ d_p, const uint8_t* __restrict__ codes,
-    const float* __restrict__ tables, const int32_t* __restrict__ ids,
-    const bool* __restrict__ ok, int32_t* __restrict__ out_ids,
-    int32_t* __restrict__ counts, int C, int N, int m, int ksub, int R,
-    float alpha) {
+// A block of prune::kThreads threads a row, three blocks an SM (at most 85
+// registers a thread).
+template <bool kVec>
+__global__ void __launch_bounds__(prune::kThreads, 3)
+    robust_prune_sdc_kernel(const float* __restrict__ d_p,
+                            const uint8_t* __restrict__ codes,
+                            const float* __restrict__ tables,
+                            const int32_t* __restrict__ ids,
+                            const bool* __restrict__ ok,
+                            int32_t* __restrict__ out_ids,
+                            int32_t* __restrict__ counts, int C, int N, int m,
+                            int ksub, int R, float alpha) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* lut = reinterpret_cast<float*>(smem);                // [m * ksub]
-  float* dp = lut + m * ksub;                                 // [C]
-  uint8_t* cc = reinterpret_cast<uint8_t*>(dp + C);           // [C * m]
-  uint8_t* alive = cc + (size_t)C * m;                        // [C]
-  __shared__ prune::Scratch scr;
+  int* sid = reinterpret_cast<int*>(smem);                    // [C]
+  float* dp = reinterpret_cast<float*>(sid + C);              // [C]
+  uint8_t* rows = reinterpret_cast<uint8_t*>(dp + C);         // [C * m]
+  uint8_t* alive = rows + (size_t)C * m;                      // [C]
+  __shared__ float w_val[2][sdcr::kMaxWarps];
+  __shared__ int w_col[2][sdcr::kMaxWarps];
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int b = blockIdx.x, tid = threadIdx.x;
   const long long rc = (long long)b * C;
-
+  float bv = CUDART_INF_F;
+  int bc = 0x7fffffff;
   for (int c = tid; c < C; c += blockDim.x) {
-    const bool o = ok[rc + c];
-    const float v = o ? d_p[rc + c] : CUDART_INF_F;
+    const float v = d_p[rc + c];
+    const int id = ids[rc + c];
+    const bool live = ok[rc + c] && isfinite(v);
+    sid[c] = id;
     dp[c] = v;
-    alive[c] = (o && isfinite(v)) ? 1 : 0;
-  }
-  __syncthreads();
-  // Gather the alive candidates' code rows (one byte per subspace; an id
-  // < 0 reads row 0, as the plain version's clamped gather does).
-  for (int i = tid; i < C * m; i += blockDim.x) {
-    const int c = i / m, j = i - c * m;
-    if (alive[c]) {
-      const int id = min(max(ids[rc + c], 0), N - 1);
-      cc[i] = codes[(long long)id * m + j];
+    alive[c] = live ? 1 : 0;
+    if (!live) continue;
+    const uint8_t* src = codes + (long long)min(max(id, 0), N - 1) * m;
+    uint8_t* dst = rows + (size_t)c * m;
+    if (kVec) {
+      for (int w = 0; w < m; w += 8)
+        *reinterpret_cast<uint2*>(dst + w) =
+            __ldg(reinterpret_cast<const uint2*>(src + w));
+    } else {
+      for (int j = 0; j < m; ++j) dst[j] = __ldg(src + j);
+    }
+    if (sdcr::better(v, c, bv, bc)) {
+      bv = v;
+      bc = c;
     }
   }
-  __syncthreads();
-
-  int r = 0;
-  for (; r < R; ++r) {
-    const int star = prune::block_argmin(dp, alive, C, scr);
-    if (star < 0) break;                    // no winner: the row retires
-    if (tid == 0) out_ids[(long long)b * R + r] = ids[rc + star];
-    prune::stage_lut(tables, cc + (size_t)star * m, m, ksub, lut);
-    __syncthreads();
-    // Retire what the winner alpha-covers (and the winner itself).
-    for (int c = tid; c < C; c += blockDim.x) {
-      if (!alive[c]) continue;
-      const float acc = prune::sdc_sum(lut, cc + (size_t)c * m, m, ksub);
-      if (c == star || alpha * acc <= dp[c]) alive[c] = 0;
-    }
-    __syncthreads();
-  }
-  for (int i = r + tid; i < R; i += blockDim.x)
-    out_ids[(long long)b * R + i] = -1;
+  // Its barrier also makes every staged row visible to the whole block.
+  sdcr::block_best(bv, bc, w_val, w_col, 0);
+  const sdcr::StagedRows staged{rows, sid, m};
+  int32_t* out_row = out_ids + (long long)b * R;
+  const int r = sdcr::block_rounds<kVec>(tables, staged, ksub, dp, alive, C,
+                                         R, alpha, bv, bc, out_row, w_val,
+                                         w_col);
+  for (int i = r + tid; i < R; i += blockDim.x) out_row[i] = -1;
   if (tid == 0) counts[b] = r;
+}
+
+template <bool kVec>
+int launch(const float* d_p, const uint8_t* codes, const float* tables,
+           const int32_t* ids, const bool* ok, int32_t* out_ids,
+           int32_t* counts, int B, int C, int N, int m, int ksub, int R,
+           float alpha, cudaStream_t stream) {
+  const size_t smem = (size_t)C * (9 + m);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        robust_prune_sdc_kernel<kVec>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  robust_prune_sdc_kernel<kVec><<<B, prune::kThreads, smem, stream>>>(
+      d_p, codes, tables, ids, ok, out_ids, counts, C, N, m, ksub, R, alpha);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -93,18 +120,19 @@ extern "C" int robust_prune_sdc(const void* d_p, const void* codes,
                                 int B, int C, int N, int m, int ksub, int R,
                                 float alpha, void* stream) {
   if (B == 0) return 0;
-  const size_t smem = (size_t)m * ksub * 4 + (size_t)C * 4 +
-                      (size_t)C * m + (size_t)C;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        robust_prune_sdc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  robust_prune_sdc_kernel<<<B, kThreads, smem,
-                            reinterpret_cast<cudaStream_t>(stream)>>>(
-      (const float*)d_p, (const uint8_t*)codes, (const float*)tables,
-      (const int32_t*)ids, (const bool*)ok, (int32_t*)out_ids,
-      (int32_t*)counts, C, N, m, ksub, R, alpha);
-  return (int)cudaGetLastError();
+  // 8-byte words of the code rows: m % 8 == 0 and an 8-byte aligned table.
+  const bool vec =
+      m % 8 == 0 && (reinterpret_cast<uintptr_t>(codes) & 7) == 0;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const auto* dp = (const float*)d_p;
+  const auto* cd = (const uint8_t*)codes;
+  const auto* t = (const float*)tables;
+  const auto* id = (const int32_t*)ids;
+  const auto* o = (const bool*)ok;
+  auto* out = (int32_t*)out_ids;
+  auto* cnt = (int32_t*)counts;
+  return vec ? launch<true>(dp, cd, t, id, o, out, cnt, B, C, N, m, ksub, R,
+                            alpha, st)
+             : launch<false>(dp, cd, t, id, o, out, cnt, B, C, N, m, ksub, R,
+                             alpha, st);
 }

@@ -151,17 +151,23 @@ def test_train_pq_same_start_on_cpu_and_card(dev, n):
                        pqm.train_pq(torch.from_numpy(x), cfg).centroids)
 
 
-@pytest.mark.parametrize("B,C,m,ksub,R", [(16, 203, 32, 256, 64),
-                                          (8, 128, 32, 256, 64),
-                                          (4, 9, 5, 200, 16)])
-def test_robust_prune_sdc_exact_on_integers(dev, B, C, m, ksub, R):
-    g = np.random.default_rng(C + m)
+@pytest.mark.parametrize("B,C,m,ksub,R,neg_ok", [
+    (16, 203, 32, 256, 64, False), (8, 128, 32, 256, 64, False),
+    (4, 9, 5, 200, 16, False),
+    (6, 300, 32, 256, 64, False),        # more columns than threads
+    (16, 203, 32, 256, 64, True), (4, 300, 8, 64, 32, True)])
+def test_robust_prune_sdc_exact_on_integers(dev, B, C, m, ksub, R, neg_ok):
+    """Rows and counts equal to the plain version's; with ``neg_ok`` the
+    mask is true on ids of -1 too (they emit -1 and read row 0's code)."""
+    g = np.random.default_rng(C + m + (1 if neg_ok else 0))
     N = 500
     codes = _t(g.integers(0, ksub, (N, m)).astype(np.uint8), dev)
     tables = _t(g.integers(0, 9, (m, ksub, ksub)).astype(np.float32), dev)
     ids_np = g.integers(0, N, (B, C)).astype(np.int32)
     ids_np[g.random((B, C)) < 0.1] = -1
-    ok_np = (ids_np >= 0) & (g.random((B, C)) > 0.2)
+    ok_np = g.random((B, C)) > 0.2
+    if not neg_ok:
+        ok_np &= ids_np >= 0
     ok_np[0] = False
     ids, ok = _t(ids_np, dev), _t(ok_np, dev)
     d_p = _t(g.integers(0, 9 * m, (B, C)).astype(np.float32), dev)
@@ -170,6 +176,9 @@ def test_robust_prune_sdc_exact_on_integers(dev, B, C, m, ksub, R):
     wo, wc = ref.robust_prune_sdc_ref(d_p, codes[ids.clamp(min=0).long()],
                                       tables, ids, ok, alpha=1.2, R=R)
     assert torch.equal(go, wo) and torch.equal(gc, wc)
+    if neg_ok:
+        assert bool(((go == -1) & (torch.arange(R, device=dev)[None]
+                                   < gc[:, None])).any())
 
 
 def _repair_graph(g, N, R, frac_deleted):
@@ -322,7 +331,9 @@ def test_gather_rows_bit_identical(dev, R, shape):
 
 
 @pytest.mark.parametrize("Q,N,k", [(1024, 2560, 5), (1024, 20, 5),
-                                   (7, 600, 33), (5, 3, 8), (3, 200, 128)])
+                                   (7, 600, 33), (5, 3, 8), (3, 200, 128),
+                                   (1024, 15, 5), (256, 2561, 5),
+                                   (256, 2561, 9), (1024, 2560, 9)])
 def test_block_topk_bit_identical(dev, Q, N, k):
     """Integer distances with ties, +-inf and a NaN row: values and ids
     equal to the plain version's (NaN compared as NaN), k > N padded;
@@ -342,6 +353,26 @@ def test_block_topk_bit_identical(dev, Q, N, k):
     assert torch.equal(got_d[fin], want_d[fin])
     with pytest.raises(ValueError, match="use_kernel=False"):
         ops.block_topk(dd, ids, k, use_kernel=False)
+
+
+def test_block_topk_signed_zeros_and_unaligned_rows(dev):
+    """-0.0 and +0.0 are equal (the lowest column first, each pick's own
+    bits kept); N 2560 from a 4-byte offset takes the single-value loads:
+    both bit-identical to the plain version."""
+    g = np.random.default_rng(5)
+    Q, N, k = 64, 2560, 8
+    d = g.integers(0, 3, (Q, N)).astype(np.float32)
+    d[(d == 0) & (g.random((Q, N)) < 0.5)] = -0.0
+    ids = _t(g.integers(0, 1 << 20, N).astype(np.int32), dev)
+    buf = torch.empty(Q * N + 1, device=dev)
+    off = buf[1:].view(Q, N)
+    off.copy_(_t(d, dev))
+    for x in (_t(d, dev), off):
+        got_d, got_i = ops.block_topk(x, ids, k)
+        want_d, want_i = ref.block_topk_ref(x, ids, k)
+        assert torch.equal(got_i, want_i)
+        assert torch.equal(got_d.view(torch.int32), want_d.view(torch.int32))
+    assert bool(torch.signbit(want_d).any() and (want_d == 0).all())
 
 
 def test_launches_counted_and_plain_refused_on_cuda(dev):

@@ -573,22 +573,51 @@ def _sdc_sums(tables, a, cc):
     return acc
 
 
+def _sdc_block_rounds(tables, rows, emit, dp, alive, *, alpha, R, threads):
+    """prune_rounds_sdc.cuh's block_rounds over one list, in numpy: column
+    c (code row ``rows[c]``, emitted id ``emit[c]``) owned by thread
+    c % ``threads`` with an alive flag; the first winner is the least
+    (dp, column) among the alive columns; each round emits the winner's
+    id, scores every other alive column against it with m table reads a
+    candidate summed in j order (no staged slice), retires what it
+    alpha-covers, and each thread folds the least (dp, column) of its
+    surviving columns into its cover pass, the block's least of those the
+    next winner.  ``alive`` is updated in place.  Returns the ids
+    emitted."""
+    a32 = np.float32(alpha)
+    n = len(dp)
+    best = min(((dp[c], c) for c in range(n) if alive[c]),
+               default=(np.inf, n))
+    out = []
+    while len(out) < R and best[0] < np.inf:
+        star = best[1]
+        out.append(emit[star])
+        cover = _sdc_sums(tables, rows[star], rows)
+        mine = []
+        for t in range(threads):
+            cols = [c for c in range(t, n, threads) if alive[c]]
+            for c in cols:
+                alive[c] = c != star and not a32 * cover[c] <= dp[c]
+            own = [(dp[c], c) for c in cols if alive[c]]
+            if own:
+                mine.append(min(own))
+        best = min(mine, default=(np.inf, n))
+    return out
+
+
 def _emulate_delete_repair_sdc(adj, deleted, usable, codes, tables,
                                node_ids, *, alpha, R, cap, threads=256):
     """delete_repair_sdc.cu's walk for each node, in numpy: out-of-range
     nodes give -1 rows; a node that is not usable or has no deleted
     neighbour keeps its row (the early exit); otherwise the candidate lanes
     (kept edges, then the rows of the FIRST ``cap`` deleted neighbours in
-    column order) are compacted in column order, the anchor distances and
-    every cover are m table reads a candidate summed in j order (no staged
-    slice), and prune_rounds_sdc.cuh's block_rounds run: column c owned by
-    thread c % ``threads`` with an alive flag, each thread folding the
-    least (dp, column) of its surviving columns into its cover pass, the
-    block's least of those the next winner.  Returns the rows and, for
-    each repaired node, (deleted neighbours, candidates n, alive after the
-    anchor pass), None for the others."""
+    column order) are compacted in column order, the anchor distances are
+    m table reads a candidate summed in j order, and the block's rounds
+    (``_sdc_block_rounds``) run over the candidates' code-table rows,
+    emitting their ids.  Returns the rows and, for each repaired node,
+    (deleted neighbours, candidates n, alive after the anchor pass), None
+    for the others."""
     N = adj.shape[0]
-    a32 = np.float32(alpha)
     out = np.full((len(node_ids), R), 7777, np.int32)
     sizes = []
     for b, p in enumerate(node_ids.tolist()):
@@ -610,24 +639,10 @@ def _emulate_delete_repair_sdc(adj, deleted, usable, codes, tables,
         dp = _sdc_sums(tables, codes[p], codes[cid]) if n else np.zeros(0)
         alive = np.isfinite(dp)
         sizes.append((len(dels), n, int(alive.sum())))
-        best = min(((dp[c], c) for c in range(n) if alive[c]),
-                   default=(np.inf, n))
-        r = 0
-        while r < R and best[0] < np.inf:
-            star = best[1]
-            out[b, r] = cid[star]
-            cover = _sdc_sums(tables, codes[cid[star]], codes[cid])
-            mine = []
-            for t in range(threads):
-                cols = [c for c in range(t, n, threads) if alive[c]]
-                for c in cols:
-                    alive[c] = c != star and not a32 * cover[c] <= dp[c]
-                own = [(dp[c], c) for c in cols if alive[c]]
-                if own:
-                    mine.append(min(own))
-            best = min(mine, default=(np.inf, n))
-            r += 1
-        out[b, r:] = -1
+        new = _sdc_block_rounds(tables, codes[cid], cid, dp, alive,
+                                alpha=alpha, R=R, threads=threads)
+        out[b, :len(new)] = new
+        out[b, len(new):] = -1
     return out, sizes
 
 
@@ -678,6 +693,76 @@ def test_delete_repair_sdc_kernel_walk_matches_contract(threads, R, m, ksub,
     assert not np.array_equal(got[0], adj[0])
     if threads < 256:                    # threads own several columns
         assert max(z[1] for z in sizes if z is not None) > 4 * threads
+
+
+def _emulate_robust_prune_sdc(d_p, codes, tables, ids, ok, *, alpha, R,
+                              threads=256):
+    """robust_prune_sdc.cu's walk for each row, in numpy: the alive
+    candidates are those with ``ok`` and a finite anchor distance, each
+    one's code row is staged once from the CLAMPED id (an id < 0 reads row
+    0, as the plain version's gather does), and the block's rounds
+    (``_sdc_block_rounds``) emit the RAW ids; the rest of the row is -1
+    and the count is the ids emitted."""
+    B, C = ids.shape
+    N = codes.shape[0]
+    out = np.full((B, R), 7777, np.int32)
+    cnt = np.full(B, 7777, np.int32)
+    for b in range(B):
+        alive = ok[b] & np.isfinite(d_p[b])
+        rows = codes[np.clip(ids[b], 0, N - 1)]
+        new = _sdc_block_rounds(tables, rows, ids[b], d_p[b], alive,
+                                alpha=alpha, R=R, threads=threads)
+        out[b, :len(new)] = new
+        out[b, len(new):] = -1
+        cnt[b] = len(new)
+    return out, cnt
+
+
+@pytest.mark.parametrize("threads", [256, 4])
+@pytest.mark.parametrize("B,C,m,ksub,R,alpha", [(4, 40, 8, 16, 8, 1.2),
+                                                (3, 300, 8, 16, 24, 1.2),
+                                                (3, 67, 5, 32, 16, 1.0)])
+def test_robust_prune_sdc_kernel_walk_matches_contract(threads, B, C, m,
+                                                       ksub, R, alpha):
+    """robust_prune_sdc.cu's staged code rows, raw-id/clamped-row split and
+    the block's rounds (emulated in numpy) give the contract's rows and
+    counts, and the Pallas kernel's (interpret mode), on integer inputs
+    with ties, duplicate ids, ``ok`` true on ids of -1 (which emit -1 and
+    cover with row 0's code), +-inf and NaN anchor distances (never alive)
+    and an all-masked row; with the kernel's 256 threads and with 4 (each
+    thread then owns several columns); C 300 has more columns than the
+    kernel's threads."""
+    g = np.random.default_rng(C * m + R)
+    N = 90
+    codes = g.integers(0, ksub, (N, m)).astype(np.uint8)
+    tables = g.integers(0, 9, (m, ksub, ksub)).astype(np.float32)
+    ids = g.integers(0, N, (B, C)).astype(np.int32)
+    ids[:, C // 2:C // 2 + C // 8] = ids[:, :C // 8]         # duplicates
+    ids[g.random((B, C)) < 0.15] = -1
+    ok = g.random((B, C)) > 0.15                  # true on some ids of -1
+    ok[0] = False                                 # no winner at all
+    d_p = g.integers(0, 6 * m, (B, C)).astype(np.float32)
+    d_p[1, :4] = [np.inf, np.nan, -np.inf, np.nan]
+    ok[1, :4] = True
+    got = _emulate_robust_prune_sdc(d_p, codes, tables, ids, ok, alpha=alpha,
+                                    R=R, threads=threads)
+    t = [torch.from_numpy(x) for x in (d_p, codes[np.maximum(ids, 0)],
+                                       tables, ids, ok)]
+    want = ref.robust_prune_sdc_ref(*t, alpha=alpha, R=R)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+    w_ids, w_cnt = jops.robust_prune_sdc(
+        jnp.asarray(d_p), jnp.asarray(codes[np.maximum(ids, 0)].astype(
+            np.int32)), jnp.asarray(tables), jnp.asarray(ids),
+        jnp.asarray(ok), alpha=alpha, R=R, use_kernel=True)
+    np.testing.assert_array_equal(got[0], np.asarray(w_ids))
+    np.testing.assert_array_equal(got[1], np.asarray(w_cnt))
+    emitted = got[0][np.arange(R)[None] < got[1][:, None]]
+    assert got[1][0] == 0 and (got[0][0] == -1).all()
+    assert (emitted == -1).any()                  # an ok id of -1 won
+    assert got[1][1:].min() > 0
+    if C > 256:
+        assert got[1].max() > 1
 
 
 def _persistent_grid(B, slots):
@@ -862,6 +947,112 @@ def test_block_topk_edge_rules_match_jax_kernel(case):
         assert np.isnan(got[0][[2, 4]]).all() and (got[1][[2, 4]] == -1).all()
     elif case == "k_over_n":
         assert np.isinf(got[0][:, 3:]).all() and (got[1][:, 3:] == -1).all()
+
+
+def _emulate_block_topk(d, ids, k, *, vec, batch=16):
+    """block_topk.cu's warp for each row, in numpy.  Lane l meets its
+    columns in batches of ``batch`` values: the float4s i = b0 + l + 32 u
+    as columns 4i..4i+3 (``vec``: N % 4 == 0, N >= 512 and 16-byte
+    aligned rows), else the columns b0 + l + 32 t.  For k <= 8 (a register
+    list) and more than 32 units a row, the first batch sets a bound, the
+    k-th least of the lanes' minima.  A value is a candidate below the
+    lane's k-th best and at or below the bound (a NaN flags the row);
+    candidates are inserted in column order, the k-th best re-read before
+    each.  Then k rounds: the least head over the lanes, -0.0 equal to
+    +0.0, the lowest column among equal heads.  Returns (values, ids) and
+    the count of values that were not candidates.  A row of at most 32
+    values (single-value path) skips batches and lists: lane l holds
+    column l."""
+    Q, N = d.shape
+    per = 4 if vec else 1
+    upb = batch // per                      # units a lane loads a batch
+    out_d = np.full((Q, k), 7.0, np.float32)
+    out_i = np.full((Q, k), 7777, np.int32)
+    rejected = 0
+    for q in range(Q):
+        lists = [[] for _ in range(32)]     # (value, column), ascending
+        nan, bound = False, np.inf
+        units = N // 4 if vec else N
+        if not vec and N <= 32:             # a value a lane, no batches
+            nan = bool(np.isnan(d[q]).any())
+            lists = [[(d[q, c], c)] if c < N and d[q, c] < np.inf else []
+                     for c in range(32)]
+            units = 0
+        for b0 in range(0, units, 32 * upb):
+            cols = [[per * (b0 + lane + 32 * u) + j for u in range(upb)
+                     if b0 + lane + 32 * u < units for j in range(per)]
+                    for lane in range(32)]
+            if k <= 8 and b0 == 0 and units > 32:
+                mins = sorted(min([d[q, c] for c in cs
+                                   if not np.isnan(d[q, c])],
+                                  default=np.inf) for cs in cols)
+                bound = mins[k - 1]
+            for lane, cs in enumerate(cols):
+                lst = lists[lane]
+                kth = lst[k - 1][0] if len(lst) >= k else np.inf
+                cand = [c for c in cs if d[q, c] < kth and d[q, c] <= bound]
+                nan |= any(np.isnan(d[q, c]) for c in cs)
+                rejected += len(cs) - len(cand)
+                for c in cand:
+                    kth = lst[k - 1][0] if len(lst) >= k else np.inf
+                    if d[q, c] < kth:
+                        pos = sum(1 for v, _ in lst if not d[q, c] < v)
+                        lst.insert(pos, (d[q, c], c))
+                        del lst[k:]
+        if nan:
+            out_d[q], out_i[q] = np.nan, -1
+            continue
+        for r in range(k):
+            heads = [(lst[0][0], lst[0][1], lane)
+                     for lane, lst in enumerate(lists) if lst]
+            if not heads:
+                out_d[q, r], out_i[q, r] = np.inf, -1
+                continue
+            wd, wc, wl = min(heads, key=lambda h: (h[0], h[1]))
+            lists[wl].pop(0)
+            out_d[q, r] = wd
+            out_i[q, r] = ids[wc] if np.isfinite(wd) else -1
+    return out_d, out_i, rejected
+
+
+@pytest.mark.parametrize("k", [1, 5, 8, 9, 128])
+@pytest.mark.parametrize("N", [15, 20, 2560, 2561])
+def test_block_topk_kernel_walk_matches_contract(N, k):
+    """block_topk.cu's lane-to-column mapping (float4 and single-value
+    paths) in batches, the lanes' bound from their first batch, the
+    k-th-best threshold, the lists and the cross-lane merge (emulated in
+    numpy) give the contract's values and ids, bit for bit, and the Pallas
+    kernel's (interpret mode): integer distances with ties (many at the
+    bound), signed zeros (equal, the lowest column first), +-inf (id -1),
+    a NaN row ((NaN, -1) throughout) and k > N ((+inf, -1) padding).  N 15,
+    20 and 2561 take the single-value loads; N 2560 both paths (an
+    unaligned row takes the single-value loads)."""
+    g = np.random.default_rng(N + k)
+    Q = 3
+    d = g.integers(0, 5, (Q, N)).astype(np.float32)
+    d[g.random((Q, N)) < 0.1] = np.inf
+    d[0, g.choice(N, 2, replace=False)] = -np.inf
+    zero = d == 0
+    d[zero & (g.random((Q, N)) < 0.5)] = -0.0
+    d[2, N // 2] = np.nan
+    ids = g.integers(0, 1 << 20, N).astype(np.int32)
+    want = ref.block_topk_ref(torch.from_numpy(d), torch.from_numpy(ids), k)
+    want = [x.numpy() for x in want]
+    pallas = _topk_jax(d, ids, k)
+    for vec in ([True, False] if N % 4 == 0 and N >= 512 else [False]):
+        got_d, got_i, rejected = _emulate_block_topk(d, ids, k, vec=vec)
+        np.testing.assert_array_equal(got_i, want[1])
+        np.testing.assert_array_equal(got_d.view(np.int32),
+                                      want[0].view(np.int32))
+        np.testing.assert_array_equal(got_i, pallas[1])
+        np.testing.assert_array_equal(got_d, pallas[0])
+        if N >= 2560 and k <= 8:
+            assert rejected > 0.6 * Q * N     # most values: one compare
+    assert np.isnan(want[0][2]).all() and (want[1][2] == -1).all()
+    assert (want[1][0, :2] == -1).all() and np.isneginf(want[0][0, :2]).all()
+    assert (want[1][1] >= 0).sum() == min(k, int(np.isfinite(d[1]).sum()))
+    if k > N:
+        assert np.isposinf(want[0][:2, N:]).all()
 
 
 def test_block_topk_rejects_k_out_of_range():
