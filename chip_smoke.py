@@ -14,25 +14,30 @@ Phases:
            events, host us per call, torch.profiler device ms), plain
            version and, where one PyTorch call computes the same function,
            that call (``adc_rows`` at B 1024 x K 256, B 256 and K 512;
-           ``frontier_select`` also on unsorted candidate
-           lists; ``robust_prune_fp`` also at C 640, its tiled path;
-           ``gather_rows``' host path broken down by part; the two
-           delete-repair kernels and ``gather_rows``
-           are held against their plain versions after the main path, on
-           its merged graph, the repairs on a block of affected nodes and
-           on a block of consecutive slots; ``block_topk`` at the
+           ``frontier_select`` also on unsorted candidate lists and at the
+           filtered searches' L 150 x V 241 and L 512 x V 784, past the
+           256 visited ids it holds in registers; ``robust_prune_fp``
+           also at C 640, its tiled path; ``gather_rows``' host path
+           broken down by part; the two delete-repair kernels and
+           ``gather_rows`` are held against their plain versions after
+           the main path, on its merged graph, the repairs on a block of
+           affected nodes and on a block of consecutive slots;
+           ``block_topk`` at the
            cross-shard merge's shapes, with ties, +-inf and a NaN row);
-  parity   small systems on the CPU (plain versions) and on the card
-           (kernels) from integer data, through threshold merges (local and
-           global Delete phases, arrival and locality order),
+  parity   small labelled systems on the CPU (plain versions) and on the
+           card (kernels) from integer data, through threshold merges
+           (local and global Delete phases, arrival and locality order),
            ``consolidate(mode="global")`` and an SDC ``streaming_merge``:
-           results must be equal; and a small system with ``storage_dir``,
+           results, filtered ones and label tables included, must be
+           equal; and a small system with ``storage_dir``,
            ``wal_dir`` and ``snapshot_dir`` whose ``search_disk`` results
            and IO counters (cache off) must be equal on both, then crashed
            and recovered on the card, where it must twin the live system;
            and ``train_pq`` at the bootstrap's shape: equal bits from two
            trainings on the card, equal initial centroids on CPU and card;
-  main     bootstrap_system -> 1 % deletes -> streaming inserts with RW->RO
+  main     bootstrap_system (points labelled with the selectivity ladder
+           of tests/test_filtered.py and 4 tenants) -> 1 % deletes ->
+           labelled streaming inserts with RW->RO
            rollover up to a threshold StreamingMerge -> search_batch ->
            another 1 % deletes and a global ``consolidate`` -> an SDC
            ``streaming_merge`` at the freshdiskann-1b per-chip shape, with
@@ -40,6 +45,14 @@ Phases:
            and ``delete_repair_sdc`` also by shape and sweep), recall
            against brute force, self-hits, merge phase times and no
            deleted id returned.
+  filtered on the main path's merged system: a filter every point matches
+           equals the unfiltered call (ids, dists, hops, cmps); the
+           ladder's selectivities 0.5, 0.1 and 0.01 (k and L widened to
+           L 100, 150, 512), tenants 0-3 and a tenant with a label, each
+           4 x 1024 queries: 5-recall@5 against brute force over the
+           matching live points, no id failing its predicate, queries/s
+           and p50; ``batch_fanout=False`` and ``shard_lti=4`` filtered
+           equal to the fan-out; ``frontier_select``'s launches by shape.
   storage  on the main path's merged LTI: a system with ``storage_dir``,
            ``wal_dir`` and ``snapshot_dir`` writes the layout, serves
            4 x 1024 queries through ``search_disk`` (recall, no deleted id,
@@ -48,12 +61,18 @@ Phases:
            to ``DenseSource``, streams inserts and deletes through a
            threshold merge that delta-patches the layout and snapshots
            before truncating the WAL, then "crashes" and recovers a fresh
-           system that must twin the live one.
+           system that must twin the live one.  Its inserts are labelled
+           (op-2 WAL records): filtered ``search_disk`` must equal filtered
+           ``search_batch``, the patched layout's label tables the LTI's,
+           and the recovered label map the live one's.
   serving  on the main path's merged system: ``shard_lti`` and the sharded
            serving step over 4 shards on the card (equal to the unsharded
            program, counters included), the sequential per-tier oracle,
            the beam-width autotuner, a wall-clock ``BatchScheduler`` in
-           front of a ``ReplicaSet``, the freshdiskann-1b shard deployment
+           front of a ``ReplicaSet``, a scheduler with ``tenant_quota``
+           (a tenant's burst shed past its quota, mixed-spec tickets equal
+           to ``search_batch`` under their specs), ``ReplicaSet`` under a
+           filter, the freshdiskann-1b shard deployment
            (``launch.ann_steps``: 4 sub-indices, distributed search with
            the ``block_topk`` merge and at k 129 with a stable sort, insert
            and merge; recall against brute force) and ``launch.serve`` at
@@ -69,7 +88,8 @@ Phases:
            ``--src DIR --phases build,launch`` times that tree's launch path
            on the same card.
 
-P (the phases) defaults to build,kernels,parity,main,storage,serving.
+P (the phases) defaults to build,kernels,parity,main,filtered,storage,
+serving.
 Prints diagnostics, then the card's name and power limit, then one JSON
 line of kernel records, and last ``{"ok": true, "device": {...}}``.  Exits
 non-zero, with no result line, if any phase fails or there is no card.
@@ -323,19 +343,21 @@ def gpu_identity() -> str:
 
 # --------------------------------------------------------------- phase 2
 def _frontier_inputs(g, B, L, K, V, W, integer: bool, dev,
-                     shuffled: bool = False):
+                     shuffled: bool = False, vis_extra: int = 0):
     """Engine-consistent frontier_select rows: a sorted candidate list with
     an INVALID tail, fresh neighbours with masked lanes, a visited set
     drawn from the candidates with vis_cnt == occupancy.  ``integer``
     draws distances from a few small integers, so ties are everywhere;
     ``shuffled`` puts each candidate list in a random order (the contract
-    does not need it sorted)."""
+    does not need it sorted); ``vis_extra`` adds up to that many visited
+    ids that have left the list (a long search's visited set)."""
     import torch
     rows = []
     for _ in range(4):                      # 4 templates tiled over B rows
         ncand = int(g.integers(1, L + 1))
         nnew = int(g.integers(0, K + 1))
-        pool = g.permutation(1 << 20)[:ncand + nnew].astype(np.int32)
+        pool = g.permutation(1 << 20)[:ncand + nnew + vis_extra].astype(
+            np.int32)
         draw = ((lambda n: g.integers(0, 8, n).astype(np.float32)) if integer
                 else (lambda n: g.random(n).astype(np.float32)))
         ci = np.full(L, -1, np.int32)
@@ -344,7 +366,7 @@ def _frontier_inputs(g, B, L, K, V, W, integer: bool, dev,
         cd[:ncand] = np.sort(draw(ncand))
         ni = np.full(K, -1, np.int32)
         nd = np.full(K, np.inf, np.float32)
-        ni[:nnew] = pool[ncand:]
+        ni[:nnew] = pool[ncand:ncand + nnew]
         nd[:nnew] = draw(nnew)
         vi = np.full(V, -1, np.int32)
         vd = np.full(V, np.inf, np.float32)
@@ -352,6 +374,11 @@ def _frontier_inputs(g, B, L, K, V, W, integer: bool, dev,
         taken = g.permutation(ncand)[:nvis]
         vi[:nvis] = ci[taken]
         vd[:nvis] = cd[taken]
+        if vis_extra:
+            ne = min(vis_extra, V - 1 - nvis)
+            vi[nvis:nvis + ne] = pool[ncand + nnew:ncand + nnew + ne]
+            vd[nvis:nvis + ne] = draw(ne)
+            nvis += ne
         if shuffled:
             perm = g.permutation(L)
             ci, cd = ci[perm], cd[perm]
@@ -520,30 +547,48 @@ def phase_kernels(seed: int, n_table: int) -> dict:
     recs["adc_rows"]["by_shape"] = by_shape
     del codes, luts, luts_i
 
-    # ---- frontier_select: B 1024, L 100, K 256, V 166, W 4 --------------
-    B, L, K, V, W = 1024, 100, 256, 166, 4
-    for shuffled in (True, False):
-        for integer in (True, False):
-            args = _frontier_inputs(g, B, L, K, V, W, integer, dev, shuffled)
-            got = ops.frontier_select(*args, W=W, max_visits=V)
-            want = ref.frontier_select_batch_ref(*args, W=W, max_visits=V)
-            for gt, wt, nm in zip(got, want, ["m_ids", "m_d", "f_ids", "f_d",
-                                              "vis_ids", "vis_d",
-                                              "vis_cnt"]):
-                check(gt.dtype == wt.dtype and torch.equal(gt, wt),
-                      f"frontier_select ({'integer' if integer else 'uniform'}"
-                      f" distances, {'unsorted' if shuffled else 'sorted'} "
-                      f"list): {nm} differs")
-    t = launch_times(lambda: ops.frontier_select(*args, W=W, max_visits=V))
-    plain = time_ms(lambda: ref.frontier_select_batch_ref(
-        *args, W=W, max_visits=V))
-    nbytes = B * ((2 * (L + K) + 2 * V + 1) * 4
-                  + (2 * L + 2 * W + 2 * V + 1) * 4)
-    log(f"[kernels] frontier_select B={B} L={L} K={K} V={V} W={W}: "
-        f"bit-identical (integer and uniform distances, sorted and unsorted "
-        f"lists)  kernel {_fmt_times(t)}  plain {plain:.4f} ms")
-    record("frontier_select", err=0.0, times=t, plain_ms=plain, nbytes=nbytes,
-           nflops=0.0, library_ms=None, shape=f"B={B} L={L} K={K} V={V} W={W}")
+    # ---- frontier_select: B 1024, L 100, K 256, V 166, W 4 (the main
+    # path), and the filtered searches' L 150 (V 241) and L 512 (V 784: the
+    # visited ids past the 256 held in registers) ------------------------
+    by_shape = []
+    for B, L, K, V, W in ((1024, 100, 256, 166, 4), (1024, 150, 256, 241, 4),
+                          (1024, 512, 256, 784, 4)):
+        for shuffled in (True, False):
+            for integer in (True, False):
+                args = _frontier_inputs(
+                    g, B, L, K, V, W, integer, dev, shuffled,
+                    vis_extra=0 if L == 100 else V - L)
+                got = ops.frontier_select(*args, W=W, max_visits=V)
+                want = ref.frontier_select_batch_ref(*args, W=W,
+                                                     max_visits=V)
+                for gt, wt, nm in zip(got, want, ["m_ids", "m_d", "f_ids",
+                                                  "f_d", "vis_ids", "vis_d",
+                                                  "vis_cnt"]):
+                    check(gt.dtype == wt.dtype and torch.equal(gt, wt),
+                          f"frontier_select L={L} V={V} ("
+                          f"{'integer' if integer else 'uniform'} distances,"
+                          f" {'unsorted' if shuffled else 'sorted'} list): "
+                          f"{nm} differs")
+        t = launch_times(lambda: ops.frontier_select(*args, W=W,
+                                                     max_visits=V))
+        plain = time_ms(lambda: ref.frontier_select_batch_ref(
+            *args, W=W, max_visits=V))
+        nbytes = B * ((2 * (L + K) + 2 * V + 1) * 4
+                      + (2 * L + 2 * W + 2 * V + 1) * 4)
+        bnd = bound_ms(nbytes, 0.0)
+        log(f"[kernels] frontier_select B={B} L={L} K={K} V={V} W={W}: "
+            f"bit-identical (integer and uniform distances, sorted and "
+            f"unsorted lists)  kernel {_fmt_times(t)}  plain {plain:.4f} ms"
+            f"  bound {bnd[0]:.4f} ms ({bnd[1]})")
+        shape = f"B={B} L={L} K={K} V={V} W={W}"
+        if L == 100:
+            record("frontier_select", err=0.0, times=t, plain_ms=plain,
+                   nbytes=nbytes, nflops=0.0, library_ms=None, shape=shape)
+        else:
+            by_shape.append(dict(shape=shape, max_abs_err=0.0,
+                                 plain_ms=plain, bound_ms=bnd[0],
+                                 bound_by=bnd[1], **t))
+    recs["frontier_select"]["by_shape"] = by_shape
 
     # ---- robust_prune_fp: insert (B 256, C 203), Delta (B 1024, C 128),
     # and a C past shared memory (the kernel's tiled path) ---------------
@@ -735,10 +780,11 @@ def phase_launch(seed: int, n_table: int) -> None:
 
 # --------------------------------------------------------------- phase 3
 def _stream_ops(sys_, new, n0):
-    """The parity stream: inserts with rollovers and threshold merges,
-    deletes in every tier, a buffered delete and a re-insert."""
+    """The parity stream: inserts (label i % 4, tenant i % 3) with
+    rollovers and threshold merges, deletes in every tier, a buffered
+    delete and an unlabelled re-insert."""
     for i in range(len(new)):
-        sys_.insert(n0 + i, new[i])
+        sys_.insert(n0 + i, new[i], labels=[i % 4], tenant=i % 3)
         if i == 100:
             for e in (3, 17, n0 + 5, n0 + 50, n0 + 99):
                 sys_.delete(e)
@@ -746,19 +792,42 @@ def _stream_ops(sys_, new, n0):
     sys_.insert(17, new[0] + 1.0)
 
 
+def _parity_specs():
+    from repro_torch.core.graph import FilterSpec
+    return (FilterSpec(all_of=(1,)), FilterSpec(tenant=2),
+            FilterSpec(all_of=(0,), any_of=(2, 3), tenant=1))
+
+
+def _filtered_rows(s, qs) -> list:
+    return [x for sp in _parity_specs()
+            for x in s.search_batch(qs, 12, L=48, filter=sp)]
+
+
+def _labelled_boot(base, cfg, dev, cent, **kw):
+    """The parity bootstrap: slot i labelled i % 4, tenant i % 3."""
+    import torch
+    from repro_torch.core import pq as pqm
+    from repro_torch.core.system import bootstrap_system
+    n0 = len(base)
+    return bootstrap_system(base, np.arange(n0), cfg, device=dev, batch=32,
+                            codebook=pqm.PQCodebook(torch.from_numpy(cent)),
+                            labels=[[i % 4] for i in range(n0)],
+                            tenants=[i % 3 for i in range(n0)], **kw)
+
+
 def _parity_system(dev, cfg, base, new, qs, cent) -> list:
     """Everything the parity phase compares, for one device: searches after
     the stream (threshold merges included) and after a global
-    ``consolidate``, the LTI's graph and ext-id table, and an SDC
-    ``streaming_merge`` of the result with a global Delete phase."""
+    ``consolidate``, the LTI's graph and ext-id table, an SDC
+    ``streaming_merge`` of the result with a global Delete phase, and
+    filtered searches (labels, tenants, both) after the stream and after
+    the consolidate with the LTI's label tables."""
     import torch
-    from repro_torch.core import pq as pqm
     from repro_torch.core.merge import streaming_merge
-    from repro_torch.core.system import bootstrap_system
     n0 = len(base)
-    s = bootstrap_system(base, np.arange(n0), cfg, device=dev, batch=32,
-                         codebook=pqm.PQCodebook(torch.from_numpy(cent)))
+    s = _labelled_boot(base, cfg, dev, cent)
     _stream_ops(s, new, 1000)
+    filtered = _filtered_rows(s, qs)
     out = [*s.search_batch(qs, k=5)]
     check(s.stats.merges >= 2 and s.stats.snapshots >= 4,
           f"parity stream: {s.stats.merges} merges")
@@ -780,7 +849,8 @@ def _parity_system(dev, cfg, base, new, qs, cent) -> list:
     out += [merged.graph.adjacency.cpu().numpy(), st.slots.cpu().numpy(),
             np.array([st.n_deleted, st.n_inserted, st.n_backedge_pairs,
                       st.n_backedge_targets, st.n_prune_rows])]
-    return out
+    return out + filtered + _filtered_rows(s, qs) + [
+        s.lti_labels.bits, s.lti_labels.tenant]
 
 
 def phase_parity(seed: int) -> None:
@@ -803,7 +873,8 @@ def phase_parity(seed: int) -> None:
                           alpha=1.2, beam_width=4),
         pq=PQConfig(dim=d, m=4, ksub=16), ro_snapshot_points=32,
         merge_threshold=64, temp_capacity=96, insert_batch=16,
-        batch_queries=16, merge_block=64, reach_probe_samples=16)
+        batch_queries=16, merge_block=64, reach_probe_samples=16,
+        filter_words=1)
     ordered = dataclasses.replace(local, locality_order=True,
                                   local_repair_threshold=0.0)
     for name, cfg in (("local repair, arrival order", local),
@@ -824,7 +895,10 @@ def phase_parity(seed: int) -> None:
             f"(searches of {len(qs)} queries after the stream and after a "
             f"global consolidate, the LTI graph, merge counters "
             f"{out[0][6].tolist()} [local, global repairs, Delta targets, "
-            f"merges], an SDC streaming_merge)")
+            f"merges], an SDC streaming_merge; filtered searches of "
+            f"{len(_parity_specs())} specs, k 12, L 48, after the labelled "
+            f"stream and after the consolidate, and the LTI's label "
+            f"tables)")
     phase_storage_parity(local, base, new, qs, cent)
     pq_checks(seed)
 
@@ -876,8 +950,7 @@ def phase_storage_parity(cfg, base, new, qs, cent,
     recovers from the newest merge snapshot and the WAL suffix: ``size``,
     the DeleteList, the LTI and ``search_batch`` must equal the twin's."""
     import torch
-    from repro_torch.core import pq as pqm
-    from repro_torch.core.system import FreshDiskANN, bootstrap_system
+    from repro_torch.core.system import FreshDiskANN
     BUILD.mkdir(exist_ok=True)
     n0 = len(base)
     with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
@@ -885,15 +958,15 @@ def phase_storage_parity(cfg, base, new, qs, cent,
         for i, dev in enumerate(devs):
             scfg = _storage_cfg(cfg, Path(tmp) / str(i), adjacency_cache_mb=0,
                                 prefetch_depth=1)
-            s = bootstrap_system(base, np.arange(n0), scfg, device=dev,
-                                 batch=32, codebook=pqm.PQCodebook(
-                                     torch.from_numpy(cent)))
+            s = _labelled_boot(base, scfg, dev, cent)
             _stream_ops(s, new, 1000)
             ids, d = s.search_disk(qs, k=5)
             reader = s._disk_searcher_get().stats.snapshot()
             out.append([ids, d, np.array([getattr(s.stats, f)
                                           for f in IO_FIELDS]),
-                        np.array(list(reader.values()))])
+                        np.array(list(reader.values()))]
+                       + [x for sp in _parity_specs() for x in s.search_disk(
+                           qs, 12, L=48, filter=sp)])
             systems[i] = (s, scfg)
         for i, (a, b) in enumerate(zip(*out)):
             check(np.array_equal(a, b), f"storage parity: CPU and card "
@@ -915,13 +988,18 @@ def phase_storage_parity(cfg, base, new, qs, cent,
         for a, b in zip(rec.search_batch(qs, k=5), live.search_batch(qs, k=5)):
             check(np.array_equal(a, b), "storage parity: the recovered "
                   "system's search differs from the twin's")
+        check(all(np.array_equal(a, b) for a, b in zip(
+            label_rows(rec), label_rows(live))),
+            "storage parity: the recovered label map differs from the "
+            "twin's")
         rec.close_storage()
         rec.wal.close()
     log(f"[parity] storage, n={n0} d={base.shape[1]}: search_disk of {len(qs)} "
         f"queries, IO counters {dict(zip(IO_FIELDS, out[0][2].tolist()))} "
         f"and IOStats equal on CPU and card after {live.stats.merges} "
-        f"merges; recovery on the card replayed {n_rec} records and twins "
-        f"the live system")
+        f"merges, filtered search_disk too; recovery on the card replayed "
+        f"{n_rec} records (labelled) and twins the live system, label map "
+        f"included")
 
 
 def reachable(state) -> np.ndarray:
@@ -1016,6 +1094,52 @@ def _fmt_phases(t: dict) -> str:
     return ", ".join(f"{k} {v:.2f} s" for k, v in t.items())
 
 
+N_TENANTS = 4
+
+
+def ladder(i: int) -> list:
+    """Point i's labels, the selectivity ladder of tests/test_filtered.py:
+    bit 0 on every point, bit 1 on i % 2 == 0, bit 2 on i % 10 == 0, bit 3
+    on i % 100 == 0 (its tenant is i % 4)."""
+    return [0] + [b for b, m in ((1, 2), (2, 10), (3, 100)) if i % m == 0]
+
+
+def ladder_match(ext, spec) -> np.ndarray:
+    """bool: which points (point i has ext id i) satisfy ``spec`` under the
+    ladder and tenants i % 4, computed from the ids alone (independent of
+    the system's label tables)."""
+    ext = np.asarray(ext)
+    has = {0: np.ones(len(ext), bool), 1: ext % 2 == 0, 2: ext % 10 == 0,
+           3: ext % 100 == 0}
+    m = np.ones(len(ext), bool)
+    if spec.tenant is not None:
+        m &= ext % N_TENANTS == spec.tenant
+    for b in spec.all_of:
+        m &= has[b]
+    if spec.any_of:
+        m &= np.any([has[b] for b in spec.any_of], axis=0)
+    return m
+
+
+def label_rows(s) -> tuple:
+    """(ext ids sorted, their tenants, their label words) over every tier
+    of ``s`` and its insert buffer's flush, deleted ids left out: the
+    label map a recovered system must reproduce, whichever tier holds a
+    point."""
+    s._flush_inserts()
+    tiers = [(s.lti_ext_ids, s.lti_labels)]
+    tiers += [(t.ext_ids, t.labels) for t in [s.rw] + list(s.ro)]
+    ext = np.concatenate([e[e >= 0] for e, _ in tiers])
+    ten = np.concatenate([lb.tenant[e >= 0] for e, lb in tiers])
+    bits = np.concatenate([lb.bits[e >= 0] for e, lb in tiers])
+    dead = np.fromiter(s.deleted_ext, np.int64, len(s.deleted_ext))
+    keep = ~np.isin(ext, dead)
+    ext, ten, bits = ext[keep], ten[keep], bits[keep]
+    o = np.argsort(ext, kind="stable")
+    check(len(np.unique(ext)) == len(ext), "an id lives in two tiers")
+    return ext[o], ten[o], bits[o]
+
+
 def phase_main(seed: int, n: int, centres: int = 4096, dev="cuda",
                capacity: int = 2_097_152, ro_points: int = 4096,
                merge_threshold: int = 16384):
@@ -1062,7 +1186,7 @@ def phase_main(seed: int, n: int, centres: int = 4096, dev="cuda",
                        ro_snapshot_points=ro_points,
                        merge_threshold=merge_threshold, temp_capacity=65536,
                        insert_batch=256, batch_queries=1024,
-                       merge_block=1024)
+                       merge_block=1024, filter_words=1)
     n_new = merge_threshold + ro_points // 4
     n_q, n_self, k = 4 * 1024, 1024, 5
     g = np.random.default_rng(seed)
@@ -1079,28 +1203,48 @@ def phase_main(seed: int, n: int, centres: int = 4096, dev="cuda",
         f"dim 128, {centres}-centre Gaussian mixture "
         f"({time.perf_counter() - t0:.1f} s on the host)")
 
+    t0 = time.perf_counter()
+    labels = [ladder(i) for i in range(n)]
+    tenants = np.arange(n) % N_TENANTS
+    t_lab = time.perf_counter() - t0
+
     ops.reset_launches()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    s = bootstrap_system(base, np.arange(n), cfg, device=dev)
+    s = bootstrap_system(base, np.arange(n), cfg, device=dev, labels=labels,
+                         tenants=tenants)
     sync()
     t_build = time.perf_counter() - t0
+    del labels
+    lb = s.lti_labels
+    want = np.zeros(n, np.uint32) | 1
+    for b, m in ((1, 2), (2, 10), (3, 100)):
+        want[::m] |= np.uint32(1 << b)
+    check(np.array_equal(lb.bits[:n, 0], want)
+          and np.array_equal(lb.tenant[:n], tenants)
+          and not lb.bits[n:].any() and (lb.tenant[n:] == -1).all(),
+          "bootstrap label tables differ from the ladder")
     log(f"[main] bootstrap_system: {n} points in {t_build:.1f} s "
-        f"({n / t_build:.0f} points/s) into capacity {icfg.capacity}")
+        f"({n / t_build:.0f} points/s) into capacity {icfg.capacity}; "
+        f"labelled with the ladder (bits 0-3 on 1, 1/2, 1/10, 1/100 of the "
+        f"points) and {N_TENANTS} tenants ({t_lab:.1f} s to list the labels "
+        f"on the host)")
 
     for e in dels:
         s.delete(int(e))
     before = dict(ops.LAUNCHES)
     t0 = time.perf_counter()
     for i in range(n_new):
-        s.insert(n + i, new[i])
+        s.insert(n + i, new[i], labels=ladder(n + i),
+                 tenant=(n + i) % N_TENANTS)
     s._flush_inserts()
     sync()
     t_ins = time.perf_counter() - t0
     st = s.stats
     fl = st.flush_latency.snapshot()
-    log(f"[main] {len(dels)} deletes, then {n_new} inserts in {t_ins:.2f} s "
+    log(f"[main] {len(dels)} deletes, then {n_new} labelled inserts in "
+        f"{t_ins:.2f} s "
         f"({n_new / t_ins:.0f} inserts/s with the merge, "
         f"{n_new / (t_ins - st.merge_seconds):.0f} without); "
         f"{st.flushes} flushes, p50 {fl['p50'] * 1e3:.1f} ms p99 "
@@ -1234,6 +1378,235 @@ def phase_main(seed: int, n: int, centres: int = 4096, dev="cuda",
     check(all(launches[k] > 0 for k in MAIN_KERNELS),
           f"a kernel of the path never launched: {launches}")
     return launches, s, dict(centers=centers, qs=qs, k=k)
+
+
+FILTERED_KERNELS = ("l2_rows", "adc_rows", "frontier_select", "gather_rows")
+
+
+@contextlib.contextmanager
+def frontier_census():
+    """Count ``frontier_select``'s launches by shape while the block runs:
+    {"B=.. L=.. K=.. V=..": launches} (the wrapper is replaced in ``ops``
+    for the duration; the engine looks it up there at each round)."""
+    from repro_torch.kernels import ops
+    census: dict = {}
+    saved = ops.frontier_select
+
+    def frontier_select(cand_ids, cand_d, new_ids, *args, **kw):
+        n0 = ops.LAUNCHES["frontier_select"]
+        out = saved(cand_ids, cand_d, new_ids, *args, **kw)
+        if ops.LAUNCHES["frontier_select"] > n0:
+            key = (f"B={cand_ids.shape[0]} L={cand_ids.shape[1]} "
+                   f"K={new_ids.shape[1]} V={args[1].shape[1]}")
+            census[key] = census.get(key, 0) + 1
+        return out
+
+    ops.frontier_select = frontier_select
+    try:
+        yield census
+    finally:
+        ops.frontier_select = saved
+
+
+def live_points(s) -> tuple:
+    """(vectors on the device, ext ids) of every live point of ``s``: the
+    LTI's and the temp tiers' rows with an ext id, minus the DeleteList."""
+    import torch
+    s._flush_inserts()
+    vecs, ids = [], []
+    dead = np.fromiter(s.deleted_ext, np.int64, len(s.deleted_ext))
+    for state, ext in [(s.lti.graph, s.lti_ext_ids)] + [
+            (t.state, t.ext_ids) for t in [s.rw] + list(s.ro)]:
+        sl = np.nonzero((ext >= 0) & ~np.isin(ext, dead))[0]
+        vecs.append(state.vectors[torch.from_numpy(sl).to(
+            state.vectors.device)].float())
+        ids.append(ext[sl])
+    return torch.cat(vecs), np.concatenate(ids)
+
+
+def widen(sel: float, k: int, L_search: int) -> tuple[int, int]:
+    """A post-filter client's k and L for a selectivity (the rule of
+    tests/test_filtered.py and benchmarks/bench_filtered.py):
+    k_eff = min(256, ceil(k / sel * 1.5)), L = max(L_search, 2 k_eff)."""
+    k_eff = k if sel >= 1.0 else min(256, int(np.ceil(k / sel * 1.5)))
+    return k_eff, max(L_search, 2 * k_eff)
+
+
+def phase_filtered(s, data: dict, seed: int) -> dict:
+    """Filtered and multi-tenant search on the main path's merged system
+    (labelled with the ladder and 4 tenants at bootstrap and insert):
+
+    1. a spec every live point matches (``all_of=(0,)``): ids and dists of
+       4 x 1024 queries, and each micro-batch's lane counters (hops, cmps),
+       bit-identical to the unfiltered call;
+    2. the ladder's selectivities 0.5, 0.1 and 0.01 (k and L widened as
+       the reference's clients do: L 100, 150, 512), tenants 0-3 and
+       tenant 2 with label 2 (selectivity 0.05, L 300), 4 x 1024 queries
+       each: 5-recall@5 of the
+       leading 5 rows against brute force over the matching live points
+       (>= 0.90 asserted at 1.0, 0.5 and each tenant), no returned id that
+       fails the predicate or is deleted, queries/s and micro-batch p50;
+    3. ``batch_fanout=False`` filtered equals the filtered fan-out;
+    4. ``shard_lti=4`` filtered equals unsharded, and the sharded step over
+       4 shards on the card gives the filtered masks' ids, dists, hops and
+       cmps of ``unified_search``;
+    5. ``frontier_select``'s launches by shape (L 100, 150, 512).
+
+    Returns (the phase's launch counts, frontier_select's census)."""
+    import torch
+    from repro_torch.core import index as mem
+    from repro_torch.core.graph import FilterSpec, LaneStack, shard_lti
+    from repro_torch.kernels import ops
+    from repro_torch.serving.steps import make_sharded_unified_step
+    dev = s.device
+    cfg, icfg, k, qs = s.cfg, s.cfg.index, data["k"], data["qs"]
+    bq, W = cfg.batch_queries, icfg.beam_width
+    nb = len(qs) // bq
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    live_v, live_ids = live_points(s)
+    check(len(live_ids) == s.size, f"live points {len(live_ids)} != size "
+          f"{s.size}")
+    dead = np.fromiter(s.deleted_ext, np.int64, len(s.deleted_ext))
+    ops.reset_launches()
+    with frontier_census() as census:
+        # 1. Selectivity 1.0 is the unfiltered call, bit for bit.
+        all_pts = FilterSpec(all_of=(0,))
+        want = s.search_batch(qs, k=k)
+        got = s.search_batch(qs, k=k, filter=all_pts)
+        check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+              "a filter every live point matches differs from no filter")
+        rw_t, ro_temps, lti_entry = s._capture_lanes()
+        bundle = s._lane_bundle(rw_t, ro_temps, lti_entry)
+        stack, t_tabs, l_tab = bundle[1:4]
+        kk = min(max(k * 2, k + 8), icfg.L_search)
+        run_kw = dict(k=k, k_lane=kk, L=icfg.L_search, beam_width=W,
+                      rerank=cfg.rerank)
+        for b in range(nb):
+            q = torch.from_numpy(qs[b * bq:(b + 1) * bq]).to(dev)
+            u = mem.unified_search(stack, t_tabs, l_tab,
+                                   *s._masks(bundle, None), q, icfg,
+                                   **run_kw)
+            f = mem.unified_search(stack, t_tabs, l_tab,
+                                   *s._masks(bundle, all_pts), q, icfg,
+                                   **run_kw)
+            for x, y, nm in zip(u, f, ("ids", "dists", "hops", "cmps")):
+                check(torch.equal(x, y), f"micro-batch {b}: {nm} of the "
+                      "all-points filter differ from the unfiltered ones")
+        log(f"[filtered] all_of=(0,) (selectivity 1.0): ids and dists of "
+            f"{len(qs)} queries and the hops and cmps of {nb} micro-batches "
+            f"equal to the unfiltered call")
+
+        # 2. The ladder, the tenants, a tenant with a label.
+        specs = [("sel 1.0", all_pts, 1.0), ("sel 0.5", FilterSpec(
+            all_of=(1,)), 0.5), ("sel 0.1", FilterSpec(all_of=(2,)), 0.1),
+            ("sel 0.01", FilterSpec(all_of=(3,)), 0.01)]
+        specs += [(f"tenant {t}", FilterSpec(tenant=t), 1 / N_TENANTS)
+                  for t in range(N_TENANTS)]
+        specs.append(("tenant 2 + bit 2", FilterSpec(all_of=(2,), tenant=2),
+                      0.05))
+        rows = {}
+        for name, spec, sel in specs:
+            k_eff, L = widen(sel, k, icfg.L_search)
+            match = ladder_match(live_ids, spec)
+            s.stats.search_latency = type(s.stats.search_latency)(seed=1)
+            f0 = s.stats.filtered_searches
+            sync()
+            t0 = time.perf_counter()
+            ids, dists = s.search_batch(qs, k=k_eff, L=L, filter=spec)
+            secs = time.perf_counter() - t0
+            lat = s.stats.search_latency.snapshot()
+            check(s.stats.filtered_searches - f0 == len(qs),
+                  f"{name}: filtered_searches counts "
+                  f"{s.stats.filtered_searches - f0}")
+            got_ids = ids[ids >= 0]
+            bad = ~ladder_match(got_ids, spec)
+            check(not bad.any(), f"{name}: {int(bad.sum())} returned ids "
+                  "fail the predicate")
+            check(not np.isin(got_ids, dead).any(),
+                  f"{name}: a deleted id was returned")
+            top = ids[:, :k]
+            recall = _recall(top, qs, live_v[torch.from_numpy(np.nonzero(
+                match)[0]).to(dev)], live_ids[match], k, dev)
+            rows[name] = dict(sel=round(float(match.mean()), 4), k=k_eff,
+                              L=L, recall=recall, qps=len(qs) / secs,
+                              p50_ms=lat["p50"] * 1e3,
+                              p99_ms=lat["p99"] * 1e3,
+                              empty=int((top < 0).sum()))
+            log(f"[filtered] {name}: {int(match.sum())} of {len(live_ids)} "
+                f"live points match ({match.mean():.4f}); k {k_eff}, L {L}:"
+                f" 5-recall@5 {recall:.4f}; {len(qs) / secs:.0f} queries/s, "
+                f"micro-batch p50 {lat['p50'] * 1e3:.1f} ms p99 "
+                f"{lat['p99'] * 1e3:.1f} ms; {rows[name]['empty']} of the "
+                f"{top.size} leading slots empty; no id failing the "
+                f"predicate, none deleted")
+            if sel >= 0.25:
+                check(recall >= 0.90, f"{name}: 5-recall@5 {recall} < 0.90")
+        check(s.stats.tenant_searches.get(2, 0) >= 2 * len(qs),
+              f"tenant_searches {s.stats.tenant_searches}")
+
+        # 3. The sequential oracle under a filter.
+        spec, (k_eff, L) = FilterSpec(all_of=(2,)), widen(0.1, k,
+                                                           icfg.L_search)
+        want = s.search_batch(qs[:bq], k=k_eff, L=L, filter=spec)
+        with _knobs(s, batch_fanout=False):
+            seq = s.search_batch(qs[:bq], k=k_eff, L=L, filter=spec)
+        check(all(np.array_equal(a, b) for a, b in zip(seq, want)),
+              "filtered batch_fanout=False differs from the fan-out")
+        log(f"[filtered] batch_fanout=False under all_of=(2,) (k {k_eff}, "
+            f"L {L}): {bq} queries equal to the filtered fan-out")
+
+        # 4. The sharded lane under a filter, counters included.
+        spec = FilterSpec(tenant=1)
+        k_eff, L = widen(1 / N_TENANTS, k, icfg.L_search)
+        want = s.search_batch(qs, k=k_eff, L=L, filter=spec)
+        with _knobs(s, shard_lti=4):
+            got = s.search_batch(qs, k=k_eff, L=L, filter=spec)
+        check(all(np.array_equal(a, b) for a, b in zip(got, want)),
+              "filtered search_batch with shard_lti=4 differs")
+        rw_t, ro_temps, lti_entry = s._capture_lanes()
+        bundle = s._lane_bundle(rw_t, ro_temps, lti_entry)
+        stack, t_tabs, l_tab = bundle[1:4]
+        t_drop, l_drop = s._masks(bundle, spec)
+        kk = min(max(k_eff * 2, k_eff + 8), L)
+        group = [dev] * 4
+        step = make_sharded_unified_step(group, icfg, k=k_eff, k_lane=kk,
+                                         L=L, beam_width=W,
+                                         rerank=cfg.rerank)
+        sg, sc = shard_lti(stack.lti, stack.codes, 4, devices=group)
+        sstack = LaneStack(stack.temps, sg, sc, stack.codebook)
+        for b in range(nb):
+            q = torch.from_numpy(qs[b * bq:(b + 1) * bq]).to(dev)
+            a = step(sstack, t_tabs, l_tab, t_drop, l_drop, q)
+            u = mem.unified_search(stack, t_tabs, l_tab, t_drop, l_drop, q,
+                                   icfg, k=k_eff, k_lane=kk, L=L,
+                                   beam_width=W, rerank=cfg.rerank)
+            for x, y, nm in zip(a, u, ("ids", "dists", "hops", "cmps")):
+                check(torch.equal(x, y), f"filtered sharded step micro-batch"
+                      f" {b}: {nm} differ from unified_search")
+        del sg, sc, sstack
+        log(f"[filtered] tenant 1 with shard_lti=4: search_batch equal to "
+            f"unsharded; the sharded step over 4 shards on {dev} equal to "
+            f"unified_search under the filtered masks (ids, dists, hops, "
+            f"cmps) in {nb} micro-batches")
+    sync()
+    launches = dict(ops.LAUNCHES)
+    log(f"[filtered] frontier_select launches by shape: "
+        f"{json.dumps(census)}")
+    log(f"[filtered] launches {json.dumps(launches)}")
+    log(f"[filtered] summary {json.dumps(rows)}")
+    log(f"[filtered] phase {time.perf_counter() - t_phase:.1f} s")
+    for L in (150, 512):
+        check(any(f" L={L} " in key for key in census) or dev.type != "cuda",
+              f"frontier_select never launched at L {L}: {census}")
+    missing = [n_ for n_ in FILTERED_KERNELS if not launches[n_]]
+    check(not missing or dev.type != "cuda",
+          f"kernels of the filtered path never launched: {missing}")
+    return launches, census
 
 
 def repair_inputs(lti, seed: int, B: int = 1024):
@@ -1526,10 +1899,12 @@ def phase_storage(s, data: dict, seed: int, min_free_gib: float = 8.0,
     torch.profiler (after the checks of steps 2 and 3).  Returns the
     launch counts of the phase."""
     import torch
+    from repro_torch.core.graph import FilterSpec
     from repro_torch.core.search import PQBackend, beam_search
     from repro_torch.core.system import FreshDiskANN
+    from repro_torch.core.wal import OP_INSERT_LABELED, replay
     from repro_torch.kernels import ops
-    from repro_torch.storage import HBMSource
+    from repro_torch.storage import HBMSource, open_layout
     dev = s.device
     cuda = dev.type == "cuda"
 
@@ -1563,7 +1938,7 @@ def phase_storage(s, data: dict, seed: int, min_free_gib: float = 8.0,
         sync()
         t0 = time.perf_counter()
         live = FreshDiskANN(scfg, lti=s.lti, lti_ext_ids=table.copy(),
-                            device=dev)
+                            device=dev, lti_labels=s.lti_labels.copy())
         t_write = time.perf_counter() - t0
         log(f"[storage] layout of capacity {icfg.capacity} written in "
             f"{t_write:.2f} s ({live.stats.storage_bytes_written / 2**30:.2f}"
@@ -1613,6 +1988,22 @@ def phase_storage(s, data: dict, seed: int, min_free_gib: float = 8.0,
             f"{len(qs) / t_batch:.0f} queries/s, p50 {lat['p50'] * 1e3:.1f} "
             f"ms; equal ids and dists; 5-recall@5 {recall:.4f} over "
             f"{len(slots)} live points")
+        # Filtered: the disk lane against the layout's label tables.
+        spec = FilterSpec(tenant=1)
+        k_eff, L_f = widen(1 / N_TENANTS, k, icfg.L_search)
+        t0 = time.perf_counter()
+        fd = live.search_disk(qs[:1024], k=k_eff, L=L_f, filter=spec)
+        t_fd = time.perf_counter() - t0
+        fb = live.search_batch(qs[:1024], k=k_eff, L=L_f, filter=spec)
+        check(all(np.array_equal(a, b) for a, b in zip(fd, fb)),
+              "filtered search_disk differs from filtered search_batch")
+        check(ladder_match(fd[0][fd[0] >= 0], spec).all()
+              and not np.isin(fd[0], dels).any(),
+              "filtered search_disk returned an id failing the predicate or "
+              "deleted")
+        log(f"[storage] search_disk under tenant 1 (k {k_eff}, L {L_f}), "
+            f"1024 queries: {t_fd * 1e3:.1f} ms, equal to the filtered "
+            f"search_batch; no id of another tenant, none deleted")
 
         # 3. HBMSource == DenseSource through the gather_rows kernel.
         lg = live.lti.graph
@@ -1659,7 +2050,8 @@ def phase_storage(s, data: dict, seed: int, min_free_gib: float = 8.0,
         sync()
         t0 = time.perf_counter()
         for i in range(n_new):
-            live.insert(id0 + i, new[i])
+            live.insert(id0 + i, new[i], labels=ladder(id0 + i),
+                        tenant=(id0 + i) % N_TENANTS)
         sync()
         t_ins = time.perf_counter() - t0
         st = live.stats
@@ -1668,8 +2060,14 @@ def phase_storage(s, data: dict, seed: int, min_free_gib: float = 8.0,
               and snap.endswith("merge_1"),
               f"expected one threshold merge and merge_1: {st.merges}, "
               f"{snap}")
+        lay = open_layout(live._storage_path())
+        check(np.array_equal(lay.label_bits, live.lti_labels.bits)
+              and np.array_equal(lay.label_tenant, live.lti_labels.tenant),
+              "the patched layout's label tables differ from lti_labels")
+        lay.close()
         for i in range(n_new, n_new + n_tail):
-            live.insert(id0 + i, new[i])
+            live.insert(id0 + i, new[i], labels=ladder(id0 + i),
+                        tenant=(id0 + i) % N_TENANTS)
         for e in dels2:
             live.delete(int(e))
         ph = st.merge_phase_seconds
@@ -1684,6 +2082,10 @@ def phase_storage(s, data: dict, seed: int, min_free_gib: float = 8.0,
         # 5. Crash, recover, twin check.
         live.close_storage()
         live.wal.close()
+        ops_ = [op for op, _, _ in replay(live.wal.path)]
+        check(ops_.count(OP_INSERT_LABELED) == n_new - cfg.merge_threshold
+              + n_tail, f"the WAL holds {ops_.count(OP_INSERT_LABELED)} "
+              "labelled inserts")
         sync()
         t0 = time.perf_counter()
         rec = FreshDiskANN(scfg, device=dev)
@@ -1703,6 +2105,10 @@ def phase_storage(s, data: dict, seed: int, min_free_gib: float = 8.0,
         check(rec.size == live.size and rec.deleted_ext == live.deleted_ext,
               f"recovered size {rec.size} / DeleteList differ from the "
               f"twin's {live.size}")
+        check(all(np.array_equal(a, b) for a, b in zip(
+            label_rows(rec), label_rows(live))),
+            "the recovered ext id -> (tenant, bits) map differs from the "
+            "twin's")
         r_ids, r_d = rec.search_batch(qs[:1024], k=k)
         t_ids, t_d = live.search_batch(qs[:1024], k=k)
         check(np.array_equal(r_ids, t_ids) and np.array_equal(r_d, t_d),
@@ -1817,7 +2223,7 @@ def phase_serving(s, data: dict, seed: int,
           "search_batch with shard_lti=4 differs from shard_lti=0")
     rw_t, ro_temps, lti_entry = s._capture_lanes()
     key, stack, t_tabs, l_tab, tables_np = s._lane_bundle(rw_t, ro_temps,
-                                                          lti_entry)
+                                                          lti_entry)[:5]
     t_drop, l_drop = s._drop_mask(key, tables_np)
     group = [dev] * 4
     step = make_sharded_unified_step(group, icfg, k=k, k_lane=kk, L=L,
@@ -1923,6 +2329,7 @@ def phase_serving(s, data: dict, seed: int,
         f"replica {rs.dispatches}")
     check(len(served) + st.shed_requests - shed0 == len(qs),
           "scheduler: a request was neither served nor shed")
+    filtered_serving(s, rs, qs, k)
 
     # 5. The shard deployment.
     g = np.random.default_rng(seed + 17)
@@ -2091,6 +2498,72 @@ def phase_serving(s, data: dict, seed: int,
     return launches
 
 
+def filtered_serving(s, rs, qs, k: int, quota: int = 128) -> None:
+    """Filtered traffic through the serving front end on the labelled
+    system: a synchronous ``BatchScheduler`` with ``tenant_quota`` takes a
+    burst from tenant 1 past its quota (the excess shed, counted by
+    tenant and in ``shed_requests``) mixed with tickets of three other
+    specs; every served row equals ``search_batch`` under its ticket's
+    spec, and each batch holds one spec.  Then ``ReplicaSet.search_batch``
+    under a filter equals the system's, with its accounting."""
+    from repro_torch.core.graph import FilterSpec
+    from repro_torch.serving import BatchScheduler
+    specs = [None, FilterSpec(tenant=2), FilterSpec(all_of=(1,)),
+             FilterSpec(all_of=(2,), tenant=0)]
+    with _knobs(s, tenant_quota=quota, serve_queue_capacity=len(qs)):
+        st = s.stats
+        shed0, sheds0 = st.shed_requests, dict(st.tenant_sheds)
+        batches0 = st.batches_dispatched
+        sched = BatchScheduler(s, k=k)
+        burst = [sched.submit(q, filter=FilterSpec(tenant=1))
+                 for q in qs[:2 * quota]]
+        mixed = [(i, sched.submit(qs[i], filter=specs[i % len(specs)]))
+                 for i in range(2 * quota, min(len(qs), 2 * quota + 512))]
+        depth = sched.pending
+        t0 = time.perf_counter()
+        n_served = sched.flush()
+        t_flush = time.perf_counter() - t0
+        n_batches = st.batches_dispatched - batches0
+    shed_t1 = st.tenant_sheds.get(1, 0) - sheds0.get(1, 0)
+    check(sum(t is None for t in burst) == quota == shed_t1
+          and st.shed_requests - shed0 == quota
+          and all(t is not None for _, t in mixed),
+          f"tenant quota: {shed_t1} of tenant 1's {2 * quota} shed, "
+          f"shed_requests +{st.shed_requests - shed0} (quota {quota})")
+    tickets = [(i, t) for i, t in enumerate(burst)] + mixed
+    by_spec: dict = {}
+    for i, t in tickets:
+        if t is not None:
+            by_spec.setdefault(t.fspec, []).append((i, t))
+    check(n_batches == len(by_spec) and n_served == len(tickets) - quota,
+          f"{n_batches} batches for {len(by_spec)} specs, {n_served} served")
+    for spec, group in by_spec.items():
+        idx = np.array([i for i, _ in group])
+        want = s.search_batch(qs[idx], k=k, filter=spec)
+        for j, (_, t) in enumerate(group):
+            check(np.array_equal(t.ids, want[0][j])
+                  and np.array_equal(t.dists, want[1][j]),
+                  f"scheduled ticket under {spec} differs from search_batch")
+    log(f"[serving] BatchScheduler with tenant_quota {quota}: a burst of "
+        f"{2 * quota} from tenant 1 (shed {shed_t1}, tenant_sheds "
+        f"{dict(st.tenant_sheds)}) and {len(mixed)} tickets of "
+        f"{len(specs)} specs; "
+        f"queue {depth}, {n_served} served in {n_batches} one-spec batches "
+        f"in {t_flush * 1e3:.1f} ms, every row equal to search_batch under "
+        f"its spec")
+    spec = FilterSpec(tenant=2)
+    f0, d0 = s.stats.filtered_searches, sum(rs.dispatches)
+    got = rs.search_batch(qs, k=k, filter=spec)
+    want = s.search_batch(qs, k=k, filter=spec)
+    check(all(np.array_equal(a, b) for a, b in zip(got, want))
+          and s.stats.filtered_searches - f0 == 2 * len(qs)
+          and sum(rs.dispatches) - d0 == -(-len(qs) // s.cfg.batch_queries),
+          "ReplicaSet.search_batch under a filter differs from the system's")
+    log(f"[serving] ReplicaSet.search_batch(filter=tenant 2): {len(qs)} "
+        f"queries equal to search_batch; dispatches per replica "
+        f"{rs.dispatches}")
+
+
 def wide(lti, group, icfg, qs, cap, k: int = 129, L: int = 160) -> None:
     """``make_distributed_search`` at k 129, past ``block_topk``'s 128 (its
     merge a stable device sort, no ``block_topk`` launch), equal to the
@@ -2204,7 +2677,8 @@ def main(argv=None) -> int:
     ap.add_argument("--centres", type=int, default=4096,
                     help="Gaussian centres of the main path's corpus")
     ap.add_argument("--phases",
-                    default="build,kernels,parity,main,storage,serving")
+                    default="build,kernels,parity,main,filtered,storage,"
+                    "serving")
     ap.add_argument("--src", default=None,
                     help="import the port from this src directory instead "
                     "(another checkout; with --phases build,launch)")
@@ -2250,6 +2724,11 @@ def main(argv=None) -> int:
                 recs.update(gather_kernel_record(s.lti, args.seed))
                 for name, by_shape in census.items():
                     recs[name]["launches_by_shape"] = by_shape
+            if "filtered" in phases:
+                _, census = phase_filtered(s, data, args.seed)
+                if "frontier_select" in recs:
+                    recs["frontier_select"]["filtered_launches_by_shape"] = (
+                        census)
             if "storage" in phases:
                 st_launches = phase_storage(s, data, args.seed,
                                             profile="profile" in phases)

@@ -2,9 +2,6 @@
 
 The same three dataclasses as the JAX package's ``core/config.py``, with the
 same fields and defaults, so one configuration describes both packages.
-Fields of features the port does not run yet are kept (and checked by
-``system.FreshDiskANN``, which raises ``NotImplementedError`` when one is
-set away from its default); see ``ROADMAP.md`` for the slices.
 """
 from __future__ import annotations
 
@@ -90,16 +87,8 @@ class PQConfig:
 @dataclasses.dataclass(frozen=True)
 class SystemConfig:
     """FreshDiskANN system-level knobs (paper §5, §6.2).  Field meanings are
-    those of the JAX package's ``SystemConfig``; the port runs the TempIndex
-    limits (``ro_snapshot_points``, ``temp_capacity``, ``insert_batch``),
-    ``rerank``, ``batch_queries``, the merge (``merge_threshold``,
-    ``merge_block``, ``background_merge``, ``local_repair_threshold``, the
-    ``reach_*`` probe), ``locality_order``, the WAL and snapshots
-    (``wal_dir``, ``snapshot_dir``) and the storage tier (``storage_dir``,
-    ``prefetch_depth``, ``adjacency_cache_mb``, ``io_latency_us``).  The
-    features behind ``shard_lti``, ``filter_words``, ``autotune_beam`` and
-    ``batch_fanout=False`` raise ``NotImplementedError`` until their slices
-    land."""
+    those of the JAX package's ``SystemConfig``, and the port runs every
+    one of them."""
 
     index: IndexConfig
     pq: PQConfig

@@ -7,11 +7,18 @@ The index is a fixed-capacity structure of dense tensors on one device:
   deleted   bool[capacity]       lazy-delete list membership (DeleteList)
   start     i32 scalar           entry point (medoid)
   n_total   i32 scalar           allocated slots
+
+Filtered and multi-tenant search keeps per-point labels on the host, as
+numpy side tables row-parallel to each tier's external-id table
+(``LabelTable``); a ``FilterSpec`` becomes a drop mask after the search
+(``filter_match``), so no kernel sees a label.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .config import IndexConfig
@@ -151,6 +158,126 @@ def shard_lti(graph: GraphState, codes: torch.Tensor, n_shards: int, *,
     if devices is None:
         devices = [graph.device] * n_shards
     return place_lti_lane(devices, graph, codes)
+
+
+NO_TENANT = -1
+
+
+@dataclasses.dataclass(frozen=True)
+class FilterSpec:
+    """A query-time predicate over per-point labels and the tenant id.
+
+    A point matches when it carries every ``all_of`` bit, at least one
+    ``any_of`` bit (if any are given) and, with ``tenant`` set, was inserted
+    under that tenant.  Frozen and hashable: it keys the system's
+    filtered-mask cache and rides scheduler tickets.  An empty spec matches
+    everything."""
+    all_of: tuple[int, ...] = ()
+    any_of: tuple[int, ...] = ()
+    tenant: Optional[int] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "all_of", tuple(sorted(self.all_of)))
+        object.__setattr__(self, "any_of", tuple(sorted(self.any_of)))
+
+    @property
+    def is_empty(self) -> bool:
+        return not self.all_of and not self.any_of and self.tenant is None
+
+
+class LabelTable:
+    """Packed label bitsets and tenant ids of one tier's slots.
+
+    ``bits``   uint32 [capacity, n_words]: bit ``b`` of word ``b // 32`` set
+               when the point in the slot carries label ``b``;
+    ``tenant`` int32 [capacity]: the owning tenant, ``NO_TENANT`` (-1) for
+               none.
+
+    The system edits it in place on flushes and replaces it by a copy on
+    merges and consolidations, always beside the matching ext-id table."""
+
+    __slots__ = ("bits", "tenant")
+
+    def __init__(self, capacity: int, n_words: int,
+                 bits: Optional[np.ndarray] = None,
+                 tenant: Optional[np.ndarray] = None):
+        self.bits = (np.zeros((capacity, n_words), np.uint32)
+                     if bits is None else np.asarray(bits, np.uint32))
+        self.tenant = (np.full(capacity, NO_TENANT, np.int32)
+                       if tenant is None else np.asarray(tenant, np.int32))
+
+    @property
+    def capacity(self) -> int:
+        return self.bits.shape[0]
+
+    @property
+    def n_words(self) -> int:
+        return self.bits.shape[1]
+
+    def copy(self) -> "LabelTable":
+        return LabelTable(self.capacity, self.n_words, self.bits.copy(),
+                          self.tenant.copy())
+
+    def set_row(self, slot: int, bits_row: np.ndarray, tenant: int) -> None:
+        self.bits[slot] = bits_row
+        self.tenant[slot] = tenant
+
+    def clear_rows(self, mask_or_slots) -> None:
+        self.bits[mask_or_slots] = 0
+        self.tenant[mask_or_slots] = NO_TENANT
+
+    def grow(self, capacity: int) -> "LabelTable":
+        if capacity == self.capacity:
+            return self
+        if capacity < self.capacity:
+            raise ValueError(
+                f"cannot shrink label table {self.capacity} -> {capacity}")
+        out = LabelTable(capacity, self.n_words)
+        out.bits[:self.capacity] = self.bits
+        out.tenant[:self.capacity] = self.tenant
+        return out
+
+
+def pack_labels(labels, n_words: int) -> np.ndarray:
+    """Pack an iterable of label bit indices into a uint32 [n_words] row."""
+    row = np.zeros(n_words, np.uint32)
+    for b in labels or ():
+        b = int(b)
+        if not 0 <= b < 32 * n_words:
+            raise ValueError(
+                f"label bit {b} out of range for {n_words} words "
+                f"(cfg.filter_words covers bits [0, {32 * n_words}))")
+        row[b // 32] |= np.uint32(1 << (b % 32))
+    return row
+
+
+def unpack_labels(row: np.ndarray) -> list[int]:
+    """The sorted label bit indices set in a packed uint32 row (the inverse
+    of ``pack_labels``; WAL replay turns stored rows back into labels)."""
+    out = []
+    for w, word in enumerate(np.asarray(row, np.uint32)):
+        word = int(word)
+        while word:
+            low = word & -word
+            out.append(32 * w + low.bit_length() - 1)
+            word ^= low
+    return out
+
+
+def filter_match(table: LabelTable, spec: FilterSpec) -> np.ndarray:
+    """bool [capacity]: which slots satisfy ``spec`` (an empty spec matches
+    all).  Liveness is not consulted: the caller ORs ``~match`` into the
+    DeleteList drop mask, which covers it."""
+    match = np.ones(table.capacity, bool)
+    if spec.tenant is not None:
+        match &= table.tenant == spec.tenant
+    if spec.all_of:
+        want = pack_labels(spec.all_of, table.n_words)
+        match &= ((table.bits & want) == want).all(axis=1)
+    if spec.any_of:
+        want = pack_labels(spec.any_of, table.n_words)
+        match &= (table.bits & want).any(axis=1)
+    return match
 
 
 def medoid(vectors: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

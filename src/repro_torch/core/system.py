@@ -50,9 +50,18 @@ Serving knobs (paper §5.2, §6.2):
   (``core.autotune``), cached until the next merge or consolidation.
 
 ``serving.BatchScheduler`` and ``serving.ReplicaSet`` sit in front of
-``search_batch``.  Not ported yet, and raising ``NotImplementedError``
-naming the slice that ports it: filters and tenants (``filter_words``,
-``labels``, ``tenant``, labelled WAL records and snapshots).
+``search_batch``.
+
+Filtered and multi-tenant search: ``insert(labels=, tenant=)`` and
+``bootstrap_system(labels=, tenants=)`` tag points with label bits
+(``filter_words`` uint32 words a point) and a tenant id.  Every tier keeps
+a host-side ``graph.LabelTable`` beside its ext-id table, and the labels
+follow a point through the WAL (op-2 records), the insert buffer, flushes,
+rollover, merges, consolidation, snapshots and the layout's side tables.
+``search_batch(filter=)`` and ``search_disk(filter=)`` take a
+``graph.FilterSpec``: it is folded into the DeleteList drop mask that the
+fan-out applies after the beam search, so hops and cmps never change and a
+spec every live point matches returns the unfiltered result.
 
 External ids are user-provided int64s; the system maps them to
 (tier, slot).
@@ -76,7 +85,9 @@ from . import pq as pqm
 from .config import SystemConfig, resolve_device
 from .delete import affected_mask, consolidate_deletes
 from .distance import INVALID
-from .graph import GraphState, empty_graph, pad_graph, stack_lanes
+from .graph import (NO_TENANT, FilterSpec, GraphState, LabelTable,
+                    empty_graph, filter_match, pack_labels, pad_graph,
+                    stack_lanes, unpack_labels)
 from .locality import locality_order
 from .lti import LTIState, build_lti, search_lti
 from .merge import adjacency_delta_mask, streaming_merge
@@ -87,25 +98,12 @@ from ..storage import (DiskLTISearcher, is_layout, open_layout,
                        patch_layout, write_layout)
 from ..storage.layout import host
 
-_UNPORTED = (
-    ("filter_words", 0, "the filters slice"),
-)
-
-
-def check_ported(cfg: SystemConfig) -> None:
-    """Raise ``NotImplementedError`` for a knob the port does not run yet."""
-    for name, default, where in _UNPORTED:
-        if getattr(cfg, name) != default:
-            raise NotImplementedError(
-                f"SystemConfig.{name}={getattr(cfg, name)!r} is not ported "
-                f"to repro_torch yet; it comes with {where}")
-
-
 @dataclass
 class _Temp:
-    """One TempIndex instance + its slot -> external-id map."""
+    """One TempIndex instance + its slot -> external-id map and labels."""
     state: GraphState
     ext_ids: np.ndarray           # [capacity] int64, -1 free
+    labels: LabelTable            # row-parallel to ext_ids
     n: int = 0
 
 
@@ -191,6 +189,13 @@ class SystemStats:
     #   submit or close
     batch_occupancy: float = 0.0  # gauge: fill (n / batch_queries) of the
     #   last dispatched micro-batch
+    # Filtered and multi-tenant search.
+    filtered_searches: int = 0   # queries served under a non-empty spec
+    tenant_searches: dict = field(default_factory=dict)  # tenant id ->
+    #   queries served under that tenant's filter
+    tenant_sheds: dict = field(default_factory=dict)     # tenant id ->
+    #   submissions shed by the per-tenant quota (cfg.tenant_quota); each
+    #   also counts in shed_requests
     # Latency reservoirs: insert_latency per insert() (the lock-held
     # append), flush_latency per flush, search_latency per dispatched
     # micro-batch, serve_latency per scheduled request (arrival ->
@@ -207,9 +212,8 @@ class SystemStats:
         self.insert_latency.record(seconds)
 
     def serving_snapshot(self) -> dict:
-        """p50/p99 of each latency reservoir and the queue and batch
-        counters, as the reference reports them (its filter and tenant
-        counters come with the filters slice)."""
+        """p50/p99 of each latency reservoir and the queue, batch, filter
+        and tenant counters, as the reference reports them."""
         return {
             "search": self.search_latency.snapshot(),
             "serve": self.serve_latency.snapshot(),
@@ -222,13 +226,19 @@ class SystemStats:
             "deadline_misses": self.deadline_misses,
             "queue_depth": self.queue_depth,
             "batch_occupancy": self.batch_occupancy,
+            "filtered_searches": self.filtered_searches,
+            "tenant_searches": dict(self.tenant_searches),
+            "tenant_sheds": dict(self.tenant_sheds),
         }
 
 
 class FreshDiskANN:
     def __init__(self, cfg: SystemConfig, lti: Optional[LTIState] = None,
-                 lti_ext_ids: Optional[np.ndarray] = None, device="cuda"):
-        check_ported(cfg)
+                 lti_ext_ids: Optional[np.ndarray] = None, device="cuda",
+                 lti_labels: Optional[LabelTable] = None):
+        """``lti_labels`` tags the given LTI's slots (default: no labels,
+        no tenants); it is in place before the layout of ``storage_dir``
+        is first written."""
         self.cfg = cfg
         self.device = resolve_device(device)
         icfg = cfg.index
@@ -244,9 +254,15 @@ class FreshDiskANN:
                 pqm.PQCodebook(torch.zeros(
                     (cfg.pq.m, cfg.pq.ksub, cfg.pq.dsub),
                     device=self.device)))
-        self._lti_pair: tuple[LTIState, np.ndarray] = (
+        # The LTI, its ext-id table and its label table are read and
+        # swapped as one tuple: a search racing a merge never mixes
+        # generations.
+        self._n_label_words = cfg.filter_words
+        self._lti_pair: tuple[LTIState, np.ndarray, LabelTable] = (
             lti, lti_ext_ids if lti_ext_ids is not None
-            else np.full(icfg.capacity, -1, np.int64))
+            else np.full(icfg.capacity, -1, np.int64),
+            lti_labels if lti_labels is not None
+            else LabelTable(icfg.capacity, cfg.filter_words))
         self.rw = self._new_temp()
         self.ro: list[_Temp] = []
         self.deleted_ext: set[int] = set()
@@ -256,6 +272,8 @@ class FreshDiskANN:
                 self._ext_loc[int(lti_ext_ids[slot])] = ("lti", int(slot))
         self._insert_buf_v: list[np.ndarray] = []
         self._insert_buf_id: list[int] = []
+        self._insert_buf_bits: list[np.ndarray] = []   # packed label rows
+        self._insert_buf_tenant: list[int] = []        # NO_TENANT default
         self.stats = SystemStats()
         self._merge_lock = threading.Lock()
         self._ro_lock = threading.Lock()      # guards self.ro
@@ -276,10 +294,12 @@ class FreshDiskANN:
         self._shard_place: Optional[tuple] = None
         self._shard_steps: dict = {}
         # Fan-out caches keyed by tier-state identity (a flush, rollover or
-        # merge replaces the state object) and, for the drop mask, the
-        # DeleteList epoch (bumped on every DeleteList change).
+        # merge replaces the state object) and, for the drop masks, the
+        # DeleteList epoch (bumped on every DeleteList change).  The
+        # filtered masks: (key, epoch, {FilterSpec: masks}).
         self._fanout_cache: Optional[tuple] = None
         self._drop_cache: Optional[tuple] = None
+        self._filter_cache: Optional[tuple] = None
         self._delete_epoch = 0
         self._wal_offset: Optional[int] = None  # WAL bytes a snapshot covers
         self._wal_epoch: Optional[int] = None   # ... and of which log epoch
@@ -302,20 +322,39 @@ class FreshDiskANN:
     def lti_ext_ids(self) -> np.ndarray:
         return self._lti_pair[1]
 
+    @property
+    def lti_labels(self) -> LabelTable:
+        return self._lti_pair[2]
+
+    @lti_labels.setter
+    def lti_labels(self, value: LabelTable) -> None:
+        self._lti_pair = (self._lti_pair[0], self._lti_pair[1], value)
+
     # ------------------------------------------------------------------ API
     def insert(self, ext_id: int, vec: np.ndarray, labels=None,
                tenant: Optional[int] = None) -> None:
-        """Route to the RW TempIndex (paper §5.2); batched flush."""
-        if labels or tenant is not None:
-            raise NotImplementedError(
-                "labelled and tenant inserts are not ported to repro_torch "
-                "yet; they come with the filters slice")
+        """Route to the RW TempIndex (paper §5.2); batched flush.
+        ``labels`` (label bit indices, packed into ``cfg.filter_words``
+        words) and ``tenant`` tag the point; they ride the WAL as a
+        labelled-insert record (op 2) and follow the point into every
+        tier's label table."""
+        bits = pack_labels(labels, self._n_label_words) if labels else None
+        ten = NO_TENANT if tenant is None else int(tenant)
         t0 = time.perf_counter()
         with self._insert_lock:
             if self.wal:
-                self.wal.log_insert(ext_id, vec)
+                if bits is not None or ten != NO_TENANT:
+                    self.wal.log_insert_labeled(
+                        ext_id, vec, ten, bits if bits is not None else
+                        np.zeros(self._n_label_words, np.uint32))
+                else:
+                    self.wal.log_insert(ext_id, vec)
             self._insert_buf_id.append(int(ext_id))
             self._insert_buf_v.append(np.asarray(vec, np.float32))
+            self._insert_buf_bits.append(
+                bits if bits is not None else
+                np.zeros(self._n_label_words, np.uint32))
+            self._insert_buf_tenant.append(ten)
             # A re-insert revives the id at once (not at flush time).
             if int(ext_id) in self.deleted_ext:
                 self.deleted_ext.discard(int(ext_id))
@@ -340,6 +379,10 @@ class FreshDiskANN:
                         if x != e]
                 self._insert_buf_id = [self._insert_buf_id[i] for i in keep]
                 self._insert_buf_v = [self._insert_buf_v[i] for i in keep]
+                self._insert_buf_bits = [self._insert_buf_bits[i]
+                                         for i in keep]
+                self._insert_buf_tenant = [self._insert_buf_tenant[i]
+                                           for i in keep]
             self.deleted_ext.add(e)
             self._delete_epoch += 1
         self.stats.deletes += 1
@@ -352,18 +395,20 @@ class FreshDiskANN:
 
     def search_batch(self, queries: np.ndarray, k: int,
                      L: Optional[int] = None,
-                     beam_width: Optional[int] = None, filter=None
+                     beam_width: Optional[int] = None,
+                     filter: Optional[FilterSpec] = None
                      ) -> tuple[np.ndarray, np.ndarray]:
         """Serve a query batch over the LTI and every TempIndex, drop the
         DeleteList, merge (§5.2).  Returns (ext_ids [B, k] int64,
         dists [B, k] f32).  ``cfg.batch_queries`` = N > 0 serves the batch
         in fixed chunks of N queries (the tail zero-padded and sliced off);
-        ``stats.search_dispatches`` counts the chunks."""
-        if filter is not None:
-            raise NotImplementedError(
-                "filtered search is not ported to repro_torch yet; it comes "
-                "with the filters slice")
+        ``stats.search_dispatches`` counts the chunks.
+
+        ``filter`` keeps only points matching a ``FilterSpec``: it is
+        applied after the search, where deletes are, so a client asking for
+        a rare label widens k and L.  An empty spec is no filter."""
         self._flush_inserts()
+        fspec = self._resolve_filter(filter)
         L = L or self.cfg.index.L_search
         if k > L:
             raise ValueError(
@@ -373,12 +418,12 @@ class FreshDiskANN:
         kk = min(max(k * 2, k + 8), L)    # over-fetch for drops and dedupe
         q = np.asarray(queries, np.float32)
         B = q.shape[0]
-        self.stats.searches += B
+        self._count_searches(B, fspec)
         if B == 0:
             return (np.zeros((0, k), np.int64), np.zeros((0, k), np.float32))
         bq = self.cfg.batch_queries
         if not bq or B == bq:
-            return self._search_dispatch(q, k, kk, L, W)
+            return self._search_dispatch(q, k, kk, L, W, fspec)
         outs = []
         for lo in range(0, B, bq):
             chunk = q[lo:lo + bq]
@@ -387,10 +432,25 @@ class FreshDiskANN:
                 qp = np.zeros((bq, q.shape[1]), np.float32)
                 qp[:n] = chunk
                 chunk = qp
-            ids, d = self._search_dispatch(chunk, k, kk, L, W)
+            ids, d = self._search_dispatch(chunk, k, kk, L, W, fspec)
             outs.append((ids[:n], d[:n]))
         return (np.concatenate([o[0] for o in outs]),
                 np.concatenate([o[1] for o in outs]))
+
+    @staticmethod
+    def _resolve_filter(spec: Optional[FilterSpec]) -> Optional[FilterSpec]:
+        """None for no filter or an empty spec (the unfiltered path)."""
+        return spec if spec is not None and not spec.is_empty else None
+
+    def _count_searches(self, n: int, fspec: Optional[FilterSpec]) -> None:
+        """Queries served, filtered and per tenant (queries, not
+        programs)."""
+        self.stats.searches += n
+        if fspec is not None:
+            self.stats.filtered_searches += n
+            if fspec.tenant is not None:
+                self.stats.tenant_searches[fspec.tenant] = (
+                    self.stats.tenant_searches.get(fspec.tenant, 0) + n)
 
     # -------------------------------------------------------------- merging
     def merge(self, background: bool = False) -> None:
@@ -434,8 +494,9 @@ class FreshDiskANN:
         old_adj = self.lti.graph.adjacency if self.cfg.storage_dir else None
         del_snapshot = set(self.deleted_ext)
         dl = np.fromiter(del_snapshot, np.int64, len(del_snapshot))
-        # Stage the RO points in tier and slot order, minus re-deleted ones.
-        parts_v, parts_e = [], []
+        # Stage the RO points in tier and slot order, minus re-deleted ones;
+        # their labels follow them.
+        parts_v, parts_e, parts_b, parts_t = [], [], [], []
         for t in ro:
             sl = np.nonzero(t.ext_ids >= 0)[0][:t.n]
             ext = t.ext_ids[sl]
@@ -443,13 +504,19 @@ class FreshDiskANN:
             parts_v.append(t.state.vectors[torch.as_tensor(
                 sl[keep]).to(self.device)])
             parts_e.append(ext[keep])
+            parts_b.append(t.labels.bits[sl[keep]])
+            parts_t.append(t.labels.tenant[sl[keep]])
         w = sum(len(e) for e in parts_e)
         nn = max(staged, 1)
         vecs = torch.zeros((nn, icfg.dim), device=self.device)
         exts = np.full(nn, -1, np.int64)
+        sbits = np.zeros((nn, self._n_label_words), np.uint32)
+        sten = np.full(nn, NO_TENANT, np.int32)
         if w:
             vecs[:w] = torch.cat(parts_v).float()
             exts[:w] = np.concatenate(parts_e)
+            sbits[:w] = np.concatenate(parts_b)
+            sten[:w] = np.concatenate(parts_t)
         valid = np.zeros(nn, bool)
         valid[:w] = True
         # Remove from the LTI the DeleteList members and the rows a staged
@@ -478,16 +545,19 @@ class FreshDiskANN:
         else:
             self.stats.global_repairs += 1
             self._force_global_repair = False
-        # The ext-id table: deleted rows out, merged rows in at the slots
-        # the merge assigned.
-        new_ids = self._retire_lti_rows(dmask)
+        # The ext-id and label tables: deleted rows out, merged rows in at
+        # the slots the merge assigned.
+        new_ids, new_labels = self._retire_lti_rows(dmask)
         slots = stats.slots.cpu().numpy()
         ok = valid & (slots >= 0)
         new_ids[slots[ok]] = exts[ok]
+        new_labels.bits[slots[ok]] = sbits[ok]
+        new_labels.tenant[slots[ok]] = sten[ok]
         for s_, e in zip(slots[ok], exts[ok]):
             self._ext_loc[int(e)] = ("lti", int(s_))
-        # One generation swap, then retire exactly the RO snapshots merged.
-        self._lti_pair = (new_lti, new_ids)
+        # One generation swap (graph, ext ids, labels), then retire exactly
+        # the RO snapshots merged.
+        self._lti_pair = (new_lti, new_ids, new_labels)
         with self._ro_lock:
             self.ro = self.ro[len(ro):]
             self._merge_inflight = 0
@@ -518,16 +588,19 @@ class FreshDiskANN:
         self.stats.merge_seconds += time.perf_counter() - t0
         self._probe_reachability(repair_mode)
 
-    def _retire_lti_rows(self, dmask: np.ndarray) -> np.ndarray:
-        """A copy of the LTI ext-id table with the ``dmask`` rows cleared
-        (and their ids' LTI locations forgotten)."""
+    def _retire_lti_rows(self, dmask: np.ndarray
+                         ) -> tuple[np.ndarray, LabelTable]:
+        """Copies of the LTI's ext-id and label tables with the ``dmask``
+        rows cleared (and their ids' LTI locations forgotten)."""
         new_ids = self.lti_ext_ids.copy()
         for e in new_ids[dmask]:
             e = int(e)
             if e >= 0 and self._ext_loc.get(e, ("?",))[0] == "lti":
                 del self._ext_loc[e]
         new_ids[dmask] = -1
-        return new_ids
+        new_labels = self.lti_labels.copy()
+        new_labels.clear_rows(dmask)
+        return new_ids, new_labels
 
     def _retire_deletes(self, del_snapshot: set) -> None:
         """After a generation swap: a delete leaves the DeleteList only when
@@ -536,6 +609,7 @@ class FreshDiskANN:
         caches."""
         self._fanout_cache = None
         self._drop_cache = None
+        self._filter_cache = None
         alive = self._live_ext_ids()
         dl = np.fromiter(del_snapshot, np.int64, len(del_snapshot))
         with self._insert_lock:
@@ -583,7 +657,7 @@ class FreshDiskANN:
         DeleteList, copies in temp tiers keep their delete pending."""
         with self._merge_lock:
             icfg = self.cfg.index
-            lti, table = self._lti_pair
+            lti, table, _ = self._lti_pair
             del_snapshot = set(self.deleted_ext)
             dl = np.fromiter(del_snapshot, np.int64, len(del_snapshot))
             dmask = np.isin(table, dl) & lti.graph.active.cpu().numpy()
@@ -607,9 +681,9 @@ class FreshDiskANN:
             else:
                 self.stats.global_repairs += 1
                 self._force_global_repair = False
-            new_ids = self._retire_lti_rows(dmask)
+            new_ids, new_labels = self._retire_lti_rows(dmask)
             self._lti_pair = (LTIState(new_g, lti.codes, lti.codebook),
-                              new_ids)
+                              new_ids, new_labels)
             self._tuned_w = None
             self._shard_place = None
             if self.cfg.storage_dir:
@@ -620,29 +694,30 @@ class FreshDiskANN:
             return n_del
 
     # ---------------------------------------------------------------- query
-    def _search_dispatch(self, queries, k, kk, L, W):
+    def _search_dispatch(self, queries, k, kk, L, W, fspec=None):
         """Timed wrapper: each dispatched micro-batch samples its wall time
         (to the results on the host) into ``stats.search_latency``."""
         d0 = self.stats.search_dispatches
         t0 = time.perf_counter()
-        out = self._search_dispatch_impl(queries, k, kk, L, W)
+        out = self._search_dispatch_impl(queries, k, kk, L, W, fspec)
         if self.stats.search_dispatches > d0:
             self.stats.search_latency.record(time.perf_counter() - t0)
         return out
 
-    def _search_dispatch_impl(self, queries, k, kk, L, W):
+    def _search_dispatch_impl(self, queries, k, kk, L, W, fspec=None):
         """Serve one fixed-shape micro-batch: the unified fan-out (its LTI
         lane sharded with ``shard_lti``), or with ``batch_fanout=False``
-        one search per tier and the host aggregation."""
+        one search per tier and the host aggregation.  A ``fspec`` only
+        changes the drop masks (or, per tier, ``_slot_filter``)."""
         q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
         nq = queries.shape[0]
         rw_t, ro_temps, lti_entry = self._capture_lanes()
         if rw_t is None and not ro_temps and lti_entry is None:
             return self._aggregate([], k, nq)
         if self.cfg.batch_fanout:
-            key, stack, t_tabs, l_tab, tables_np = self._lane_bundle(
-                rw_t, ro_temps, lti_entry)
-            t_drop, l_drop = self._drop_mask(key, tables_np)
+            bundle = self._lane_bundle(rw_t, ro_temps, lti_entry)
+            t_drop, l_drop = self._masks(bundle, fspec)
+            stack, t_tabs, l_tab = bundle[1:4]
             # The rerank only matters to the PQ lane.
             do_rerank = self.cfg.rerank and lti_entry is not None
             if lti_entry is not None and self._shard_count():
@@ -665,13 +740,39 @@ class FreshDiskANN:
                                       L=L, beam_width=W,
                                       rerank=self.cfg.rerank)
             self.stats.search_dispatches += 1
-            cands.append((self._map_ext(host(ids), lti_entry[1]), host(d)))
+            ids = host(ids)
+            cands.append((self._map_ext(ids, lti_entry[1]),
+                          self._slot_filter(ids, host(d), lti_entry[2],
+                                            fspec)))
         for t in ([rw_t] if rw_t is not None else []) + ro_temps:
             ids, d, _, _ = mem.search(t.state, q, self.temp_cfg, k=kk, L=L,
                                       beam_width=W)
             self.stats.search_dispatches += 1
-            cands.append((self._map_ext(host(ids), t.ext_ids), host(d)))
+            ids = host(ids)
+            cands.append((self._map_ext(ids, t.ext_ids),
+                          self._slot_filter(ids, host(d), t.labels, fspec)))
         return self._aggregate(cands, k, nq)
+
+    @staticmethod
+    def _slot_filter(slot_ids: np.ndarray, dists: np.ndarray,
+                     labels: Optional[LabelTable],
+                     fspec: Optional[FilterSpec]) -> np.ndarray:
+        """The per-tier paths' filtered drop: +inf for the candidates whose
+        slot fails ``fspec``, at the point where the fan-out applies its
+        masks (so the two paths stay equal with filters on).  A tier with
+        no label table matches nothing."""
+        if fspec is None:
+            return dists
+        d = dists.copy()
+        ok = slot_ids >= 0
+        if labels is None:
+            d[ok] = np.inf
+            return d
+        m = filter_match(labels, fspec)
+        dead = np.zeros(slot_ids.shape, bool)
+        dead[ok] = ~m[slot_ids[ok]]
+        d[dead] = np.inf
+        return d
 
     # ---------------------------------------------------- sharded LTI lane
     @property
@@ -751,7 +852,7 @@ class FreshDiskANN:
             return None
         if self.cfg.batch_fanout:
             key, stack, t_tabs, l_tab, tables_np = self._lane_bundle(
-                rw_t, ro_temps, lti_entry)
+                rw_t, ro_temps, lti_entry)[:5]
             t_drop, l_drop = self._drop_mask(key, tables_np)
 
             def run(W):
@@ -792,9 +893,9 @@ class FreshDiskANN:
         rw_t = rw if rw.n > 0 else None
         with self._ro_lock:
             ro_temps = [t for t in self.ro if t.n > 0]
-        lti, lti_table = self._lti_pair
-        lti_entry = ((lti, lti_table) if int(lti.graph.n_total) > 0
-                     else None)
+        lti, lti_table, lti_labels = self._lti_pair     # one generation
+        lti_entry = ((lti, lti_table, lti_labels)
+                     if int(lti.graph.n_total) > 0 else None)
         return rw_t, ro_temps, lti_entry
 
     @staticmethod
@@ -804,15 +905,15 @@ class FreshDiskANN:
 
     def _lane_bundle(self, rw_t, ro_temps, lti_entry):
         """(key, LaneStack, temp tables [Tt, cap], LTI table [lti_cap],
-        host tables) for the fan-out, cached by tier-state identity.
-        External ids ride as int32 on the device when they fit, else int64.
-        """
+        host tables, label tables) for the fan-out, cached by tier-state
+        identity.  External ids ride as int32 on the device when they fit,
+        else int64.  The label tables are lane-ordered ([RW] + RO, LTI),
+        aligned with the stacked lanes."""
         fp = ([rw_t] if rw_t is not None else []) + ro_temps
         key = tuple(t.state for t in fp) + (
             (lti_entry[0],) if lti_entry is not None else ())
         cached = self._fanout_cache
-        if (cached is not None and len(cached[0]) == len(key)
-                and all(a is b for a, b in zip(cached[0], key))):
+        if cached is not None and self._key_hits(cached[0], key):
             return cached[1]
         tcap = max((t.state.capacity for t in fp), default=0)
         temp_np = np.full((len(fp), tcap), -1, np.int64)
@@ -833,32 +934,88 @@ class FreshDiskANN:
                   if fp else None)
         l_tab = (torch.as_tensor(lti_np).to(self.device, id_dtype)
                  if lti_np is not None else None)
-        bundle = (key, stack, t_tabs, l_tab, (temp_np, lti_np))
+        label_tabs = ([t.labels for t in fp],
+                      lti_entry[2] if lti_entry is not None else None)
+        bundle = (key, stack, t_tabs, l_tab, (temp_np, lti_np), label_tabs)
         self._fanout_cache = (key, bundle)
         return bundle
+
+    @staticmethod
+    def _key_hits(cached_key: tuple, key: tuple) -> bool:
+        return (len(cached_key) == len(key)
+                and all(a is b for a, b in zip(cached_key, key)))
+
+    def _epoch_hits(self, cached, key: tuple) -> bool:
+        """A (key, epoch, ...) mask cache entry is current."""
+        return (cached is not None and cached[1] == self._delete_epoch
+                and self._key_hits(cached[0], key))
+
+    def _masks(self, bundle: tuple, fspec: Optional[FilterSpec]):
+        """The drop masks of one dispatch: the DeleteList's, or with a
+        spec the filtered ones."""
+        key, tables_np = bundle[0], bundle[4]
+        if fspec is None:
+            return self._drop_mask(key, tables_np)
+        return self._filter_drop(key, tables_np, bundle[5], fspec)
+
+    def _delete_masks_np(self, tables_np: tuple):
+        """Host DeleteList membership masks over the lane tables (temp
+        [Tt, cap], LTI [cap] or None): the base of both drop masks."""
+        temp_np, lti_np = tables_np
+        deleted = self.deleted_ext.copy()
+        dl = np.fromiter(deleted, np.int64, len(deleted))
+        return (np.isin(temp_np, dl),
+                np.isin(lti_np, dl) if lti_np is not None else None)
+
+    def _to_device_masks(self, t_mask: np.ndarray, l_mask):
+        return (torch.as_tensor(t_mask).to(self.device)
+                if t_mask.shape[0] else None,
+                torch.as_tensor(l_mask).to(self.device)
+                if l_mask is not None else None)
 
     def _drop_mask(self, key: tuple, tables_np: tuple):
         """DeleteList membership masks over the lane tables, (temp
         [Tt, cap] or None, LTI [cap] or None), cached by (lanes, epoch)."""
-        cached = self._drop_cache
-        if (cached is not None and cached[1] == self._delete_epoch
-                and len(cached[0]) == len(key)
-                and all(a is b for a, b in zip(cached[0], key))):
-            return cached[2]
-        temp_np, lti_np = tables_np
-        dl = np.fromiter(self.deleted_ext, np.int64, len(self.deleted_ext))
-        t_mask = np.isin(temp_np, dl)
-        drop = (torch.as_tensor(t_mask).to(self.device)
-                if t_mask.shape[0] else None,
-                torch.as_tensor(np.isin(lti_np, dl)).to(self.device)
-                if lti_np is not None else None)
-        self._drop_cache = (key, self._delete_epoch, drop)
+        epoch = self._delete_epoch
+        if self._epoch_hits(self._drop_cache, key):
+            return self._drop_cache[2]
+        drop = self._to_device_masks(*self._delete_masks_np(tables_np))
+        self._drop_cache = (key, epoch, drop)
+        return drop
+
+    def _filter_drop(self, key: tuple, tables_np: tuple, label_tabs: tuple,
+                     fspec: FilterSpec):
+        """The filtered drop masks: the DeleteList's ORed with ``~match``
+        of ``fspec`` against each lane's label table (lane padding matches
+        nothing).  Cached per spec under (lanes, delete epoch): any tier or
+        DeleteList change retires them all."""
+        epoch = self._delete_epoch
+        cached = self._filter_cache
+        if self._epoch_hits(cached, key):
+            specs = cached[2]
+        else:
+            specs = {}
+            self._filter_cache = (key, epoch, specs)
+        drop = specs.get(fspec)
+        if drop is not None:
+            return drop
+        t_mask, l_mask = self._delete_masks_np(tables_np)
+        temp_labels, lti_labels = label_tabs
+        for i, lt in enumerate(temp_labels):
+            m = filter_match(lt, fspec)
+            t_mask[i, :m.size] |= ~m
+            t_mask[i, m.size:] = True
+        if l_mask is not None:
+            l_mask |= ~filter_match(lti_labels, fspec)
+        drop = self._to_device_masks(t_mask, l_mask)
+        specs[fspec] = drop
         return drop
 
     # --------------------------------------------------------------- update
     def _new_temp(self) -> _Temp:
         return _Temp(empty_graph(self.temp_cfg, self.device),
-                     np.full(self.cfg.temp_capacity, -1, np.int64))
+                     np.full(self.cfg.temp_capacity, -1, np.int64),
+                     LabelTable(self.cfg.temp_capacity, self._n_label_words))
 
     def _flush_inserts(self) -> None:
         """Land the insert buffer in the RW tier: the buffer swap under
@@ -869,21 +1026,24 @@ class FreshDiskANN:
         with self._flush_lock:
             with self._insert_lock:
                 ids, vecs = self._insert_buf_id, self._insert_buf_v
+                bits, tens = self._insert_buf_bits, self._insert_buf_tenant
                 if not ids:
                     return
                 self._insert_buf_id, self._insert_buf_v = [], []
+                self._insert_buf_bits, self._insert_buf_tenant = [], []
             t0 = time.perf_counter()
-            self._flush_compute(ids, vecs)
+            self._flush_compute(ids, vecs, bits, tens)
             self.stats.flushes += 1
             self.stats.flush_latency.record(time.perf_counter() - t0)
 
-    def _flush_compute(self, ids: list, vecs: list) -> None:
+    def _flush_compute(self, ids: list, vecs: list, bits: list,
+                       tens: list) -> None:
         """Insert one drained buffer into the RW tier, ``insert_batch``
         points per ``insert_edges_stage`` + ``insert_apply_delta``: in
         arrival order, or with ``locality_order`` the whole buffer
         proximity-ordered first (seeded per flush; the order is computed on
-        the CPU, so the CPU and the card take the same one).  Ext-id rows
-        are written before the new state is published."""
+        the CPU, so the CPU and the card take the same one).  Ext-id and
+        label rows are written before the new state is published."""
         B = self.cfg.insert_batch
         dev = self.device
         if self.cfg.locality_order and len(ids) > 1:
@@ -893,11 +1053,15 @@ class FreshDiskANN:
                 seed=self._flush_seq).tolist()
             ids = [ids[i] for i in perm]
             vecs = [vecs[i] for i in perm]
+            bits = [bits[i] for i in perm]
+            tens = [tens[i] for i in perm]
         self._flush_seq += 1
         t = self.rw
         for lo in range(0, len(ids), B):
             chunk_i = ids[lo:lo + B]
             chunk_v = vecs[lo:lo + B]
+            chunk_b = bits[lo:lo + B]
+            chunk_t = tens[lo:lo + B]
             slots = np.arange(t.n, t.n + len(chunk_i), dtype=np.int32)
             if t.n == 0:
                 # Seed the empty temp graph: the first point is the start.
@@ -906,11 +1070,13 @@ class FreshDiskANN:
                     dev, st.vectors.dtype)
                 st.active[0] = True
                 t.ext_ids[0] = chunk_i[0]
+                t.labels.set_row(0, chunk_b[0], chunk_t[0])
                 t.state = st._replace(
                     start=torch.zeros((), dtype=torch.int32, device=dev),
                     n_total=torch.ones((), dtype=torch.int32, device=dev))
                 self._ext_loc[chunk_i[0]] = ("rw", 0)
                 chunk_i, chunk_v, slots = chunk_i[1:], chunk_v[1:], slots[1:]
+                chunk_b, chunk_t = chunk_b[1:], chunk_t[1:]
                 t.n = 1
                 if not chunk_i:
                     continue
@@ -926,6 +1092,8 @@ class FreshDiskANN:
                 np.unique(pj_h[pj_h >= 0]).size)
             st = mem.insert_apply_delta(st, pj, pp, self.temp_cfg)
             t.ext_ids[slots] = chunk_i
+            t.labels.bits[slots] = np.stack(chunk_b)
+            t.labels.tenant[slots] = chunk_t
             t.state = st
             for s, e in zip(slots, chunk_i):
                 self._ext_loc[e] = ("rw", int(s))
@@ -960,7 +1128,7 @@ class FreshDiskANN:
         return os.path.join(self.cfg.storage_dir, "lti")
 
     def _sync_storage(self, adj_changed: Optional[np.ndarray] = None) -> None:
-        """Mirror the live (LTI, ext-table) pair to the layout at
+        """Mirror the live (LTI, ext ids, labels) to the layout at
         ``cfg.storage_dir``: a full write the first time, a delta patch
         afterwards (``adj_changed``: the rows a merge or consolidation
         rewrote).  An open disk searcher is closed first: its side tables
@@ -968,19 +1136,20 @@ class FreshDiskANN:
         self.close_storage()
         path = self._storage_path()
         os.makedirs(self.cfg.storage_dir, exist_ok=True)
-        lti, table = self._lti_pair
-        bits, tenant = _no_labels(lti.graph.capacity)
+        lti, table, labels = self._lti_pair
         if is_layout(path):
             ps = patch_layout(path, lti.graph, codes=lti.codes,
                               ext_ids=table, adj_changed=adj_changed,
-                              label_bits=bits, label_tenant=tenant)
+                              label_bits=labels.bits,
+                              label_tenant=labels.tenant)
             self.stats.storage_rows_patched += ps.adj_rows
             self.stats.storage_blocks_patched += ps.adj_blocks
             self.stats.storage_bytes_written += ps.bytes_written
         else:
             lay = write_layout(path, lti.graph, codes=lti.codes,
                                codebook=lti.codebook, ext_ids=table,
-                               label_bits=bits, label_tenant=tenant)
+                               label_bits=labels.bits,
+                               label_tenant=labels.tenant)
             self.stats.storage_bytes_written += (
                 lay.capacity * (lay.row_bytes + lay.dim * 4 + lay.m))
             lay.close()
@@ -1006,7 +1175,8 @@ class FreshDiskANN:
 
     def search_disk(self, queries: np.ndarray, k: int,
                     L: Optional[int] = None,
-                    beam_width: Optional[int] = None, filter=None
+                    beam_width: Optional[int] = None,
+                    filter: Optional[FilterSpec] = None
                     ) -> tuple[np.ndarray, np.ndarray]:
         """The §5.2 fan-out with the LTI lane served off the layout: PQ
         navigation on in-memory codes, adjacency rows from ``topology.bin``
@@ -1015,14 +1185,13 @@ class FreshDiskANN:
         rerank from ``data.bin``; the temp tiers, memory-resident, go
         through ``index.search`` one by one.  Returns (ext_ids [B, k],
         dists [B, k]) equal to ``search_batch``'s; the reader's IO deltas
-        are folded into ``stats.io_*``."""
-        if filter is not None:
-            raise NotImplementedError(
-                "filtered search is not ported to repro_torch yet; it comes "
-                "with the filters slice")
+        are folded into ``stats.io_*``.  ``filter`` as in
+        ``search_batch``; the LTI lane is filtered against the layout's own
+        label tables (the generation it searched)."""
         if not self.cfg.storage_dir:
             raise ValueError("search_disk needs SystemConfig.storage_dir")
         self._flush_inserts()
+        fspec = self._resolve_filter(filter)
         L = L or self.cfg.index.L_search
         if k > L:
             raise ValueError(f"search(k={k}, L={L}): k must be <= L")
@@ -1030,7 +1199,7 @@ class FreshDiskANN:
         kk = min(max(k * 2, k + 8), L)
         q = np.asarray(queries, np.float32)
         B = q.shape[0]
-        self.stats.searches += B
+        self._count_searches(B, fspec)
         if B == 0:
             return (np.zeros((0, k), np.int64), np.zeros((0, k), np.float32))
         rw_t, ro_temps, lti_entry = self._capture_lanes()
@@ -1052,13 +1221,23 @@ class FreshDiskANN:
             self.stats.io_cache_hits += delta("cache_hits")
             self.stats.io_prefetch_hits += delta("prefetch_hits")
             self.stats.io_bytes_read += delta("bytes_read")
-            cands.append((self._map_ext(ids, s.layout.ext_ids), d))
+            lay = s.layout
+            lay_labels = None
+            if lay.label_tenant is not None:
+                lay_labels = LabelTable(
+                    lay.capacity, 0 if lay.label_bits is None
+                    else lay.label_bits.shape[1], lay.label_bits,
+                    lay.label_tenant)
+            cands.append((self._map_ext(ids, lay.ext_ids),
+                          self._slot_filter(ids, d, lay_labels, fspec)))
         qd = torch.from_numpy(q).to(self.device)
         for t in ([rw_t] if rw_t is not None else []) + ro_temps:
             ids, d, _, _ = mem.search(t.state, qd, self.temp_cfg, k=kk, L=L,
                                       beam_width=W)
             self.stats.search_dispatches += 1
-            cands.append((self._map_ext(host(ids), t.ext_ids), host(d)))
+            ids = host(ids)
+            cands.append((self._map_ext(ids, t.ext_ids),
+                          self._slot_filter(ids, host(d), t.labels, fspec)))
         return self._aggregate(cands, k, B)
 
     @staticmethod
@@ -1112,23 +1291,24 @@ class FreshDiskANN:
         # Caller holds _flush_lock + _insert_lock (RLocks; the flush nests).
         self._flush_inserts()
         os.makedirs(path, exist_ok=True)
-        lti, table = self._lti_pair
-        bits, tenant = _no_labels(lti.graph.capacity)
+        lti, table, labels = self._lti_pair
         if self.cfg.storage_dir:
             write_layout(os.path.join(path, "layout"), lti.graph,
                          codes=lti.codes, codebook=lti.codebook,
                          ext_ids=table, generation=self.stats.merges,
-                         label_bits=bits, label_tenant=tenant).close()
+                         label_bits=labels.bits,
+                         label_tenant=labels.tenant).close()
         else:
             np.savez_compressed(
                 os.path.join(path, "lti.npz"),
                 **{f"g_{k}": host(v) for k, v in lti.graph._asdict().items()},
                 codes=host(lti.codes), centroids=host(lti.codebook.centroids),
-                ext_ids=table, label_bits=bits, label_tenant=tenant)
+                ext_ids=table, label_bits=labels.bits,
+                label_tenant=labels.tenant)
         # Only builtins and numpy: a temp is (graph fields in GraphState
         # order, ext ids, n, label bits, tenants), as the reference reads.
         temps = [(tuple(host(x) for x in t.state), t.ext_ids, t.n,
-                  *_no_labels(len(t.ext_ids))) for t in self.ro + [self.rw]]
+                  t.labels.bits, t.labels.tenant) for t in self.ro + [self.rw]]
         with open(os.path.join(path, "temps.pkl"), "wb") as f:
             pickle.dump(temps, f)
         # How much of the WAL (and which epoch) the snapshot covers, so
@@ -1146,14 +1326,17 @@ class FreshDiskANN:
     def load(cls, path: str, cfg: SystemConfig,
              device="cuda") -> "FreshDiskANN":
         """A system from a snapshot written by either package (its WAL and
-        layout opened under ``cfg``)."""
+        layout opened under ``cfg``).  Label tables are read where the
+        snapshot has them (label-free snapshots and the historical 3-tuple
+        temps have none: no labels, no tenants)."""
         dev = resolve_device(device)
         lay_path = os.path.join(path, "layout")
+        bits = tenant = None
         if is_layout(lay_path):
             lay = open_layout(lay_path)
             lti = lay.lti_state(dev)
             ext_ids = lay.ext_ids.copy()
-            _check_no_labels(lay.label_bits, lay.label_tenant, lay_path)
+            bits, tenant = lay.label_bits, lay.label_tenant
             lay.close()
         else:
             with np.load(os.path.join(path, "lti.npz")) as z:
@@ -1164,18 +1347,20 @@ class FreshDiskANN:
                                    z["centroids"]).to(dev)))
                 ext_ids = z["ext_ids"].copy()
                 if "label_tenant" in z.files:
-                    _check_no_labels(z["label_bits"], z["label_tenant"],
-                                     path)
-        sys_ = cls(cfg, lti=lti, lti_ext_ids=ext_ids, device=dev)
+                    bits, tenant = z["label_bits"], z["label_tenant"]
+        sys_ = cls(cfg, lti=lti, lti_ext_ids=ext_ids, device=dev,
+                   lti_labels=_label_table(len(ext_ids), cfg.filter_words,
+                                           bits, tenant))
         with open(os.path.join(path, "temps.pkl"), "rb") as f:
             temps = _SnapshotUnpickler(f).load()
         for i, entry in enumerate(temps):
             s, e, n = entry[:3]
-            if len(entry) >= 5:
-                _check_no_labels(entry[3], entry[4], path)
+            bits, tenant = entry[3:5] if len(entry) >= 5 else (None, None)
             t = _Temp(GraphState(*(torch.from_numpy(np.array(x)).to(dev)
                                    for x in s)),
-                      np.array(e, np.int64), int(n))
+                      np.array(e, np.int64),
+                      _label_table(len(e), cfg.filter_words, bits, tenant),
+                      int(n))
             # The last entry is the RW tier, the others RO snapshots.
             is_rw = i == len(temps) - 1
             if is_rw:
@@ -1220,7 +1405,9 @@ class FreshDiskANN:
             self.deleted_ext = restored.deleted_ext
             self._ext_loc = restored._ext_loc
             self._insert_buf_v, self._insert_buf_id = [], []
+            self._insert_buf_bits, self._insert_buf_tenant = [], []
             self._fanout_cache = self._drop_cache = None
+            self._filter_cache = None
             self._delete_epoch += 1
             # The restored system re-synced the live layout; a searcher
             # still open over the old generation must reopen.
@@ -1235,10 +1422,6 @@ class FreshDiskANN:
                                       or epoch != log_epoch(wal_path)):
                 start = None
             records = list(replay(wal_path, start))
-            if any(op == OP_INSERT_LABELED for op, _, _ in records):
-                raise NotImplementedError(
-                    "the WAL holds labelled inserts, which are not ported "
-                    "to repro_torch yet; they come with the filters slice")
             # Replay without logging again: the records are in the log.
             wal, self.wal = self.wal, None
             try:
@@ -1247,6 +1430,11 @@ class FreshDiskANN:
                         self.insert(ext_id, vec)
                     elif op == OP_DELETE:
                         self.delete(ext_id)
+                    elif op == OP_INSERT_LABELED:   # (vec, tenant, bits)
+                        self.insert(ext_id, vec.vec,
+                                    labels=unpack_labels(vec.bits),
+                                    tenant=(None if vec.tenant == NO_TENANT
+                                            else vec.tenant))
                     n += 1
                 self._flush_inserts()
             finally:
@@ -1278,31 +1466,32 @@ def bootstrap_system(vectors: np.ndarray, ext_ids: np.ndarray,
                      device="cuda", **build_kw) -> FreshDiskANN:
     """Build the initial static LTI (paper: start from a DiskANN build) and
     the system around it.  ``build_kw`` goes to ``lti.build_lti`` (e.g. a
-    ready-made ``codebook``)."""
-    if labels is not None or tenants is not None:
-        raise NotImplementedError(
-            "labelled bootstrap points are not ported to repro_torch yet; "
-            "they come with the filters slice")
-    check_ported(cfg)
+    ready-made ``codebook``).  ``labels`` (per point, an iterable of label
+    bit indices) and ``tenants`` (per point, a tenant id) tag the points:
+    the build fills slots in input order, so row i's land in slot i."""
     lti = build_lti(vectors, cfg.index, cfg.pq, device=device, **build_kw)
     table = np.full(cfg.index.capacity, -1, np.int64)
     table[:len(ext_ids)] = ext_ids
-    return FreshDiskANN(cfg, lti=lti, lti_ext_ids=table, device=device)
+    lb = LabelTable(cfg.index.capacity, cfg.filter_words)
+    if labels is not None:
+        for i, ls in enumerate(labels):
+            lb.bits[i] = pack_labels(ls, lb.n_words)
+    if tenants is not None:
+        lb.tenant[:len(tenants)] = np.asarray(tenants, np.int32)
+    return FreshDiskANN(cfg, lti=lti, lti_ext_ids=table, device=device,
+                        lti_labels=lb)
 
 
-def _no_labels(capacity: int) -> tuple[np.ndarray, np.ndarray]:
-    """The label side tables of a label-free tier, as the reference writes
-    them: bits uint32 [capacity, 0] and tenants int32 [capacity] of -1."""
-    return (np.zeros((capacity, 0), np.uint32),
-            np.full(capacity, -1, np.int32))
-
-
-def _check_no_labels(bits, tenant, where: str) -> None:
-    if ((tenant is not None and (np.asarray(tenant) != -1).any())
-            or (bits is not None and np.asarray(bits).any())):
-        raise NotImplementedError(
-            f"{where} holds point labels or tenants, which are not ported "
-            "to repro_torch yet; they come with the filters slice")
+def _label_table(capacity: int, n_words: int, bits, tenant) -> LabelTable:
+    """A tier's ``LabelTable`` from stored side tables (None: no labels):
+    tenants as stored, the first ``min(stored, n_words)`` words of bits."""
+    lb = LabelTable(capacity, n_words)
+    if tenant is not None:
+        lb.tenant[:] = tenant
+        if bits is not None and np.asarray(bits).size:
+            w = min(n_words, np.asarray(bits).shape[1])
+            lb.bits[:, :w] = np.asarray(bits)[:, :w]
+    return lb
 
 
 class _FieldTuple(tuple):

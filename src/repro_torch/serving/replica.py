@@ -13,9 +13,11 @@ Micro-batches are routed round-robin (or pinned with ``replica=``).  Every
 replica serves from the system's own lane bundle (``_lane_bundle``: tier
 states are replaced, never edited, by a flush, rollover or merge) and the
 sharded lane equals the unsharded one, so results are those of
-``system.search_batch`` for any replica count.  Each replica caches its
-placement keyed by the LTI graph's and codes' identity: a merge swaps the
-LTI, the next dispatch misses and places the new generation.
+``system.search_batch`` for any replica count, under a ``filter=`` too
+(the system's filtered drop masks ride the replica's program unchanged).
+Each replica caches its placement keyed by the LTI graph's and codes'
+identity: a merge swaps the LTI, the next dispatch misses and places the
+new generation.
 
 Fewer devices than ``replicas x shards`` degrade instead of raising:
 shards cap at the CUDA device count, then replicas at ``count // shards``
@@ -76,15 +78,12 @@ class ReplicaSet:
                      replica: Optional[int] = None, filter=None
                      ) -> tuple[np.ndarray, np.ndarray]:
         """``system.search_batch``'s contract (L, W and kk resolution,
-        ``batch_queries`` chunking with a zero-padded tail, the same
-        results), each micro-batch dispatched to a replica: round-robin,
-        or ``replica=r``."""
-        if filter is not None:
-            raise NotImplementedError(
-                "filtered search is not ported to repro_torch yet; it comes "
-                "with the filters slice")
+        ``batch_queries`` chunking with a zero-padded tail, the ``filter``
+        and its accounting, the same results), each micro-batch dispatched
+        to a replica: round-robin, or ``replica=r``."""
         sys_ = self.system
         sys_._flush_inserts()
+        fspec = sys_._resolve_filter(filter)
         L = L or sys_.cfg.index.L_search
         if k > L:
             raise ValueError(
@@ -94,20 +93,20 @@ class ReplicaSet:
         kk = min(max(k * 2, k + 8), L)
         q = np.asarray(queries, np.float32)
         B = q.shape[0]
-        sys_.stats.searches += B
+        sys_._count_searches(B, fspec)
         if B == 0:
             return (np.zeros((0, k), np.int64),
                     np.zeros((0, k), np.float32))
         bq = sys_.cfg.batch_queries
         if not bq or B <= bq:
-            return self._dispatch_sliced(q, bq, k, kk, L, W, replica)
+            return self._dispatch_sliced(q, bq, k, kk, L, W, replica, fspec)
         outs = [self._dispatch_sliced(q[lo:lo + bq], bq, k, kk, L, W,
-                                      replica)
+                                      replica, fspec)
                 for lo in range(0, B, bq)]
         return (np.concatenate([o[0] for o in outs]),
                 np.concatenate([o[1] for o in outs]))
 
-    def _dispatch_sliced(self, chunk, bq, k, kk, L, W, replica):
+    def _dispatch_sliced(self, chunk, bq, k, kk, L, W, replica, fspec):
         """Pad one chunk to the micro-batch width, dispatch, slice the pad
         rows off."""
         n = len(chunk)
@@ -115,7 +114,7 @@ class ReplicaSet:
             qp = np.zeros((bq, chunk.shape[1]), np.float32)
             qp[:n] = chunk
             chunk = qp
-        ids, d = self._dispatch(chunk, k, kk, L, W, replica)
+        ids, d = self._dispatch(chunk, k, kk, L, W, replica, fspec)
         return ids[:n], d[:n]
 
     def _next_replica(self) -> int:
@@ -124,12 +123,12 @@ class ReplicaSet:
         return r
 
     # ------------------------------------------------------------- dispatch
-    def _dispatch(self, queries, k, kk, L, W, replica):
+    def _dispatch(self, queries, k, kk, L, W, replica, fspec):
         """Serve ONE micro-batch on one replica's device group, as
         ``system._search_dispatch`` does (same lane capture, bundle, drop
-        masks and latency sample).  Without an LTI lane, or with
-        ``batch_fanout=False``, the system's own dispatch serves it: the
-        replica axis exists once an LTI generation is live."""
+        masks, filtered or not, and latency sample).  Without an LTI lane,
+        or with ``batch_fanout=False``, the system's own dispatch serves
+        it: the replica axis exists once an LTI generation is live."""
         sys_ = self.system
         r = replica if replica is not None else self._next_replica()
         if not 0 <= r < self.n_replicas:
@@ -140,10 +139,10 @@ class ReplicaSet:
             return sys_._aggregate([], k, queries.shape[0])
         if not sys_.cfg.batch_fanout or lti_entry is None:
             self.dispatches[r] += 1     # routed, served on the system path
-            return sys_._search_dispatch(queries, k, kk, L, W)
-        key, stack, t_tabs, l_tab, tables_np = sys_._lane_bundle(
-            rw_t, ro_temps, lti_entry)
-        t_drop, l_drop = sys_._drop_mask(key, tables_np)
+            return sys_._search_dispatch(queries, k, kk, L, W, fspec)
+        bundle = sys_._lane_bundle(rw_t, ro_temps, lti_entry)
+        t_drop, l_drop = sys_._masks(bundle, fspec)
+        stack, t_tabs, l_tab = bundle[1:4]
         step, sstack = self._replica_program(
             r, stack, k=k, kk=kk, L=L, W=W, rerank=sys_.cfg.rerank)
         t0 = time.perf_counter()

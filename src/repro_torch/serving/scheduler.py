@@ -21,10 +21,14 @@ locks; a search never waits for one).
 Submissions past ``SystemConfig.serve_queue_capacity`` are shed:
 ``submit`` returns None and ``SystemStats.shed_requests`` counts them.
 
-Not ported yet: a ``filter=`` on ``submit`` and per-tenant quotas
-(``tenant_quota``) raise ``NotImplementedError``; they come with the
-filters slice.  Without them every ticket shares one (empty) spec, and a
-closed batch is simply the oldest ``batch_queries`` tickets.
+Filtered and multi-tenant traffic rides the same queue: ``submit`` takes an
+optional ``FilterSpec``, and a closed micro-batch holds only tickets that
+share the oldest queued ticket's spec (the filter is an argument of the one
+``search_batch`` call); tickets of other specs keep their places, and each
+spec keeps its FIFO order.  With ``SystemConfig.tenant_quota`` > 0 a
+tenant holds at most that many queued tickets; its further submissions are
+shed (``submit`` returns None), counted in ``SystemStats.tenant_sheds`` by
+tenant and in ``shed_requests``.
 """
 from __future__ import annotations
 
@@ -34,9 +38,6 @@ from collections import deque
 from typing import Callable, Optional, Protocol, runtime_checkable
 
 import numpy as np
-
-_FILTERS = ("%s is not ported to repro_torch yet; it comes with the filters "
-            "slice")
 
 
 @runtime_checkable
@@ -80,15 +81,17 @@ class Ticket:
     test drives the scheduler itself, so ``done`` is already set when it
     reads the fields.  ``latency`` is completion - arrival on the
     scheduler's clock; ``missed`` is the deadline verdict recorded at
-    completion."""
+    completion; ``fspec`` is the request's filter (None: unfiltered)."""
 
-    __slots__ = ("query", "arrival", "deadline", "ids", "dists",
+    __slots__ = ("query", "arrival", "deadline", "fspec", "ids", "dists",
                  "completion", "missed", "done")
 
-    def __init__(self, query: np.ndarray, arrival: float, deadline: float):
+    def __init__(self, query: np.ndarray, arrival: float, deadline: float,
+                 fspec=None):
         self.query = query
         self.arrival = arrival
         self.deadline = deadline
+        self.fspec = fspec
         self.ids: Optional[np.ndarray] = None
         self.dists: Optional[np.ndarray] = None
         self.completion: Optional[float] = None
@@ -113,8 +116,9 @@ class BatchScheduler:
 
     Policy (all against ``clock.now()``):
 
-      * ``submit(query)`` — admit to the FIFO queue, or SHED (return None)
-        when the queue is at ``cfg.serve_queue_capacity``.
+      * ``submit(query, filter=)`` — admit to the FIFO queue, or SHED
+        (return None) when the queue is at ``cfg.serve_queue_capacity`` or
+        the ticket's tenant holds ``cfg.tenant_quota`` queued tickets.
       * ``poll()`` — close a micro-batch when (a) the queue holds
         ``cfg.batch_queries`` requests (full close), or (b) ``cfg.slo_ms``
         is set and ``now + dispatch_estimate`` has reached the OLDEST
@@ -143,8 +147,6 @@ class BatchScheduler:
                  serve: Optional[Callable] = None,
                  clock: Optional[Clock] = None):
         cfg = system.cfg
-        if cfg.tenant_quota > 0:
-            raise NotImplementedError(_FILTERS % "tenant_quota")
         if cfg.batch_queries <= 0:
             raise ValueError(
                 "BatchScheduler needs SystemConfig.batch_queries > 0 — the "
@@ -157,6 +159,8 @@ class BatchScheduler:
         self.batch_queries = cfg.batch_queries
         self.capacity = cfg.serve_queue_capacity
         self.slo = cfg.slo_ms / 1e3 if cfg.slo_ms > 0 else None
+        self.tenant_quota = max(cfg.tenant_quota, 0)
+        self._queued_by_tenant: dict = {}
         self.clock: Clock = clock or cfg.clock or WallClock()
         self.dispatch_estimate = max(cfg.dispatch_estimate_ms, 0.0) / 1e3
         self._serve = serve or system.search_batch
@@ -173,18 +177,32 @@ class BatchScheduler:
     # ------------------------------------------------------------- requests
     def submit(self, query: np.ndarray, filter=None) -> Optional[Ticket]:
         """Admit one query (shape [dim]), or shed it: returns the caller's
-        ``Ticket``, or None when the bounded queue is full (counted in
-        ``shed_requests``, never dropped silently)."""
-        if filter is not None:
-            raise NotImplementedError(_FILTERS % "a filter on submit")
+        ``Ticket``, or None when the bounded queue is full or the ticket's
+        tenant already holds ``cfg.tenant_quota`` queued tickets (counted in
+        ``shed_requests``, a quota shed also in ``tenant_sheds[tenant]``;
+        never dropped silently).  ``filter`` is an optional ``FilterSpec``
+        applied to the micro-batch that serves the ticket."""
         q = np.asarray(query, np.float32)
+        fspec = filter if filter is not None and not filter.is_empty \
+            else None
+        tenant = fspec.tenant if fspec is not None else None
         with self._cond:
             if len(self._queue) >= self.capacity:
                 self.stats.shed_requests += 1
                 return None
+            if (self.tenant_quota and tenant is not None
+                    and self._queued_by_tenant.get(tenant, 0)
+                    >= self.tenant_quota):
+                self.stats.shed_requests += 1
+                self.stats.tenant_sheds[tenant] = (
+                    self.stats.tenant_sheds.get(tenant, 0) + 1)
+                return None
             now = self.clock.now()
             deadline = now + self.slo if self.slo is not None else np.inf
-            t = Ticket(q, now, deadline)
+            t = Ticket(q, now, deadline, fspec)
+            if tenant is not None:
+                self._queued_by_tenant[tenant] = (
+                    self._queued_by_tenant.get(tenant, 0) + 1)
             self._queue.append(t)
             self.stats.scheduled_requests += 1
             self.stats.queue_depth = len(self._queue)
@@ -232,10 +250,25 @@ class BatchScheduler:
             return self._take_locked()
 
     def _take_locked(self) -> list[Ticket]:
-        """Pop the next micro-batch: the oldest ``batch_queries`` tickets,
-        in FIFO order."""
-        n = min(len(self._queue), self.batch_queries)
-        batch = [self._queue.popleft() for _ in range(n)]
+        """Pop the next micro-batch: up to ``batch_queries`` tickets that
+        share the oldest queued ticket's spec, in FIFO order; tickets of
+        other specs keep their places in the queue."""
+        if not self._queue:
+            return []
+        spec = self._queue[0].fspec
+        batch: list[Ticket] = []
+        rest: list[Ticket] = []
+        while self._queue and len(batch) < self.batch_queries:
+            t = self._queue.popleft()
+            (batch if t.fspec == spec else rest).append(t)
+        self._queue.extendleft(reversed(rest))
+        for t in batch:
+            if t.fspec is not None and t.fspec.tenant is not None:
+                left = self._queued_by_tenant.get(t.fspec.tenant, 0) - 1
+                if left > 0:
+                    self._queued_by_tenant[t.fspec.tenant] = left
+                else:
+                    self._queued_by_tenant.pop(t.fspec.tenant, None)
         self.stats.queue_depth = len(self._queue)
         return batch
 
@@ -253,8 +286,11 @@ class BatchScheduler:
             return
         qs = np.stack([t.query for t in batch])
         t0 = self.clock.now()
+        # The filter rides only when set, so a label-free serve callable
+        # keeps its signature.
+        kw = {} if batch[0].fspec is None else {"filter": batch[0].fspec}
         ids, dists = self._serve(qs, self.k, L=self.L,
-                                 beam_width=self.beam_width)
+                                 beam_width=self.beam_width, **kw)
         t1 = self.clock.now()
         # EWMA toward the measured dispatch; on a virtual clock the
         # measurement is the test's advance (0 unless it models compute),

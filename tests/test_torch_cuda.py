@@ -61,12 +61,15 @@ def test_adc_rows_exact_on_integers(dev, m, ksub):
     (64, 16, 24, 30, 4, "sorted"), (64, 100, 256, 166, 4, "sorted"),
     (64, 75, 64, 128, 1, "sorted"), (1024, 100, 256, 166, 4, "sorted"),
     (1024, 100, 256, 166, 4, "unsorted"), (64, 16, 24, 30, 4, "unsorted"),
-    (8, 140, 300, 200, 16, "unsorted")])
+    (8, 140, 300, 200, 16, "unsorted"), (1024, 150, 256, 241, 4, "sorted"),
+    (1024, 512, 256, 784, 4, "sorted")])
 def test_frontier_select_bit_identical(dev, B, L, K, V, W, order):
     """Equal to the plain version bit for bit, the main path's shape B 1024
     x L 100 x K 256 x V 166 x W 4 included; "unsorted" shuffles each
     candidate list, +inf gaps and all (the kernel ranks, it does not
-    merge sorted runs); the last case takes two rank and scan passes."""
+    merge sorted runs); (8, 140, ...) takes two rank and scan passes.  The
+    filtered searches' widened shapes: L 150 (V 241) and L 512 (V 784,
+    past the 256 visited ids the kernel holds in registers)."""
     g = np.random.default_rng(L + K + B)
     cand_d = np.sort(g.integers(0, 6, (B, L)).astype(np.float32), 1)
     cand_i = g.permutation(B * L).reshape(B, L).astype(np.int32)
@@ -384,3 +387,50 @@ def test_launches_counted_and_plain_refused_on_cuda(dev):
     with pytest.raises(ValueError, match="use_kernel=False"):
         ops.l2_rows(x, x, ids, use_kernel=False)
     assert ops.LAUNCHES["l2_rows"] == 1
+
+
+def test_filtered_system_equal_on_cpu_and_card(dev):
+    """A small labelled system from integer data and an integer codebook:
+    filtered searches (labels, tenants, both, and after a merge and a
+    consolidate) on the card, through the kernels, equal the CPU's plain
+    path bit for bit."""
+    from repro_torch.core import pq as pqm
+    from repro_torch.core.config import IndexConfig, PQConfig, SystemConfig
+    from repro_torch.core.graph import FilterSpec
+    from repro_torch.core.system import bootstrap_system
+    g = np.random.default_rng(7)
+    d, n0 = 16, 256
+    base = g.integers(-3, 4, (n0, d)).astype(np.float32)
+    new = g.integers(-3, 4, (160, d)).astype(np.float32)
+    qs = g.integers(-3, 4, (37, d)).astype(np.float32)
+    cent = g.integers(-3, 4, (4, 16, 4)).astype(np.float32)
+    cfg = SystemConfig(
+        index=IndexConfig(capacity=512, dim=d, R=8, L_build=16, L_search=24,
+                          alpha=1.2, beam_width=4),
+        pq=PQConfig(dim=d, m=4, ksub=16), ro_snapshot_points=32,
+        merge_threshold=96, temp_capacity=96, insert_batch=16,
+        batch_queries=16, merge_block=64, filter_words=1)
+    specs = [FilterSpec(all_of=(1,)), FilterSpec(tenant=2),
+             FilterSpec(all_of=(0,), any_of=(2, 3), tenant=1)]
+    out = {}
+    for where in ("cpu", "cuda"):
+        s = bootstrap_system(base, np.arange(n0), cfg, device=where,
+                             batch=32, labels=[[i % 4] for i in range(n0)],
+                             tenants=[i % 3 for i in range(n0)],
+                             codebook=pqm.PQCodebook(torch.from_numpy(cent)))
+        res = []
+        for i in range(len(new)):
+            s.insert(1000 + i, new[i], labels=[i % 4, 1], tenant=i % 3)
+            if i == 70:
+                res += [x for sp in specs for x in s.search_batch(
+                    qs, 12, L=48, filter=sp)]
+        for e in (3, 17, 1005, 1050):
+            s.delete(e)
+        s.consolidate(mode="global")
+        res += [x for sp in specs for x in s.search_batch(
+            qs, 12, L=48, filter=sp)]
+        res += [s.lti_labels.bits, s.lti_labels.tenant, s.lti_ext_ids]
+        assert s.stats.merges >= 1
+        out[where] = res
+    for a, b in zip(out["cpu"], out["cuda"]):
+        np.testing.assert_array_equal(a, b)

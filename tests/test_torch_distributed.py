@@ -296,7 +296,7 @@ def test_sharded_unified_step_matches_reference(reference):
         s.delete(e)
     rw_t, ro_temps, lti_entry = s._capture_lanes()
     key, stack, t_tabs, l_tab, tables_np = s._lane_bundle(rw_t, ro_temps,
-                                                          lti_entry)
+                                                          lti_entry)[:5]
     t_drop, l_drop = s._drop_mask(key, tables_np)
     from repro_torch.core.graph import LaneStack, shard_lti
     devs = data_mesh(4, device="cpu")

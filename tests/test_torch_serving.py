@@ -8,7 +8,9 @@ stream: inserts through two RW -> RO rollovers, deletes in every tier.
 Everything is compared bit for bit: ids, distances, the lane counters
 (hops, cmps), the autotuner's sweep and its W, dispatch counts, and every
 scheduler decision on a ``VirtualClock`` (batch sizes, close times,
-sheds, misses, latencies, the EWMA estimate).  On the CPU a shard group of
+sheds, misses, latencies, the EWMA estimate), filtered traffic included:
+per-spec batches, tenant quotas and their sheds, ``ReplicaSet`` under a
+``FilterSpec`` on labelled systems.  On the CPU a shard group of
 n is the host n times: the port runs every shard's owner share, while the
 reference, on one host device, serves unsharded; the sharded lane must
 equal it.  The 4-device reference runs in ``tests/test_torch_distributed.py``.
@@ -213,7 +215,8 @@ def test_autotune_waits_for_a_representative_tier(world):
     cached, as in the reference."""
     port = world["port"](stream=False, autotune_beam=True)
     port._lti_pair = (port.lti._replace(graph=port.lti.graph._replace(
-        n_total=torch.zeros((), dtype=torch.int32))), port.lti_ext_ids)
+        n_total=torch.zeros((), dtype=torch.int32))), port.lti_ext_ids,
+        port.lti_labels)
     assert port._beam_width(world["qs"]) == port.cfg.index.beam_width
     assert port._tuned_w is None
 
@@ -443,19 +446,156 @@ def test_scheduler_traces_match_reference(world, name):
     assert any(e[0] == "dispatch" for e in got["log"])
 
 
-def test_filters_and_tenant_quotas_raise(world):
-    port = world["port"](stream=False)
-    sched = tsched.BatchScheduler(port, k=5)
-    with pytest.raises(NotImplementedError, match="filters slice"):
-        sched.submit(world["qs"][0], filter=object())
-    with pytest.raises(NotImplementedError, match="filters slice"):
-        tsched.BatchScheduler(world["port"](stream=False, tenant_quota=2),
-                              k=5)
-    with pytest.raises(NotImplementedError, match="filters slice"):
-        ReplicaSet(port, 1).search_batch(world["qs"][:2], k=5,
-                                         filter=object())
-    with pytest.raises(NotImplementedError, match="filters slice"):
-        world["port"](stream=False, filter_words=1)
+def _labelled(make, mod, new, **kw):
+    """A system of ``make`` with labels: LTI slot i carries label i % 3
+    and tenant i % 4, the stream's inserts likewise, and the deletes of
+    ``_stream``."""
+    s = make(stream=False, filter_words=1, **kw)
+    lb = mod.LabelTable(s.cfg.index.capacity, 1)
+    for i in range(N0):
+        lb.set_row(i, mod.pack_labels([i % 3], 1), i % 4)
+    s.lti_labels = lb
+    for i in range(120):
+        s.insert(1000 + i, new[i], labels=[i % 3], tenant=i % 4)
+    for e in (3, 17, 1005, 1050, 1100, 1119):
+        s.delete(e)
+    return s
+
+
+_FSPECS = (dict(tenant=1), dict(all_of=(2,)), dict(all_of=(0,), tenant=3))
+
+
+@pytest.mark.parametrize("n_rep", [1, 2])
+def test_replica_set_filtered_matches_reference(world, n_rep):
+    """``ReplicaSet.search_batch(filter=)``: the system's filtered rows (the
+    filtered masks on the replica program), the reference's, and the
+    reference's filtered and per-tenant accounting."""
+    from repro.core import graph as jgraph
+    from repro.serving import ReplicaSet as JReplicaSet
+    from repro_torch.core import graph as tgraph
+    port = _labelled(world["port"], tgraph, world["new"])
+    ref = _labelled(world["ref"], jgraph, world["new"])
+    qs = world["qs"]
+    rs, jrs = ReplicaSet(port, n_rep), JReplicaSet(ref, 1)
+    for kw in _FSPECS:
+        want = port.search_batch(qs, k=5, filter=tgraph.FilterSpec(**kw))
+        _same(rs.search_batch(qs, k=5, filter=tgraph.FilterSpec(**kw)),
+              want)
+        _same(jrs.search_batch(qs, k=5, filter=jgraph.FilterSpec(**kw)),
+              want)
+        _same(ref.search_batch(qs, k=5, filter=jgraph.FilterSpec(**kw)),
+              want)
+    _same(rs.search_batch(qs[:3], k=5, filter=tgraph.FilterSpec()),
+          port.search_batch(qs[:3], k=5))
+    jrs.search_batch(qs[:3], k=5, filter=jgraph.FilterSpec())
+    ref.search_batch(qs[:3], k=5)
+    for f in ("searches", "filtered_searches", "tenant_searches",
+              "search_dispatches"):
+        assert getattr(port.stats, f) == getattr(ref.stats, f), f
+    assert port.stats.tenant_searches == {1: 2 * NQ, 3: 2 * NQ}
+    assert sum(rs.dispatches) == 3 * 3 + 1
+
+
+def _spec_key(spec):
+    return None if spec is None else (spec.all_of, spec.any_of, spec.tenant)
+
+
+_FTRACES = {  # name -> (slo_ms, batch_queries, capacity, tenant_quota)
+    "mixed_specs": (50.0, 4, 1024, 0),
+    "tenant_quota": (0.0, 4, 1024, 2),
+    "quota_and_capacity": (20.0, 4, 7, 3),
+}
+
+
+def _run_filtered_scheduler(make, sched_mod, graph_mod, name, qs, new):
+    """One filtered trace on a labelled system on a VirtualClock: the
+    dispatches (clock, size, spec), close times, sheds per tenant, stats
+    and every ticket's outcome."""
+    slo, bq, cap, quota = _FTRACES[name]
+    clk = sched_mod.VirtualClock()
+    sys_ = _labelled(make, graph_mod, new, batch_queries=bq, slo_ms=slo,
+                     serve_queue_capacity=cap, dispatch_estimate_ms=5.0,
+                     clock=clk, tenant_quota=quota)
+    log = []
+    direct = sys_.search_batch
+
+    def serve(q, k, L=None, beam_width=None, **kw):
+        log.append(("dispatch", clk.now(), len(q),
+                    _spec_key(kw.get("filter"))))
+        return direct(q, k, L=L, beam_width=beam_width, **kw)
+
+    FS = graph_mod.FilterSpec
+    specs = [None, FS(tenant=0), FS(tenant=1), FS(all_of=(1,)), None,
+             FS(tenant=1), FS(all_of=(1,)), FS()]
+    sched = sched_mod.BatchScheduler(sys_, k=5, serve=serve)
+    tickets = []
+    if name == "mixed_specs":
+        for i, q in enumerate(qs[:23]):
+            tickets.append(sched.submit(q, filter=specs[i % len(specs)]))
+            _pump(sched)
+            if i % 5 == 4:
+                _advance(clk, sched, 0.011)
+        log.append(("close_at", sched.next_close_time()))
+        _advance(clk, sched, 1.0)
+    elif name == "tenant_quota":
+        for i in range(6):                    # a burst above the quota
+            tickets.append(sched.submit(qs[i], filter=FS(tenant=1)))
+        for i in range(3):
+            tickets.append(sched.submit(qs[6 + i], filter=FS(tenant=2)))
+        tickets.append(sched.submit(qs[9]))
+        log.append(("pending", sched.pending))
+        log.append(("flush", sched.flush()))
+        tickets.append(sched.submit(qs[10], filter=FS(tenant=1)))
+        log.append(("flush", sched.flush()))
+    else:
+        for i, q in enumerate(qs[:20]):
+            tickets.append(sched.submit(q, filter=specs[i % 3]))
+            if i % 4 == 3:
+                _advance(clk, sched, 0.007)
+        _advance(clk, sched, 1.0)
+        log.append(("flush", sched.flush()))
+    st = sys_.stats
+    out = dict(log=log, pending=sched.pending,
+               stats=[st.scheduled_requests, st.shed_requests,
+                      st.batches_dispatched, st.deadline_misses,
+                      st.queue_depth, st.filtered_searches],
+               tenant_sheds=dict(st.tenant_sheds),
+               tenant_searches=dict(st.tenant_searches),
+               latency=list(st.serve_latency.sample), tickets=[])
+    for t in tickets:
+        out["tickets"].append(None if t is None else (
+            t.arrival, t.deadline, t.completion, t.missed, _spec_key(
+                t.fspec), t.ids.tolist(), t.dists.tolist()))
+    # Each served row is search_batch's for its query under its spec.
+    out["rows_equal_direct"] = all(
+        np.array_equal(np.stack([t.ids, t.dists]), np.stack(
+            [x[0] for x in direct(t.query[None], 5, filter=t.fspec)]))
+        for t in tickets if t is not None)
+    return out
+
+
+@pytest.mark.parametrize("name", list(_FTRACES))
+def test_scheduler_filtered_traces_match_reference(world, name):
+    """Per-spec batching and tenant quotas on a VirtualClock: a batch holds
+    only the oldest ticket's spec, other tickets keep their places, a
+    tenant past its quota is shed and counted by tenant and in
+    ``shed_requests``; every decision, stat and ticket row equals the
+    reference's, and each ticket's row equals ``search_batch`` under its
+    spec."""
+    from repro.core import graph as jgraph
+    from repro_torch.core import graph as tgraph
+    args = (world["qs"], world["new"])
+    want = _run_filtered_scheduler(world["ref"], jsched, jgraph, name, *args)
+    got = _run_filtered_scheduler(world["port"], tsched, tgraph, name, *args)
+    assert got == want
+    specs = {e[3] for e in got["log"] if e[0] == "dispatch"}
+    assert len(specs) >= 2
+    if name != "mixed_specs":
+        assert sum(got["tenant_sheds"].values()) > 0
+        assert got["stats"][1] >= sum(got["tenant_sheds"].values())
+    if name == "tenant_quota":
+        assert got["tenant_sheds"] == {1: 4, 2: 1}
+    assert got["rows_equal_direct"]
 
 
 def test_cpu_serving_never_reaches_a_kernel(world):

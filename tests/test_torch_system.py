@@ -8,8 +8,10 @@ and of a buffered point, a re-insert, and ``search_batch`` with a ragged
 request over ``batch_queries`` chunks.
 
 Integer fixture: external ids and distances are equal.  Gaussian fixture:
-5-recall@5 within 0.01.  Also: the unported filter knob raises
-``NotImplementedError`` while the merge and serving knobs run; reaching
+5-recall@5 within 0.01.  Also: every knob and call of the reference runs
+in the port (the merge, serving and filter knobs; labelled and tenant
+inserts, filtered ``search_batch`` and ``search_disk``, held against the
+reference in ``tests/test_torch_filtered.py``); reaching
 ``merge_threshold`` merges; CPU tensors never reach a kernel; the default
 device needs CUDA (``convert`` included); and neither the port nor
 ``chip_smoke.py`` imports ``jax`` or ``repro`` (also checked in a fresh
@@ -145,15 +147,6 @@ def test_cpu_path_never_reaches_a_kernel(systems):
     assert ops.LAUNCHES == {k: 0 for k in ops.LAUNCHES}
 
 
-_KNOBS = [dict(filter_words=1)]
-
-
-@pytest.mark.parametrize("knob", _KNOBS, ids=lambda k: next(iter(k)))
-def test_unported_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="slice"):
-        tsystem.FreshDiskANN(_cfg(tconfig, **knob), device="cpu")
-
-
 @pytest.mark.parametrize("knob", [dict(shard_lti=2), dict(autotune_beam=True),
                                   dict(batch_fanout=False)],
                          ids=lambda k: next(iter(k)))
@@ -188,17 +181,46 @@ def test_storage_knobs_are_ported(knob, tmp_path):
     assert getattr(s.cfg, knob) == str(tmp_path / knob)
 
 
-def test_unported_calls_raise():
-    s = tsystem.FreshDiskANN(_cfg(tconfig), device="cpu")
-    v = np.zeros(D, np.float32)
-    with pytest.raises(NotImplementedError, match="slice"):
-        s.insert(1, v, labels=[3])
-    with pytest.raises(NotImplementedError, match="slice"):
-        s.insert(1, v, tenant=2)
-    with pytest.raises(NotImplementedError, match="slice"):
-        s.search_batch(np.zeros((1, D), np.float32), k=1, filter=object())
-    with pytest.raises(NotImplementedError, match="slice"):
-        s.search_disk(np.zeros((1, D), np.float32), k=1, filter=object())
+@pytest.mark.parametrize("knob", [dict(filter_words=1),
+                                  dict(filter_words=2, tenant_quota=3)],
+                         ids=["filter_words", "tenant_quota"])
+def test_filter_knobs_are_ported(knob):
+    """The filter knobs run since the filters slice: label tables of
+    ``filter_words`` words in every tier, and a scheduler with a quota."""
+    from repro_torch.serving import BatchScheduler
+    s = tsystem.FreshDiskANN(_cfg(tconfig, **knob), device="cpu")
+    assert s.lti_labels.n_words == s.rw.labels.n_words == knob["filter_words"]
+    assert (s.lti_labels.tenant == -1).all()
+    assert BatchScheduler(s, k=3).tenant_quota == knob.get("tenant_quota", 0)
+
+
+@pytest.mark.parametrize("call", ["insert_labels", "insert_tenant",
+                                  "search_batch", "search_disk"])
+def test_filter_calls_are_ported(call, tmp_path):
+    """Labelled and tenant inserts and filtered searches run (a label past
+    ``filter_words`` raises the reference's ValueError)."""
+    from repro_torch.core.graph import FilterSpec
+    s = tsystem.FreshDiskANN(_cfg(tconfig, filter_words=1,
+                                  storage_dir=str(tmp_path / "store")),
+                             device="cpu")
+    g = np.random.default_rng(1)
+    for i in range(20):
+        s.insert(i, g.integers(-3, 4, D).astype(np.float32),
+                 labels=[i % 3] if call != "insert_tenant" else None,
+                 tenant=i % 2 if call != "insert_labels" else None)
+    spec = (FilterSpec(all_of=(1,)) if call != "insert_tenant"
+            else FilterSpec(tenant=1))
+    want = np.array([i for i in range(20)
+                     if (i % 3 == 1 if call != "insert_tenant"
+                         else i % 2 == 1)])
+    q = np.zeros((2, D), np.float32)
+    fn = s.search_disk if call == "search_disk" else s.search_batch
+    ids, _ = fn(q, k=5, filter=spec)
+    assert np.isin(ids[ids >= 0], want).all() and (ids >= 0).all()
+    assert s.stats.filtered_searches == 2
+    with pytest.raises(ValueError, match="out of range"):
+        s.insert(99, q[0], labels=[32])
+    s.close_storage()
 
 
 def test_reaching_merge_threshold_raises():
