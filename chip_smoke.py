@@ -35,6 +35,20 @@ Phases:
            and recovered on the card, where it must twin the live system;
            and ``train_pq`` at the bootstrap's shape: equal bits from two
            trainings on the card, equal initial centroids on CPU and card;
+  recsys   the recsys family at full width (src/repro_torch/configs):
+           FM, DeepFM and xDeepFM click scoring through
+           ``make_recsys_serve_step`` and SASRec user embeddings, at
+           serve_p99 (B 512) and serve_bulk (B 262,144), each held against
+           the same weights on the CPU (first 512 rows), rows/s and p50;
+           ``make_retrieval_step`` at retrieval_cand (1 x 1,048,576, k
+           100) for FM and SASRec; then SASRec retrieval through the
+           port's streaming FreshDiskANN (262,144 normalized items
+           bootstrapped at d 50, PQ m 25, 1 % retired, 17,408 inserted
+           through a threshold merge, 4 x 1024 user-embedding queries):
+           no retired item, self-hit, recall against exact scoring, and
+           ``l2_rows`` (d 50), ``adc_rows`` (m 25) and ``robust_prune_fp``
+           (d 50) against their plain versions and timed (added to their
+           records' ``by_shape``);
   main     bootstrap_system (points labelled with the selectivity ladder
            of tests/test_filtered.py and 4 tenants) -> 1 % deletes ->
            labelled streaming inserts with RW->RO
@@ -88,8 +102,8 @@ Phases:
            ``--src DIR --phases build,launch`` times that tree's launch path
            on the same card.
 
-P (the phases) defaults to build,kernels,parity,main,filtered,storage,
-serving.
+P (the phases) defaults to build,kernels,parity,recsys,main,filtered,
+storage,serving.
 Prints diagnostics, then the card's name and power limit, then one JSON
 line of kernel records, and last ``{"ok": true, "device": {...}}``.  Exits
 non-zero, with no result line, if any phase fails or there is no card.
@@ -98,6 +112,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -451,6 +466,138 @@ def fp_cover(vecs):
     return cover
 
 
+def shape_entry(r: dict) -> dict:
+    """A ``by_shape`` entry of a kernel record from a reading's dict."""
+    b, by = bound_ms(r["nbytes"], r["nflops"])
+    return dict(shape=r["shape"], max_abs_err=float(r["err"]),
+                plain_ms=r["plain_ms"], bound_ms=b, bound_by=by,
+                library_ms=r["library_ms"], **r["times"])
+
+
+def l2_rows_reading(g, table_int, table, B: int, K: int) -> dict:
+    """``l2_rows`` at B x K rows of ``table`` [N, d] (10 % of the ids
+    -1): equal to its plain version on the integer table and integer
+    queries, within rtol 1e-5 + atol 1e-3 on ``table`` and Gaussian
+    queries; kernel, plain version and ``torch.cdist`` over the gathered
+    rows timed.  Returns ``kernel_record``'s keyword arguments."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    dev = table.device
+    n_table, d = table.shape
+    ids_np = g.integers(0, n_table, (B, K)).astype(np.int32)
+    ids_np[g.random((B, K)) < 0.1] = -1
+    ids = torch.from_numpy(ids_np).to(dev)
+    qi = torch.from_numpy(g.integers(-4, 5, (B, d)).astype(np.float32)
+                          ).to(dev)
+    got = ops.l2_rows(qi, table_int, ids)
+    want = ref.l2_rows_ref(qi, table_int, ids)
+    check(torch.equal(got, want),
+          f"l2_rows K={K} d={d}: integer inputs differ")
+    q = torch.from_numpy(g.standard_normal((B, d)).astype(np.float32)
+                         ).to(dev)
+    got = ops.l2_rows(q, table, ids)
+    want = ref.l2_rows_ref(q, table, ids)
+    fin = torch.isfinite(want)
+    check(torch.equal(fin, torch.isfinite(got)), "l2_rows: inf lanes")
+    err = (got[fin] - want[fin]).abs()
+    # rtol 1e-5 on the value, atol 1e-3 for the cancellation of
+    # |q|^2 + |x|^2 (about 256 at d 128) in the norm identity.
+    check(bool((err <= 1e-5 * want[fin].abs() + 1e-3).all()),
+          f"l2_rows K={K} d={d}: max err {float(err.max())}")
+    t = launch_times(lambda: ops.l2_rows(q, table, ids))
+    plain = time_ms(lambda: ref.l2_rows_ref(q, table, ids))
+    gathered = table[ids.clamp(min=0).long()]
+    lib = time_ms(lambda: torch.cdist(q[:, None, :], gathered))
+    nbytes = B * K * d * 4 + B * d * 4 + B * K * 4 * 2
+    log(f"[kernels] l2_rows B={B} K={K} d={d}: max_abs_err "
+        f"{float(err.max()):.3g}  kernel {_fmt_times(t)}  plain "
+        f"{plain:.4f} ms  cdist(gathered) {lib:.4f} ms  bound "
+        f"{bound_ms(nbytes, 4.0 * B * K * d)[0]:.4f} ms")
+    return dict(err=err.max(), times=t, plain_ms=plain, nbytes=nbytes,
+                nflops=4.0 * B * K * d, library_ms=lib,
+                shape=f"B={B} K={K} d={d} N={n_table}")
+
+
+def adc_rows_reading(g, codes, lut_fn, B: int, K: int) -> dict:
+    """``adc_rows`` at B x K rows of ``codes`` [N, m] (10 % of the ids
+    -1): equal to its plain version on integer LUTs, within rtol 1e-5 +
+    atol 1e-6 on real ones (``lut_fn(B)``, or squared Gaussians) and
+    timed.  Returns ``kernel_record``'s keyword arguments."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    dev = codes.device
+    n_table, m = codes.shape
+    ksub = 256
+    ids_np = g.integers(0, n_table, (B, K)).astype(np.int32)
+    ids_np[g.random((B, K)) < 0.1] = -1
+    ids = torch.from_numpy(ids_np).to(dev)
+    luts_i = torch.from_numpy(g.integers(0, 50, (B, m, ksub)).astype(
+        np.float32)).to(dev)
+    check(torch.equal(ops.adc_rows(luts_i, codes, ids),
+                      ref.adc_rows_ref(luts_i, codes, ids)),
+          f"adc_rows B={B} K={K} m={m}: integer inputs differ")
+    luts = (lut_fn(B) if lut_fn else torch.from_numpy(
+        (g.standard_normal((B, m, ksub)) ** 2).astype(np.float32)).to(dev))
+    got = ops.adc_rows(luts, codes, ids)
+    want = ref.adc_rows_ref(luts, codes, ids)
+    fin = torch.isfinite(want)
+    check(torch.equal(fin, torch.isfinite(got)),
+          f"adc_rows B={B} K={K} m={m}: inf lanes")
+    err = (got[fin] - want[fin]).abs()
+    check(bool((err <= 1e-5 * want[fin].abs() + 1e-6).all()),
+          f"adc_rows B={B} K={K} m={m}: max err {float(err.max())}")
+    t = launch_times(lambda: ops.adc_rows(luts, codes, ids))
+    plain = time_ms(lambda: ref.adc_rows_ref(luts, codes, ids))
+    nbytes = B * m * ksub * 4 + B * K * m + B * K * 4 * 2
+    bnd = bound_ms(nbytes, float(B * K * m))
+    log(f"[kernels] adc_rows B={B} K={K} m={m} ksub={ksub}: max_abs_err "
+        f"{float(err.max()):.3g}  kernel {_fmt_times(t)}  plain "
+        f"{plain:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})")
+    return dict(err=err.max(), times=t, plain_ms=plain, nbytes=nbytes,
+                nflops=float(B * K * m), library_ms=None,
+                shape=f"B={B} K={K} m={m} ksub={ksub} N={n_table}")
+
+
+def prune_fp_reading(g, table_int, table, B: int, C: int, tag: str,
+                     alpha: float = 1.2, R: int = 64) -> dict:
+    """``robust_prune_fp`` at B x C candidates of ``table`` [N, d]: equal
+    to its plain version on the integer table, at most 0.1 % of rows
+    differing on ``table`` (cover sums in another order may flip a
+    near-tie alpha test), and timed.  Returns ``kernel_record``'s
+    keyword arguments."""
+    from repro_torch.kernels import ops, ref
+    d = table.shape[1]
+    a = _prune_inputs(g, table_int, B, C, True)
+    go, gc = ops.robust_prune_fp(*a, alpha=alpha, R=R)
+    wo, wc = ref.robust_prune_fp_ref(
+        a[0], table_int[a[2].clamp(min=0).long()], *a[2:], alpha=alpha, R=R)
+    check(go.equal(wo) and gc.equal(wc),
+          f"robust_prune_fp {tag} d={d}: integer inputs differ")
+    a = _prune_inputs(g, table, B, C, False)
+    vecs = table[a[2].clamp(min=0).long()]
+    go, gc = ops.robust_prune_fp(*a, alpha=alpha, R=R)
+    wo, wc = ref.robust_prune_fp_ref(a[0], vecs, *a[2:], alpha=alpha, R=R)
+    n_diff = int((go != wo).any(1).sum())
+    check(n_diff <= 0.001 * B, f"robust_prune_fp {tag} d={d}: {n_diff} of "
+          f"{B} rows differ")
+    t = launch_times(lambda: ops.robust_prune_fp(*a, alpha=alpha, R=R))
+    plain = time_ms(lambda: ref.robust_prune_fp_ref(
+        a[0], table[a[2].clamp(min=0).long()], *a[2:], alpha=alpha, R=R),
+        iters=3)
+    work = prune_work(a[0], a[3], fp_cover(vecs), alpha, R)
+    nbytes = prune_fp_bytes(*a, R)
+    nflops = 3.0 * d * work
+    del vecs
+    bnd = bound_ms(nbytes, nflops)
+    log(f"[kernels] robust_prune_fp {tag} B={B} C={C} d={d} R={R}: "
+        f"integer equal, {n_diff} Gaussian rows differ  kernel "
+        f"{_fmt_times(t)}  plain {plain:.4f} ms  bound {bnd[0]:.4f} ms "
+        f"({bnd[1]})")
+    return dict(err=0.0, times=t, plain_ms=plain, nbytes=nbytes,
+                nflops=nflops, library_ms=None,
+                shape=f"B={B} C={C} d={d} R={R} ({tag})")
+
+
 def phase_kernels(seed: int, n_table: int) -> dict:
     import torch
     from repro_torch.kernels import ops, ref
@@ -468,39 +615,9 @@ def phase_kernels(seed: int, n_table: int) -> dict:
     table = torch.randn(n_table, d, device=dev,
                         generator=torch.Generator(dev).manual_seed(seed))
     for K in (256, 100):
-        B = 1024
-        ids_np = g.integers(0, n_table, (B, K)).astype(np.int32)
-        ids_np[g.random((B, K)) < 0.1] = -1
-        ids = torch.from_numpy(ids_np).to(dev)
-        qi = torch.from_numpy(g.integers(-4, 5, (B, d)).astype(np.float32)
-                              ).to(dev)
-        got = ops.l2_rows(qi, table_int, ids)
-        want = ref.l2_rows_ref(qi, table_int, ids)
-        check(torch.equal(got, want), f"l2_rows K={K}: integer inputs differ")
-        q = torch.from_numpy(g.standard_normal((B, d)).astype(np.float32)
-                             ).to(dev)
-        got = ops.l2_rows(q, table, ids)
-        want = ref.l2_rows_ref(q, table, ids)
-        fin = torch.isfinite(want)
-        check(torch.equal(fin, torch.isfinite(got)), "l2_rows: inf lanes")
-        err = (got[fin] - want[fin]).abs()
-        # rtol 1e-5 on the value, atol 1e-3 for the cancellation of
-        # |q|^2 + |x|^2 (about 256 here) in the norm identity.
-        check(bool((err <= 1e-5 * want[fin].abs() + 1e-3).all()),
-              f"l2_rows K={K}: max err {float(err.max())}")
-        t = launch_times(lambda: ops.l2_rows(q, table, ids))
-        plain = time_ms(lambda: ref.l2_rows_ref(q, table, ids))
-        gathered = table[ids.clamp(min=0).long()]
-        lib = time_ms(lambda: torch.cdist(q[:, None, :], gathered))
-        nbytes = B * K * d * 4 + B * d * 4 + B * K * 4 * 2
-        log(f"[kernels] l2_rows B={B} K={K} d={d}: max_abs_err "
-            f"{float(err.max()):.3g}  kernel {_fmt_times(t)}  plain "
-            f"{plain:.4f} ms  cdist(gathered) {lib:.4f} ms  bound "
-            f"{bound_ms(nbytes, 4.0 * B * K * d)[0]:.4f} ms")
+        r = l2_rows_reading(g, table_int, table, 1024, K)
         if K == 256:
-            record("l2_rows", err=err.max(), times=t, plain_ms=plain,
-                   nbytes=nbytes, nflops=4.0 * B * K * d, library_ms=lib,
-                   shape=f"B={B} K={K} d={d} N={n_table}")
+            record("l2_rows", **r)
 
     # ---- adc_rows: B 1024 x K 256 (search, W 4), B 256 x K 256 (the
     # merges' insert chunks) and B 1024 x K 512 (serving, W 8); m 32,
@@ -510,42 +627,13 @@ def phase_kernels(seed: int, n_table: int) -> dict:
         np.uint8)).to(dev)
     by_shape = []
     for B, K in ((1024, 256), (256, 256), (1024, 512)):
-        ids_np = g.integers(0, n_table, (B, K)).astype(np.int32)
-        ids_np[g.random((B, K)) < 0.1] = -1
-        ids = torch.from_numpy(ids_np).to(dev)
-        luts_i = torch.from_numpy(g.integers(0, 50, (B, m, ksub)).astype(
-            np.float32)).to(dev)
-        check(torch.equal(ops.adc_rows(luts_i, codes, ids),
-                          ref.adc_rows_ref(luts_i, codes, ids)),
-              f"adc_rows B={B} K={K}: integer inputs differ")
-        luts = torch.from_numpy((g.standard_normal((B, m, ksub)) ** 2
-                                 ).astype(np.float32)).to(dev)
-        got = ops.adc_rows(luts, codes, ids)
-        want = ref.adc_rows_ref(luts, codes, ids)
-        fin = torch.isfinite(want)
-        check(torch.equal(fin, torch.isfinite(got)),
-              f"adc_rows B={B} K={K}: inf lanes")
-        err = (got[fin] - want[fin]).abs()
-        check(bool((err <= 1e-5 * want[fin].abs() + 1e-6).all()),
-              f"adc_rows B={B} K={K}: max err {float(err.max())}")
-        t = launch_times(lambda: ops.adc_rows(luts, codes, ids))
-        plain = time_ms(lambda: ref.adc_rows_ref(luts, codes, ids))
-        nbytes = B * m * ksub * 4 + B * K * m + B * K * 4 * 2
-        bnd = bound_ms(nbytes, float(B * K * m))
-        log(f"[kernels] adc_rows B={B} K={K} m={m} ksub={ksub}: max_abs_err "
-            f"{float(err.max()):.3g}  kernel {_fmt_times(t)}  plain "
-            f"{plain:.4f} ms  bound {bnd[0]:.4f} ms ({bnd[1]})")
-        shape = f"B={B} K={K} m={m} ksub={ksub} N={n_table}"
+        r = adc_rows_reading(g, codes, None, B, K)
         if (B, K) == (1024, 256):
-            record("adc_rows", err=err.max(), times=t, plain_ms=plain,
-                   nbytes=nbytes, nflops=float(B * K * m), library_ms=None,
-                   shape=shape)
+            record("adc_rows", **r)
         else:
-            by_shape.append(dict(shape=shape, max_abs_err=float(err.max()),
-                                 plain_ms=plain, bound_ms=bnd[0],
-                                 bound_by=bnd[1], **t))
+            by_shape.append(shape_entry(r))
     recs["adc_rows"]["by_shape"] = by_shape
-    del codes, luts, luts_i
+    del codes
 
     # ---- frontier_select: B 1024, L 100, K 256, V 166, W 4 (the main
     # path), and the filtered searches' L 150 (V 241) and L 512 (V 784: the
@@ -592,43 +680,12 @@ def phase_kernels(seed: int, n_table: int) -> dict:
 
     # ---- robust_prune_fp: insert (B 256, C 203), Delta (B 1024, C 128),
     # and a C past shared memory (the kernel's tiled path) ---------------
-    d, R, alpha = 128, 64, 1.2
+    R, alpha = 64, 1.2
     for B, C, tag in ((256, 203, "insert"), (1024, 128, "back-edge"),
                       (64, 640, "tiled")):
-        a = _prune_inputs(g, table_int, B, C, True)
-        go, gc = ops.robust_prune_fp(*a, alpha=alpha, R=R)
-        wo, wc = ref.robust_prune_fp_ref(
-            a[0], table_int[a[2].clamp(min=0).long()], *a[2:], alpha=alpha,
-            R=R)
-        check(torch.equal(go, wo) and torch.equal(gc, wc),
-              f"robust_prune_fp {tag}: integer inputs differ")
-        a = _prune_inputs(g, table, B, C, False)
-        vecs = table[a[2].clamp(min=0).long()]
-        go, gc = ops.robust_prune_fp(*a, alpha=alpha, R=R)
-        wo, wc = ref.robust_prune_fp_ref(a[0], vecs, *a[2:], alpha=alpha,
-                                         R=R)
-        n_diff = int((go != wo).any(1).sum())
-        # Cover sums are taken in another order than the plain version's,
-        # so a near-tie alpha test may flip: at most 0.1 % of rows.
-        check(n_diff <= 0.001 * B, f"robust_prune_fp {tag}: {n_diff} of {B}"
-              " rows differ")
-        t = launch_times(lambda: ops.robust_prune_fp(*a, alpha=alpha, R=R))
-        plain = time_ms(lambda: ref.robust_prune_fp_ref(
-            a[0], table[a[2].clamp(min=0).long()], *a[2:], alpha=alpha, R=R),
-            iters=3)
-        work = prune_work(a[0], a[3], fp_cover(vecs), alpha, R)
-        nbytes = prune_fp_bytes(*a, R)
-        nflops = 3.0 * d * work
-        del vecs
-        log(f"[kernels] robust_prune_fp {tag} B={B} C={C} d={d} R={R}: "
-            f"integer equal, {n_diff} Gaussian rows differ  kernel "
-            f"{_fmt_times(t)}  plain {plain:.4f} ms  bound "
-            f"{bound_ms(nbytes, nflops)[0]:.4f} ms "
-            f"({bound_ms(nbytes, nflops)[1]})")
+        r = prune_fp_reading(g, table_int, table, B, C, tag)
         if tag == "insert":
-            record("robust_prune_fp", err=0.0, times=t, plain_ms=plain,
-                   nbytes=nbytes, nflops=nflops, library_ms=None,
-                   shape=f"B={B} C={C} d={d} R={R} ({tag})")
+            record("robust_prune_fp", **r)
     del table, table_int
     torch.cuda.empty_cache()
 
@@ -1378,6 +1435,421 @@ def phase_main(seed: int, n: int, centres: int = 4096, dev="cuda",
     check(all(launches[k] > 0 for k in MAIN_KERNELS),
           f"a kernel of the path never launched: {launches}")
     return launches, s, dict(centers=centers, qs=qs, k=k)
+
+
+# The recsys phase's FreshDiskANN run: its search lanes and inserts (and a
+# prune route of its merge: full precision or SDC).
+RECSYS_KERNELS = ("l2_rows", "adc_rows", "frontier_select")
+RECSYS_FM = ("fm", "deepfm", "xdeepfm")
+# The recsys phase's sizes: recsys_cells' batch shapes, retrieval_cand's
+# candidates, and the SASRec index (262,144 of the 1,048,576 items
+# bootstrapped: a cut of scale for the script's time).
+RECSYS_BATCHES = {"serve_p99": 512, "serve_bulk": 262_144}
+RECSYS_CANDIDATES = 1_048_576
+RECSYS_INDEX = 262_144
+RECSYS_CAPACITY = 524_288
+RECSYS_RO_POINTS = 4096
+RECSYS_MERGE_THRESHOLD = 16_384
+RECSYS_QUERIES = 4 * 1024
+
+
+def run_ms(fn, runs: int = 20, warmup: int = 2) -> list:
+    """Milliseconds of each of ``runs`` calls of ``fn()`` after ``warmup``
+    calls, CUDA events around each call."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(runs)]
+    for a, b in ev:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in ev]
+
+
+def _tolerance(want):
+    """The card-vs-CPU bound of each element of ``want``: rtol 1e-4, and an
+    atol of 1e-6 times the larger of 1 and the row's largest magnitude."""
+    scale = want.abs().reshape(want.shape[0], -1).amax(1).clamp(min=1.0)
+    scale = scale.reshape((-1,) + (1,) * (want.dim() - 1))
+    return 1e-6 * scale + 1e-4 * want.abs()
+
+
+def _card_vs_cpu(got, want, what: str) -> float:
+    """Card against CPU on the same weights and inputs, to ``_tolerance``
+    (f32 products summed in another order; TF32 is off).  An element of
+    an f32 sum carries an absolute error on the scale of its terms, not of
+    itself: a SASRec hidden-state element of ~0.01 in a row reaching ~5
+    differed by 2.1e-6 on the card.  For logits (within 1) the atol is
+    1e-6."""
+    import torch
+    got = got.detach().cpu()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{what}: shape {tuple(got.shape)} or non-finite values")
+    err = (got - want).abs()
+    check(bool((err <= _tolerance(want)).all()),
+          f"{what}: card vs CPU max err {float(err.max())} (at |CPU| "
+          f"{float(want.flatten()[err.argmax()].abs())})")
+    return float(err.max())
+
+
+def _ids_vs_cpu(got_i, want_i, scores, what: str) -> int:
+    """Retrieval ids on the card against the CPU's: equal, except at a
+    rank where the two ids' exact scores (``scores``, from the CPU's query)
+    lie within 1e-5 relative of each other.  Returns the ids differing."""
+    got_i, want_i = got_i.cpu().numpy(), want_i.cpu().numpy()
+    diff = got_i != want_i
+    rows = np.nonzero(diff)[0]
+    a = scores[rows, got_i[diff]]
+    b = scores[rows, want_i[diff]]
+    check(bool(np.all(np.abs(a - b) <= 1e-5 * np.maximum(np.abs(b), 1e-30))),
+          f"{what}: ids differ from the CPU's off near ties")
+    return int(diff.sum())
+
+
+def check_rows(B: int) -> np.ndarray:
+    """The 512 rows of a batch of B held against the CPU: the first 256
+    and 256 spread evenly over the rest, up to the last row, so that every
+    CIN chunk of an xDeepFM serve_bulk batch (6,882 rows) holds some."""
+    if B <= 512:
+        return np.arange(B)
+    return np.concatenate([np.arange(256), np.linspace(
+        256, B - 1, 256).round().astype(np.int64)])
+
+
+def _serve_shapes(name, serve, forward, model, cpu_model, make_input,
+                  dev) -> dict:
+    """Serve each batch shape on the card, rows/s and p50 ms of 20 runs of
+    ``serve``; ``forward`` (logits, or SASRec's user embeddings) on the
+    whole batch on the card, its ``check_rows`` against the same weights
+    on the CPU."""
+    import torch
+    out = {}
+    for shape, B in RECSYS_BATCHES.items():
+        x = make_input(B)
+        rows = check_rows(B)
+        xd = torch.from_numpy(x).to(dev)
+        with torch.no_grad():
+            served = serve(model, xd)
+            got = forward(model, xd)[torch.from_numpy(rows).to(dev)]
+            want = forward(cpu_model, torch.from_numpy(x[rows]))
+        check(served.shape[0] == B and bool(torch.isfinite(served).all()),
+              f"{name} {shape}: {served.shape[0]} rows or non-finite values")
+        err = _card_vs_cpu(got, want, f"{name} {shape}")
+        ms = run_ms(lambda: serve(model, xd))
+        p50 = float(np.median(ms))
+        out[shape] = dict(batch=B, p50_ms=p50, rows_per_s=B / p50 * 1e3,
+                          max_err=err)
+        log(f"[recsys] {name} {shape} (B {B}): card vs CPU on {len(rows)} "
+            f"rows (first 256, the rest spread to row {int(rows[-1])}) max "
+            f"err {err:.3g}; p50 {p50:.4f} ms a batch (min {min(ms):.4f}, "
+            f"max {max(ms):.4f}), {B / p50 * 1e3:.0f} rows/s")
+        if name == "xdeepfm" and shape == "serve_bulk":
+            out["cin_seen"] = _cin_seen(cpu_model, x[rows], want)
+        del xd, served, got
+    return out
+
+
+def _cin_seen(cpu_model, ids, logits) -> float:
+    """The share of checked rows whose CIN term exceeds the card-vs-CPU
+    bound of their logit: on those rows the check fails a forward that
+    drops the CIN."""
+    import torch
+    from repro_torch.models import recsys as rec
+    with torch.no_grad():
+        emb = rec.field_lookup(cpu_model.V, torch.from_numpy(ids),
+                               cpu_model.cfg)
+        cin = rec._cin_apply(cpu_model.cin, cpu_model.cin_head, emb)
+    seen = float((cin.abs() > _tolerance(logits)).double().mean())
+    log(f"[recsys] xdeepfm: the CIN adds |{float(cin.abs().median()):.3g}| "
+        f"(median; max {float(cin.abs().max()):.3g}) to a checked logit; "
+        f"it exceeds the logit's bound on {seen:.4f} of the rows")
+    return seen
+
+
+def _retrieval_cand(name, cfg, model, cpu_model, user, table, query_fn,
+                    dev) -> dict:
+    """``make_retrieval_step`` at batch 1 x the table's rows, k 100: ids
+    against the CPU's, ms a call."""
+    import torch
+    from repro_torch.serving.steps import make_retrieval_step
+    step = make_retrieval_step(cfg, k=100)
+    td = table.to(dev)
+    ud = torch.from_numpy(user).to(dev)
+    got_s, got_i = step(model, ud, td)
+    want_s, want_i = step(cpu_model, torch.from_numpy(user), table)
+    with torch.no_grad():
+        q = query_fn(cpu_model, torch.from_numpy(user)).numpy()
+    scores = q.astype(np.float64) @ table.numpy().T.astype(np.float64)
+    n_diff = _ids_vs_cpu(got_i, want_i, scores, f"{name} retrieval_cand")
+    _card_vs_cpu(got_s, want_s, f"{name} retrieval_cand scores")
+    check(bool((got_s[:, 1:] <= got_s[:, :-1]).all()),
+          f"{name} retrieval_cand: scores not sorted")
+    ms = run_ms(lambda: step(model, ud, td))
+    p50 = float(np.median(ms))
+    log(f"[recsys] {name} retrieval_cand (1 x {table.shape[0]} candidates, "
+        f"k 100): {n_diff} ids differ from the CPU's (near ties only); "
+        f"p50 {p50:.4f} ms a call")
+    return dict(p50_ms=p50, ids_differing=n_diff)
+
+
+def phase_recsys(seed: int) -> tuple[dict, dict]:
+    """The recsys family's serving path at full width, and SASRec retrieval
+    through the port's streaming FreshDiskANN.
+
+    1. FM, DeepFM, xDeepFM (``configs/*.py`` FULL: 39 fields x 1,048,576
+       rows x 10) score ``click_stream`` batches through
+       ``make_recsys_serve_step`` at serve_p99 (B 512) and serve_bulk
+       (B 262,144); FM's ``make_retrieval_step`` at retrieval_cand (1 x
+       1,048,576 candidates, k 100).
+    2. SASRec FULL (d 50, 50 positions, 2 blocks, 1,048,576 items) encodes
+       ``sasrec_stream`` sequences at both shapes, and retrieves at
+       retrieval_cand over its item table.  Its item table is a mixture of
+       4,096 Gaussians (centres N(0, 4 I), unit noise) scaled by 0.01: the
+       structure a trained table has.
+    3. The item table, rows normalized, goes into the port's
+       ``FreshDiskANN`` at freshdiskann-1b's index knobs (R 64, L_build
+       75, L_search 100, alpha 1.2, W 4; PQ m 25 x ksub 256 at d 50):
+       ``RECSYS_INDEX`` items bootstrapped, 1 % of them retired with
+       ``delete``, the next ``RECSYS_MERGE_THRESHOLD + RECSYS_RO_POINTS /
+       4`` items inserted (one threshold StreamingMerge through
+       ``insert``), and ``RECSYS_QUERIES`` normalized user embeddings
+       served with ``search_batch`` (k 10).  Asserted: no retired item,
+       self-hit >= 0.98 over the merged items reachable from the LTI's
+       start, the search and insert kernels launched.  Reported: recall
+       against exact ``retrieval_topk`` over the live catalog, bootstrap
+       seconds, inserts/s, merge seconds, queries/s.
+    4. ``l2_rows`` at d 50, ``adc_rows`` at m 25 and ``robust_prune_fp``
+       at d 50, on the index's rows and codes, against their plain
+       versions, timed.
+
+    Weights and data come from ``seed`` on CPU generators.  The card's
+    logits (FM family) and user embeddings (SASRec) on ``check_rows`` of
+    each batch are held against the same weights on the CPU
+    (``_tolerance``).  Returns (the phase's figures, the kernel readings by
+    kernel name)."""
+    import copy
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.config import SystemConfig
+    from repro_torch.core import pq as pqm
+    from repro_torch.core.system import bootstrap_system
+    from repro_torch.data.pipelines import click_stream, sasrec_stream
+    from repro_torch.kernels import ops
+    from repro_torch.models import recsys as rec
+    from repro_torch.serving.steps import make_recsys_serve_step
+    dev = torch.device("cuda")
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    g = np.random.default_rng(seed + 23)
+
+    # ---- 1. the FM family: click scoring and FM's retrieval_cand ------
+    for i, name in enumerate(RECSYS_FM):
+        cfg = get_arch(name).full_config
+        t0 = time.perf_counter()
+        cpu_model = rec.init_recsys_params(
+            torch.Generator().manual_seed(seed + i), cfg, device="cpu")
+        t_init = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = copy.deepcopy(cpu_model).to(dev)
+        serve = make_recsys_serve_step(cfg)
+
+        def clicks(B, cfg=cfg):
+            return next(click_stream(B, cfg.n_sparse, cfg.rows_per_field,
+                                     seed=seed))["ids"]
+
+        res = _serve_shapes(
+            name, serve, lambda m, x, cfg=cfg: rec.recsys_forward(m, x, cfg),
+            model, cpu_model, clicks, dev)
+        if name == "fm":
+            table = torch.from_numpy(g.standard_normal(
+                (RECSYS_CANDIDATES, cfg.embed_dim)).astype(np.float32)
+                * 0.01)
+            res["retrieval_cand"] = _retrieval_cand(
+                name, cfg, model, cpu_model, clicks(1), table,
+                lambda m, u, cfg=cfg: rec.field_lookup(m.V, u, cfg).sum(-2),
+                dev)
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        res["init_s"] = t_init
+        log(f"[recsys] {name}: {cfg.total_rows} rows x {cfg.embed_dim} "
+            f"(+ mlp {cfg.mlp}, cin {cfg.cin_layers}); init on the host "
+            f"{t_init:.1f} s; max_memory_allocated {res['peak_gib']:.2f} GiB")
+        out[name] = res
+        del model, cpu_model
+        torch.cuda.empty_cache()
+
+    # ---- 2. SASRec: user embeddings and retrieval_cand ----------------
+    cfg = get_arch("sasrec").full_config
+    d = cfg.embed_dim
+    t0 = time.perf_counter()
+    centers = (g.standard_normal((4096, d)) * 2.0).astype(np.float32)
+    items = (_mixture(g, centers, cfg.n_items) * 0.01).astype(np.float32)
+    cpu_model = rec.init_recsys_params(torch.Generator().manual_seed(seed + 3),
+                                       cfg, device="cpu")
+    with torch.no_grad():
+        cpu_model.item_emb.copy_(torch.from_numpy(items))
+    t_data = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    model = copy.deepcopy(cpu_model).to(dev)
+
+    def user_emb(m, seq):
+        with torch.no_grad():
+            return rec.sasrec_user_embedding(m, seq, cfg)
+
+    def seqs(B, step=0):
+        return next(sasrec_stream(B, cfg.seq_len, cfg.n_items, seed=seed,
+                                  start_step=step))["seq"]
+
+    res = _serve_shapes("sasrec", user_emb, user_emb, model, cpu_model,
+                        seqs, dev)
+    res["retrieval_cand"] = _retrieval_cand(
+        "sasrec", cfg, model, cpu_model, seqs(1), cpu_model.item_emb.detach(),
+        lambda m, u: rec.sasrec_user_embedding(m, u, cfg), dev)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[recsys] sasrec: {cfg.n_items} items x {d}, {cfg.n_blocks} blocks,"
+        f" {cfg.seq_len} positions; catalog and weights on the host "
+        f"{t_data:.1f} s; max_memory_allocated {res['peak_gib']:.2f} GiB")
+    out["sasrec"] = res
+
+    # ---- 3. SASRec retrieval through the streaming FreshDiskANN -------
+    norm = items / np.maximum(np.linalg.norm(items, axis=1, keepdims=True),
+                              1e-6)
+    n_index, merge_threshold = RECSYS_INDEX, RECSYS_MERGE_THRESHOLD
+    n_queries = RECSYS_QUERIES
+    n_new = merge_threshold + RECSYS_RO_POINTS // 4
+    boot = np.arange(1, n_index + 1)
+    new = np.arange(n_index + 1, n_index + 1 + n_new)
+    retired = g.choice(boot, n_index // 100, replace=False)
+    ann = get_arch("freshdiskann-1b").full_config
+    scfg = SystemConfig(
+        index=dataclasses.replace(ann.index, capacity=RECSYS_CAPACITY, dim=d),
+        pq=dataclasses.replace(ann.pq, dim=d, m=25),
+        ro_snapshot_points=RECSYS_RO_POINTS, merge_threshold=merge_threshold,
+        insert_batch=256, batch_queries=ann.query_batch, merge_block=1024)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    s = bootstrap_system(norm[boot], boot, scfg, device=dev)
+    torch.cuda.synchronize()
+    t_boot = time.perf_counter() - t0
+    log(f"[recsys] bootstrap_system: {n_index} of {cfg.n_items} items "
+        f"(d {d}, PQ m {scfg.pq.m} x {scfg.pq.ksub}) in {t_boot:.1f} s "
+        f"({n_index / t_boot:.0f} items/s) into capacity "
+        f"{scfg.index.capacity}")
+    for e in retired:
+        s.delete(int(e))
+    t0 = time.perf_counter()
+    for e in new:
+        s.insert(int(e), norm[e])
+    s._flush_inserts()
+    torch.cuda.synchronize()
+    t_ins = time.perf_counter() - t0
+    st = s.stats
+    check(st.merges == 1, f"expected one threshold merge, got {st.merges}")
+    log(f"[recsys] {len(retired)} retired, then {n_new} new items in "
+        f"{t_ins:.2f} s ({n_new / t_ins:.0f} inserts/s with the merge, "
+        f"{n_new / (t_ins - st.merge_seconds):.0f} without); merge of "
+        f"{merge_threshold} items {st.merge_seconds:.2f} s "
+        f"({_fmt_phases(st.merge_phase_seconds)}), Delete phase "
+        f"{'local' if st.local_repairs else 'global'}; RW {s.rw.n}")
+
+    qseq = np.concatenate([seqs(1024, step) for step in
+                           range(-(-n_queries // 1024))])[:n_queries]
+    with torch.no_grad():
+        qv = user_emb(model, torch.from_numpy(qseq).to(dev))
+        qv = qv / torch.clamp(qv.norm(dim=1, keepdim=True), min=1e-6)
+    qv = qv.cpu().numpy()
+    s.search_batch(qv[:1024], k=10)                   # warm-up batch
+    s.stats.search_latency = type(s.stats.search_latency)(seed=1)
+    t0 = time.perf_counter()
+    ids, dists = s.search_batch(qv, k=10)
+    t_q = time.perf_counter() - t0
+    lat = s.stats.search_latency.snapshot()
+    check(ids.shape == (n_queries, 10) and bool((ids >= 0).all())
+          and bool(np.isfinite(dists).all()), "search_batch results")
+    check(not np.isin(ids, retired).any(), "a retired item was returned")
+    live = np.concatenate([np.setdiff1d(boot, retired), new])
+    table = torch.from_numpy(norm[live]).to(dev)
+    exact = []
+    for lo in range(0, n_queries, 256):
+        _, e = rec.retrieval_topk(torch.from_numpy(qv[lo:lo + 256]).to(dev),
+                                  table, 10)
+        exact.append(e.cpu().numpy())
+    exact = live[np.concatenate(exact)]
+    del table
+
+    def recall(found, k):
+        return float((found[:, :k, None] == exact[:, None, :k]).any(2).sum(1)
+                     .mean() / k)
+
+    r10, r5 = recall(ids, 10), recall(ids, 5)
+    log(f"[recsys] search_batch {n_queries} SASRec queries (k 10, L 100, "
+        f"W 4, batch_queries 1024): {n_queries / t_q:.0f} queries/s, micro-"
+        f"batch p50 {lat['p50'] * 1e3:.1f} ms p99 {lat['p99'] * 1e3:.1f} ms;"
+        f" 10-recall@10 {r10:.4f}, 5-recall@5 {r5:.4f} against exact "
+        f"retrieval_topk over {len(live)} live items; no retired item")
+
+    merged = new[:merge_threshold]
+    self_ids, _ = s.search_batch(norm[merged], k=5)
+    hit = (self_ids == merged[:, None]).any(1)
+    check(all(s._ext_loc[int(e)][0] == "lti" for e in merged),
+          "a merged item is not in the LTI")
+    reach = reachable(s.lti.graph)[[s._ext_loc[int(e)][1] for e in merged]]
+    self_reach = float(hit[reach].mean())
+    rw_ids, _ = s.search_batch(norm[new[merge_threshold:]], k=5)
+    rw_hit = float((rw_ids == new[merge_threshold:, None]).any(1).mean())
+    log(f"[recsys] self-hit of the {len(merged)} merged items: "
+        f"{float(hit.mean()):.4f} in top-5, {int((~reach).sum())} of them "
+        f"unreachable from the LTI's start, over the reachable ones "
+        f"{self_reach:.4f}; of the {n_new - merge_threshold} in RW "
+        f"{rw_hit:.4f}")
+    check(self_reach >= 0.98,
+          f"self-hit over reachable merged items {self_reach} < 0.98")
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    log(f"[recsys] launches {json.dumps(launches)}")
+    check(all(launches[k] > 0 for k in RECSYS_KERNELS)
+          and launches["robust_prune_fp"] + launches["robust_prune_sdc"] > 0,
+          f"a kernel of the recsys path never launched: {launches}")
+    out["ann"] = dict(
+        n_index=n_index, n_new=n_new, n_retired=len(retired),
+        bootstrap_s=t_boot, inserts_per_s=n_new / t_ins,
+        merge_s=st.merge_seconds,
+        merge_phase_s=dict(st.merge_phase_seconds),
+        queries_per_s=n_queries / t_q, p50_ms=lat["p50"] * 1e3,
+        p99_ms=lat["p99"] * 1e3, recall_10_at_10=r10, recall_5_at_5=r5,
+        self_hit_reachable=self_reach, self_hit_rw=rw_hit,
+        launches=launches)
+
+    # ---- 4. the kernels at this phase's shapes: d 50 and m 25 ---------
+    n_live = int(s.lti.graph.active.sum())
+    vecs = s.lti.graph.vectors[:n_live]
+    vecs_int = torch.from_numpy(g.integers(-4, 5, tuple(vecs.shape))
+                                .astype(np.float32)).to(dev)
+    codes = s.lti.codes[:n_live].contiguous()
+    qd = torch.from_numpy(qv).to(dev)
+
+    def luts(B):
+        return pqm.lut(s.lti.codebook, qd[:B]).contiguous()
+
+    readings = {
+        "l2_rows": [shape_entry(
+            l2_rows_reading(g, vecs_int, vecs, 1024, 256))],
+        "adc_rows": [shape_entry(adc_rows_reading(g, codes, luts, B, 256))
+                     for B in (1024, 256)],
+        "robust_prune_fp": [shape_entry(prune_fp_reading(
+            g, vecs_int, vecs, 256, 203, "insert"))]}
+    del vecs_int, codes, qd
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[recsys] phase {out['seconds']:.1f} s")
+    del s, model, cpu_model
+    torch.cuda.empty_cache()
+    return out, readings
 
 
 FILTERED_KERNELS = ("l2_rows", "adc_rows", "frontier_select", "gather_rows")
@@ -2677,8 +3149,8 @@ def main(argv=None) -> int:
     ap.add_argument("--centres", type=int, default=4096,
                     help="Gaussian centres of the main path's corpus")
     ap.add_argument("--phases",
-                    default="build,kernels,parity,main,filtered,storage,"
-                    "serving")
+                    default="build,kernels,parity,recsys,main,filtered,"
+                    "storage,serving")
     ap.add_argument("--src", default=None,
                     help="import the port from this src directory instead "
                     "(another checkout; with --phases build,launch)")
@@ -2709,6 +3181,12 @@ def main(argv=None) -> int:
             phase_launch(args.seed, n_table=args.n)
         if "parity" in phases:
             phase_parity(args.seed)
+        if "recsys" in phases:
+            figures, readings = phase_recsys(args.seed)
+            log(f"[recsys] figures {json.dumps(figures)}")
+            for name, entries in readings.items():
+                if name in recs:
+                    recs[name].setdefault("by_shape", []).extend(entries)
         if "main" in phases:
             with shape_census() as census:
                 launches, s, data = phase_main(args.seed, args.n,

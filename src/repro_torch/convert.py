@@ -1,10 +1,11 @@
-"""Carry index state between the JAX package and the port.
+"""Carry index state and model weights between the JAX package and the
+port.
 
 The JAX package's state is handed over as numpy arrays (``np.asarray`` of
 each field), so this module needs neither package's arrays at import.  Both
 directions keep every field's values and dtypes: int32 adjacency and
 scalars, bool flags, f32 vectors and centroids, uint8 codes, int64
-external-id tables.
+external-id tables, f32 recsys parameters.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from .core.config import resolve_device
 from .core.graph import GraphState
 from .core.lti import LTIState
 from .core.pq import PQCodebook
+from .models.recsys import RecsysConfig, make_model
 
 GRAPH_FIELDS = ("vectors", "adjacency", "active", "deleted", "start",
                 "n_total")
@@ -62,4 +64,44 @@ def lti_to_numpy(lti: LTIState) -> dict:
     out = graph_to_numpy(lti.graph)
     out["codes"] = lti.codes.cpu().numpy()
     out["centroids"] = lti.codebook.centroids.cpu().numpy()
+    return out
+
+
+def recsys_model(tree, cfg: RecsysConfig, device="cuda"):
+    """The port's recsys model from the reference's parameter dict (its
+    leaves read with ``np.asarray``; lists of layers keyed by position):
+    each parameter takes the value and dtype of the leaf at its dotted
+    name (``mlp.0.w`` is ``tree["mlp"][0]["w"]``).  On the card unless
+    ``device`` asks for the CPU."""
+    device = resolve_device(device)
+    model = make_model(cfg)
+    for name, p in model.named_parameters():
+        leaf = tree
+        for part in name.split("."):
+            leaf = leaf[int(part)] if part.isdigit() else leaf[part]
+        arr = np.asarray(leaf)
+        if arr.shape != tuple(p.shape):
+            raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
+        p.data = torch.from_numpy(np.array(arr))
+    return model.to(device)
+
+
+def recsys_to_numpy(model) -> dict:
+    """The model's parameters as the reference's dict of numpy arrays
+    (``mlp``, ``cin`` and ``blocks`` as lists), values and dtypes kept."""
+    def arr(p):
+        return p.detach().cpu().numpy().copy()
+
+    if model.cfg.kind == "sasrec":
+        return {"item_emb": arr(model.item_emb),
+                "pos_emb": arr(model.pos_emb),
+                "blocks": [{n: arr(p) for n, p in b.named_parameters()}
+                           for b in model.blocks]}
+    out = {"w0": arr(model.w0), "w_lin": arr(model.w_lin),
+           "V": arr(model.V)}
+    if model.cfg.mlp:
+        out["mlp"] = [{"w": arr(lp.w), "b": arr(lp.b)} for lp in model.mlp]
+    if model.cfg.cin_layers:
+        out["cin"] = [arr(w) for w in model.cin]
+        out["cin_head"] = arr(model.cin_head)
     return out

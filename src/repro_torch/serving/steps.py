@@ -19,8 +19,12 @@ lane returns the unsharded lane's ids, distances, hops and cmps bit for
 bit, for any shard count, on the card and on the CPU.
 
 ``make_disk_lti_lane`` is the storage tier's sibling: the LTI lane with its
-adjacency rows read off the on-disk layout.  The LM and recsys steps of the
-reference module belong to its model scaffolding and are not ported.
+adjacency rows read off the on-disk layout.
+
+The recsys steps: ``make_recsys_serve_step`` (click probabilities of the
+FM family) and ``make_retrieval_step`` (the exact candidate-scoring
+baseline at the ``retrieval_cand`` shape).  The LM prefill and decode
+steps wait for the LM slice (``ROADMAP.md``, Queue 1).
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from ..core.search import (FullPrecisionBackend, PQBackend, batch_distances,
                            beam_search, topk_masked)
 from ..distributed.ctx import psum
 from ..kernels import ops
+from ..models import recsys as rec
 
 
 def _owned(ids: torch.Tensor, offset: int, n_local: int):
@@ -270,3 +275,36 @@ def make_disk_lti_lane(layout, cfg: IndexConfig, *, k_lane: int, L: int,
     lane.searcher = searcher
     lane.close = searcher.close
     return lane
+
+
+# ---------------------------------------------------------------------------
+# Recsys: click scoring and the exact retrieval baseline
+# ---------------------------------------------------------------------------
+
+def make_recsys_serve_step(cfg: rec.RecsysConfig) -> Callable:
+    """``serve(model, ids)``: click probabilities [B] of an FM-family
+    model for ids [B, n_sparse] (pre-offset per field)."""
+    def serve(model, ids):
+        with torch.no_grad():
+            return torch.sigmoid(rec.recsys_forward(model, ids, cfg))
+
+    return serve
+
+
+def make_retrieval_step(cfg: rec.RecsysConfig, k: int = 100) -> Callable:
+    """Exact candidate-scoring baseline for the retrieval_cand shape:
+    ``retrieve(model, user_ids, item_table)`` -> (scores, ids) [B, k].
+
+    For FM-family models the query embedding is the summed field embedding
+    (the factorized part); for SASRec the final-position hidden state.
+    Items are rows of a candidate table.  The ANN path swaps this for a
+    FreshDiskANN search over the table."""
+    def retrieve(model, user_ids, item_table):
+        with torch.no_grad():
+            if cfg.kind == "sasrec":
+                q = rec.sasrec_user_embedding(model, user_ids, cfg)
+            else:
+                q = rec.field_lookup(model.V, user_ids, cfg).sum(-2)
+            return rec.retrieval_topk(q, item_table, k)
+
+    return retrieve

@@ -36,7 +36,7 @@ def _t(x, dev):
     return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
 
-@pytest.mark.parametrize("d", [128, 24, 7])
+@pytest.mark.parametrize("d", [128, 24, 7, 50])
 def test_l2_rows_exact_on_integers(dev, d):
     g = np.random.default_rng(d)
     q = _t(g.integers(-4, 5, (9, d)).astype(np.float32), dev)
@@ -47,7 +47,7 @@ def test_l2_rows_exact_on_integers(dev, d):
                        ref.l2_rows_ref(q, table, ids))
 
 
-@pytest.mark.parametrize("m,ksub", [(32, 256), (8, 16), (5, 200)])
+@pytest.mark.parametrize("m,ksub", [(32, 256), (8, 16), (5, 200), (25, 256)])
 def test_adc_rows_exact_on_integers(dev, m, ksub):
     g = np.random.default_rng(m)
     luts = _t(g.integers(0, 30, (6, m, ksub)).astype(np.float32), dev)
@@ -103,13 +103,15 @@ def test_frontier_select_bit_identical(dev, B, L, K, V, W, order):
 
 @pytest.mark.parametrize("B,C,d,R", [(16, 203, 128, 64), (8, 128, 128, 64),
                                      (4, 9, 5, 16), (6, 640, 128, 64),
-                                     (2, 9000, 7, 16), (3, 300, 260, 32)])
+                                     (2, 9000, 7, 16), (3, 300, 260, 32),
+                                     (256, 203, 50, 64)])
 def test_robust_prune_fp_exact_on_integers(dev, B, C, d, R):
     """The kernel gathers its rows from the table: equal to the plain
     version at the main path's two shapes, at small d, on the tiled path
     (C 640 at d 128 and C 9,000 at d 7 do not fit in shared memory; the
-    rest of their rows is read from device memory every round) and at a
-    d past the register-held winner (d 260)."""
+    rest of their rows is read from device memory every round), at a
+    d past the register-held winner (d 260) and at SASRec's d 50 (no
+    float4 staging)."""
     g = np.random.default_rng(C)
     N = 4 * B * C
     table = g.integers(-3, 4, (N, d)).astype(np.float32)
@@ -287,6 +289,7 @@ def test_delete_repair_sdc_consecutive_block_exact(dev):
     (2000, 100, 32, 256, "aligned"),     # several turns a block
     (256, 203, 32, 256, "aligned"),      # the insert chunks' d_p
     (3000, 100, 4, 16, "aligned"),       # m % 16 != 0: the loop kernel
+    (1024, 256, 25, 256, "aligned"),     # SASRec's PQ m 25: the loop
     (3000, 100, 32, 256, "codes offset"),  # misaligned codes: the loop
     (3000, 100, 32, 256, "luts offset")])  # misaligned LUTs: the loop
 def test_adc_rows_paths_exact_on_integers(dev, B, K, m, ksub, layout):
@@ -434,3 +437,75 @@ def test_filtered_system_equal_on_cpu_and_card(dev):
         out[where] = res
     for a, b in zip(out["cpu"], out["cuda"]):
         np.testing.assert_array_equal(a, b)
+
+
+def _recsys_pair(name, dev):
+    """A smoke-size model on the CPU and its copy on the card."""
+    import copy
+    from repro_torch.configs import get_arch
+    from repro_torch.models import recsys as rec
+    cfg = get_arch(name).smoke_config
+    cpu = rec.init_recsys_params(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+    return cfg, cpu, copy.deepcopy(cpu).to(dev)
+
+
+@pytest.mark.parametrize("name", ["fm", "deepfm", "xdeepfm", "sasrec"])
+def test_recsys_forward_card_equals_cpu(dev, name):
+    """Each model's forward on the card against the same weights on the
+    CPU: rtol 1e-4, atol 1e-6 (f32 sums in another order; TF32 off), and
+    ``retrieval_topk`` on an integer table (exact scores, many ties): the
+    CPU's ids in the CPU's order."""
+    from repro_torch.core.config import resolve_device
+    from repro_torch.models import recsys as rec
+    resolve_device(dev)                              # TF32 off
+    cfg, cpu, card = _recsys_pair(name, dev)
+    g = np.random.default_rng(3)
+    with torch.no_grad():
+        if name == "sasrec":
+            x = g.integers(1, cfg.n_items, (64, cfg.seq_len)).astype(np.int32)
+            x[0, :5] = 0
+            x[1] = 0
+            fn = rec.sasrec_encode
+        else:
+            x = (g.integers(0, cfg.rows_per_field, (64, cfg.n_sparse))
+                 + np.arange(cfg.n_sparse) * cfg.rows_per_field).astype(
+                np.int32)
+            fn = rec.recsys_forward
+        want = fn(cpu, torch.from_numpy(x), cfg)
+        got = fn(card, _t(x, dev), cfg).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+    q = g.integers(-2, 3, (5, cfg.embed_dim)).astype(np.float32)
+    table = g.integers(-1, 2, (4096, cfg.embed_dim)).astype(np.float32)
+    for C in (4096, 4000):                   # two-stage and direct
+        ws, wi = rec.retrieval_topk(torch.from_numpy(q),
+                                    torch.from_numpy(table[:C]), 50)
+        gs, gi = rec.retrieval_topk(_t(q, dev), _t(table[:C], dev), 50)
+        assert torch.equal(gi.cpu(), wi) and torch.equal(gs.cpu(), ws)
+
+
+def test_embedding_bag_same_bits_twice_on_card(dev):
+    """The bags are summed in a fixed order (no atomics): two runs on the
+    card give equal bits, close to the CPU's.  Bag 17 is hot (100,000
+    ids): its f32 sum of terms of ~1 may be added in another order than
+    the CPU's, so it is held to atol 1e-2 (sum) and the rest to 1e-5."""
+    from repro_torch.models import recsys as rec
+    g = np.random.default_rng(4)
+    table = g.standard_normal((100_000, 16)).astype(np.float32)
+    ids = g.integers(0, 100_000, 500_000).astype(np.int32)
+    seg = g.integers(0, 4096, 500_000).astype(np.int32)
+    seg[g.permutation(500_000)[:100_000]] = 17
+    args = (_t(table, dev), _t(ids, dev), _t(seg, dev), 4097)
+    for mode in ("sum", "mean"):
+        a = rec.embedding_bag(*args, mode=mode)
+        b = rec.embedding_bag(*args, mode=mode)
+        assert torch.equal(a, b)
+        want = rec.embedding_bag(torch.from_numpy(table),
+                                 torch.from_numpy(ids),
+                                 torch.from_numpy(seg), 4097, mode=mode)
+        rest = torch.arange(4097) != 17
+        torch.testing.assert_close(a.cpu()[rest], want[rest], rtol=1e-5,
+                                   atol=1e-5)
+        torch.testing.assert_close(a.cpu()[17], want[17], rtol=1e-5,
+                                   atol=1e-2 if mode == "sum" else 1e-7)
+        assert not a[4096].any()                     # the empty bag

@@ -2,7 +2,10 @@
 
 In a fresh interpreter where ``import jax`` and ``import repro`` fail
 (``sys.modules`` entries set to None), every module of ``repro_torch``
-imports (the serving, distributed, launch and data subpackages named), ``chip_smoke.py`` imports as a module (without running ``main``),
+imports (the serving, distributed, launch, data, models and configs
+subpackages named), ``chip_smoke.py`` and the port's two examples
+(``examples/torch_quickstart.py``, ``examples/torch_serve_ann.py``)
+import as modules (without running ``main``),
 and a snapshot written by the reference -- whose pickles name the
 reference's classes -- loads into the port and serves the reference's
 results.
@@ -49,22 +52,27 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for n in names:
     importlib.import_module(n)
-spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
-smoke = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(smoke)
-assert callable(smoke.main)
+for path in ("chip_smoke.py", "examples/torch_quickstart.py",
+             "examples/torch_serve_ann.py"):
+    spec = importlib.util.spec_from_file_location("m", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert callable(mod.main)
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k in sys.modules if sys.modules[k] is not None)
 print(" ".join(names))
 """)
     names = set(out.split())
     assert len(names) >= 40
-    for sub in ("serving", "distributed", "launch", "data"):
+    for sub in ("serving", "distributed", "launch", "data", "models",
+                "configs"):
         assert f"repro_torch.{sub}" in names
     for mod in ("serving.steps", "serving.scheduler", "serving.replica",
                 "distributed.sharding", "distributed.ctx",
                 "launch.ann_steps", "launch.serve", "data.pipelines",
-                "core.autotune"):
+                "core.autotune", "models.recsys", "configs.common",
+                "configs.fm", "configs.deepfm", "configs.xdeepfm",
+                "configs.sasrec", "configs.freshdiskann_1b"):
         assert f"repro_torch.{mod}" in names
 
 
