@@ -49,6 +49,21 @@ Phases:
            ``l2_rows`` (d 50), ``adc_rows`` (m 25) and ``robust_prune_fp``
            (d 50) against their plain versions and timed (added to their
            records' ``by_shape``);
+  lm       the dense decoder LMs (qwen3-14b, qwen2-1.5b, gemma3-12b; no
+           kernel of their own): (a) one pattern group at full width in
+           f32, weights drawn on the card and copied to the CPU, a prefill
+           (B 1 x S 512; gemma3 S 2048, past its 1,024-token window) and 8
+           greedy decode steps from the placed caches, logits and caches
+           held against the CPU; (b) decode against forward at full width
+           and depth in f32 (B 1, S 256, 256 steps from ``init_cache``);
+           (c) the cells in bf16 at full width and depth through
+           ``make_lm_prefill_step`` / ``make_lm_decode_step``:
+           prefill_32k (B 1 / 4 / 2 of the published 32; TTFT, tokens/s,
+           16 greedy tokens' ms), decode_32k (B 8 / 64 / 16 of the
+           published 128, caches drawn for positions 0..S-17; p50 ms a
+           step against its byte bound) and gemma3's long_500k (B 1 x
+           524,288); finite logits and peak memory under 80 GiB
+           asserted; ``torch.argmax``'s first-maximum rule on ties;
   main     bootstrap_system (points labelled with the selectivity ladder
            of tests/test_filtered.py and 4 tenants) -> 1 % deletes ->
            labelled streaming inserts with RW->RO
@@ -102,7 +117,7 @@ Phases:
            ``--src DIR --phases build,launch`` times that tree's launch path
            on the same card.
 
-P (the phases) defaults to build,kernels,parity,recsys,main,filtered,
+P (the phases) defaults to build,kernels,parity,recsys,lm,main,filtered,
 storage,serving.
 Prints diagnostics, then the card's name and power limit, then one JSON
 line of kernel records, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -1491,7 +1506,7 @@ def _card_vs_cpu(got, want, what: str) -> float:
           f"{what}: shape {tuple(got.shape)} or non-finite values")
     err = (got - want).abs()
     check(bool((err <= _tolerance(want)).all()),
-          f"{what}: card vs CPU max err {float(err.max())} (at |CPU| "
+          f"{what}: max err {float(err.max())} over its bound (at |want| "
           f"{float(want.flatten()[err.argmax()].abs())})")
     return float(err.max())
 
@@ -1850,6 +1865,366 @@ def phase_recsys(seed: int) -> tuple[dict, dict]:
     del s, model, cpu_model
     torch.cuda.empty_cache()
     return out, readings
+
+
+# --------------------------------------------------------------- lm phase
+LM_ARCHS = ("qwen3-14b", "qwen2-1.5b", "gemma3-12b")
+# (a) card against CPU, one pattern group in f32: the prompt lengths
+# (gemma3's 2,048 puts its 1,024-token window in effect) and greedy steps.
+LM_PARITY_LEN = {"qwen3-14b": 512, "qwen2-1.5b": 512, "gemma3-12b": 2048}
+LM_PARITY_STEPS = 8
+# (b) the reference's test_decode_matches_forward at full width and depth.
+LM_DEPTH_LEN = 256
+# (c) the cells in bf16 at full width and depth.  Batches cut from the
+# published 32 (prefill_32k) and 128 (decode_32k) to what one 80 GB card
+# holds beside the weights; long_500k runs uncut where the arch has it.
+LM_SEQ = 32_768
+LM_LONG = 524_288
+LM_PREFILL_BATCH = {"qwen3-14b": 1, "qwen2-1.5b": 4, "gemma3-12b": 2}
+LM_DECODE_BATCH = {"qwen3-14b": 8, "qwen2-1.5b": 64, "gemma3-12b": 16}
+LM_NEW_TOKENS = 16
+# H100 SXM dense bf16 peak (NVIDIA data sheet, at 700 W).
+BF16_FLOP_PER_S = 989e12
+
+
+def place_caches(cfg, pre, batch: int, max_len: int, device) -> list:
+    """A prefill's caches (the last W_p tokens of each layer at slots
+    0..W_p-1, ``transformer.forward``'s layout) placed into
+    ``init_cache(cfg, batch, max_len)`` buffers at slot ``pos % W``, where
+    ``decode_step`` goes on from them: the reference has no path from a
+    prefill to decoding further tokens (its global prefill cache is
+    exactly S long)."""
+    from repro_torch.models import transformer as tf
+    caches = tf.init_cache(cfg, batch, max_len, device)
+    for c, p in zip(caches, pre):
+        slots = p["pos"].to(c["pos"].device).long() % c["k"].shape[2]
+        c["k"][:, :, slots] = p["k"].to(c["k"].device)
+        c["v"][:, :, slots] = p["v"].to(c["v"].device)
+        c["pos"][slots] = p["pos"].to(c["pos"].device)
+    return caches
+
+
+def _params_to(params: dict, device) -> dict:
+    return {k: ([{n: t.to(device) for n, t in bp.items()} for bp in v]
+                if k == "blocks" else v.to(device))
+            for k, v in params.items()}
+
+
+def _param_bytes(params: dict, skip=("embed",)) -> int:
+    n = sum(t.numel() * t.element_size()
+            for k, t in params.items() if k != "blocks" and k not in skip)
+    return n + sum(t.numel() * t.element_size()
+                   for bp in params["blocks"] for t in bp.values())
+
+
+def _tokens_vs_cpu(got, want, logits, what: str) -> int:
+    """Greedy tokens on the card against the CPU's: equal, except where the
+    CPU's logits of the two ids lie within the card-vs-CPU bound of each
+    other (a near tie).  Returns the rows that differ."""
+    import torch
+    got, want = got.cpu().long(), want.cpu().long()
+    rows = torch.nonzero(got != want).flatten()
+    lf = logits.float()
+    a = lf[rows, got[rows]]
+    b = lf[rows, want[rows]]
+    bound = 2 * _tolerance(lf)[rows, want[rows]]
+    check(bool(((b - a).abs() <= bound).all()),
+          f"{what}: greedy tokens differ from the CPU's off near ties")
+    return int(rows.numel())
+
+
+def lm_card_vs_cpu(name: str, cfg, S: int, steps: int, seed: int,
+                   dev) -> dict:
+    """(a) One pattern group of ``cfg`` (full width) in f32: weights drawn
+    on ``dev`` and copied to the CPU; a prefill of an ``lm_token_stream``
+    prompt of B 1 x S through ``make_lm_prefill_step`` (last-position
+    logits and every cache to ``_tolerance``), the caches placed into
+    ``init_cache(1, S + steps)``, then ``steps`` greedy decode steps on
+    each device, both fed the CPU's token: logits to ``_tolerance``,
+    tokens equal off near ties."""
+    import torch
+    from repro_torch.data.pipelines import lm_token_stream
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.steps import (make_lm_decode_step,
+                                           make_lm_prefill_step)
+    t0 = time.perf_counter()
+    params = tf.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    cpu_params = _params_to(params, "cpu")
+    toks = torch.from_numpy(
+        next(lm_token_stream(1, S, cfg.vocab, seed))["tokens"])
+    prefill, decode = make_lm_prefill_step(cfg), make_lm_decode_step(cfg)
+    t_draw = time.perf_counter() - t0
+    t_cpu = time.perf_counter()
+    lg_c, pre_c = prefill(cpu_params, toks)
+    t_cpu = time.perf_counter() - t_cpu
+    lg, pre = prefill(params, toks.to(dev))
+    err = _card_vs_cpu(lg, lg_c, f"{name} prefill logits")
+    for pi, (a, b) in enumerate(zip(pre, pre_c)):
+        for key in ("k", "v"):
+            rows = a[key].shape[0] * a[key].shape[1] * a[key].shape[2]
+            err = max(err, _card_vs_cpu(a[key].reshape(rows, -1),
+                                        b[key].reshape(rows, -1),
+                                        f"{name} prefill cache {pi} {key}"))
+        check(torch.equal(a["pos"].cpu(), b["pos"]),
+              f"{name} prefill cache {pi}: positions differ")
+    caches = place_caches(cfg, pre, 1, S + steps, dev)
+    caches_c = place_caches(cfg, pre_c, 1, S + steps, "cpu")
+    del pre, pre_c
+    tok = torch.argmax(lg_c, dim=-1).to(torch.int32)
+    n_diff = _tokens_vs_cpu(torch.argmax(lg, dim=-1), tok, lg_c,
+                            f"{name} prefill")
+    t_dec = 0.0
+    for t in range(steps):
+        nt, lg, caches = decode(params, caches, tok.to(dev), S + t)
+        t1 = time.perf_counter()
+        tok, lg_c, caches_c = decode(cpu_params, caches_c, tok, S + t)
+        t_dec += time.perf_counter() - t1
+        err = max(err, _card_vs_cpu(lg, lg_c, f"{name} decode step {t}"))
+        n_diff += _tokens_vs_cpu(nt, tok, lg_c, f"{name} decode step {t}")
+    secs = time.perf_counter() - t0
+    log(f"[lm] (a) {name}: {cfg.n_layers} layers f32, B 1 x S {S} prefill "
+        f"+ {steps} greedy steps, card vs CPU max err {err:.3g} (logits "
+        f"and caches), {n_diff} tokens differ (near ties only); {secs:.1f} s"
+        f" (weights drawn and copied {t_draw:.1f} s, the CPU's prefill "
+        f"{t_cpu:.1f} s and decode {t_dec / steps:.2f} s a step)")
+    del params, cpu_params, caches, caches_c
+    return dict(max_err=err, tokens_differing=n_diff, seconds=secs,
+                cpu_prefill_s=t_cpu, cpu_decode_s_per_step=t_dec / steps)
+
+
+def lm_decode_vs_forward(name: str, cfg, S: int, seed: int, dev) -> dict:
+    """(b) The reference's ``test_decode_matches_forward`` for ``cfg``:
+    ``forward`` over B 1 x S against S ``decode_step``s from
+    ``init_cache``; the last logits to ``_tolerance``."""
+    import torch
+    from repro_torch.data.pipelines import lm_token_stream
+    from repro_torch.models import transformer as tf
+    params = tf.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    toks = torch.from_numpy(
+        next(lm_token_stream(1, S, cfg.vocab, seed + 1))["tokens"]).to(dev)
+    t0 = time.perf_counter()
+    want, _, _ = tf.forward(params, toks, cfg, last_only=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    caches = tf.init_cache(cfg, 1, S, dev)
+    for t in range(S):
+        got, caches = tf.decode_step(params, caches, toks[:, t], t, cfg)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    err = _card_vs_cpu(got, want[:, -1].cpu(), f"{name} decode vs forward")
+    log(f"[lm] (b) {name}: {cfg.n_layers} layers f32, B 1 x S {S}: "
+        f"{S} decode steps vs forward, max err {err:.3g}; forward "
+        f"{(t1 - t0) * 1e3:.1f} ms, decode {(t2 - t1) / S * 1e3:.2f} ms a "
+        f"step")
+    del params, caches
+    return dict(max_err=err, forward_ms=(t1 - t0) * 1e3,
+                decode_ms_per_step=(t2 - t1) / S * 1e3)
+
+
+def _reset_peak() -> None:
+    import torch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _greedy(decode, params, caches, tok, pos0: int, n: int, dev):
+    """``n`` greedy decode steps from ``tok`` at positions pos0..: the ms
+    of each (CUDA events), and whether every logit was finite."""
+    import torch
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    ev = []
+    for t in range(n):
+        a, b = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        a.record()
+        tok, lg, caches = decode(params, caches, tok, pos0 + t)
+        b.record()
+        finite &= torch.isfinite(lg).all()
+        ev.append((a, b))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in ev], bool(finite), caches
+
+
+def prefill_flops(cfg, B: int, S: int) -> float:
+    """Operations of a prefill of B x S: 2 per weight per token in the
+    layers, the head at the last position, and QK^T and PV over the
+    (query, key) pairs each layer's mask keeps."""
+    from repro_torch.models import transformer as tf
+    D, H, dh = cfg.d_model, cfg.n_heads, cfg.d_head
+    per_layer = sum(int(np.prod(shape)) for shape, _, _ in
+                    tf.block_layout(cfg).values())
+    flops = 2 * B * S * per_layer * cfg.n_layers + 2 * B * D * cfg.vocab
+    for kind in cfg.pattern:
+        w = cfg.window if kind == "l" else 0
+        pairs = (S * (S + 1) // 2 if not w or w >= S
+                 else w * (w + 1) // 2 + (S - w) * w)
+        flops += cfg.n_groups * 4 * B * H * dh * pairs
+    return float(flops)
+
+
+def fill_caches(caches, gen, n_filled: int) -> None:
+    """Decode-cell caches as if positions 0..n_filled-1 had been decoded:
+    k and v drawn N(0, 1) on ``gen``, each slot's position the last one
+    written to it (``pos % W``), the rest empty."""
+    import torch
+    for c in caches:
+        W = c["k"].shape[2]
+        c["k"].normal_(generator=gen)
+        c["v"].normal_(generator=gen)
+        p = torch.arange(max(0, n_filled - W), n_filled,
+                         device=c["pos"].device)
+        c["pos"][p % W] = p.to(torch.int32)
+
+
+def lm_cells_run(name: str, seed: int, dev) -> dict:
+    """(c) The arch's FULL config (bf16) through the two serve steps.
+
+    prefill_32k: an ``lm_token_stream`` batch of ``LM_PREFILL_BATCH`` x S
+    prefilled (time to first token, prefill tokens/s, its FLOP bound), the
+    caches placed into ``init_cache(B, S + LM_NEW_TOKENS)``, then
+    ``LM_NEW_TOKENS`` greedy tokens (ms per output token).  decode_32k
+    (and long_500k where the arch has it): caches of ``LM_DECODE_BATCH``
+    x S (1 x ``LM_LONG``) filled from a seeded draw for positions
+    0..S-17, then 16 timed steps (p50 ms, tokens/s, the byte bound:
+    weights read + KV read over 3.35 TB/s).  Asserted: finite logits,
+    peak memory under 80 GiB."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipelines import lm_token_stream
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.steps import (make_lm_decode_step,
+                                           make_lm_prefill_step)
+    arch = get_arch(name)
+    cfg, long_cell = arch.full_config, arch.cell("long_500k")
+    S, new_tokens = LM_SEQ, LM_NEW_TOKENS
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    w_bytes = _param_bytes(params)
+    prefill, decode = make_lm_prefill_step(cfg), make_lm_decode_step(cfg)
+    out = {"init_s": init_s,
+           "weights_gib": _param_bytes(params, skip=()) / 2**30}
+
+    # ---- prefill_32k ------------------------------------------------
+    B = LM_PREFILL_BATCH[name]
+    toks = torch.from_numpy(
+        next(lm_token_stream(B, S, cfg.vocab, seed))["tokens"]).to(dev)
+    warm = min(S, 2 * max(cfg.q_chunk, cfg.kv_chunk))
+    prefill(params, toks[:, :warm])
+    _reset_peak()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, pre = prefill(params, toks)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    check(bool(torch.isfinite(lg).all()), f"{name} prefill: non-finite")
+    caches = place_caches(cfg, pre, B, S + new_tokens, dev)
+    del pre
+    ms, finite, caches = _greedy(decode, params, caches,
+                                 torch.argmax(lg, -1).to(torch.int32), S,
+                                 new_tokens, dev)
+    check(finite, f"{name} prefill_32k decode: non-finite logits")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(peak < 80, f"{name} prefill_32k: peak {peak:.2f} GiB")
+    flop_ms = prefill_flops(cfg, B, S) / BF16_FLOP_PER_S * 1e3
+    out["prefill_32k"] = dict(
+        batch=B, seq=S, ttft_s=ttft, prefill_tokens_per_s=B * S / ttft,
+        ms_per_output_token=float(np.median(ms)), peak_gib=peak,
+        flop_bound_ms=flop_ms)
+    log(f"[lm] (c) {name} prefill_32k B {B} (published 32) x S {S}: TTFT "
+        f"{ttft * 1e3:.1f} ms ({B * S / ttft:.0f} tokens/s; FLOP bound "
+        f"{flop_ms:.1f} ms at 989 TFLOP/s), then {new_tokens} greedy "
+        f"tokens p50 {np.median(ms):.3f} ms a token (min {min(ms):.3f}, "
+        f"max {max(ms):.3f}); peak {peak:.2f} GiB")
+    del caches, lg, toks
+
+    # ---- decode_32k, long_500k ----------------------------------------
+    cells = [("decode_32k", LM_DECODE_BATCH[name], S)]
+    if long_cell.skip:
+        log(f"[lm] (c) {name} long_500k skipped: {long_cell.skip}")
+    else:
+        cells.append(("long_500k", 1, LM_LONG))
+    for cell, Bd, Sd in cells:
+        _reset_peak()
+        caches = tf.init_cache(cfg, Bd, Sd, dev)
+        fill_caches(caches, gen, Sd - new_tokens)
+        kv_bytes = sum(c[k].numel() * c[k].element_size()
+                       for c in caches for k in ("k", "v"))
+        tok = torch.randint(1, cfg.vocab - 1, (Bd,), generator=gen,
+                            device=dev, dtype=torch.int32)
+        ms, finite, caches = _greedy(decode, params, caches, tok,
+                                     Sd - new_tokens, new_tokens, dev)
+        check(finite, f"{name} {cell}: non-finite logits")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(peak < 80, f"{name} {cell}: peak {peak:.2f} GiB")
+        p50 = float(np.median(ms))
+        bound = (w_bytes + Bd * cfg.d_model * params["embed"].element_size()
+                 + kv_bytes) / HBM_BYTES_PER_S * 1e3
+        out[cell] = dict(batch=Bd, seq=Sd, p50_ms=p50,
+                         tokens_per_s=Bd / p50 * 1e3, byte_bound_ms=bound,
+                         kv_gib=kv_bytes / 2**30, peak_gib=peak,
+                         ms=[round(x, 4) for x in ms])
+        log(f"[lm] (c) {name} {cell} B {Bd} x S {Sd}: p50 {p50:.3f} ms a "
+            f"step (min {min(ms):.3f}, max {max(ms):.3f}), "
+            f"{Bd / p50 * 1e3:.0f} tokens/s; byte bound {bound:.2f} ms "
+            f"(weights {w_bytes / 1e9:.2f} GB + KV {kv_bytes / 1e9:.2f} GB "
+            f"at 3.35 TB/s), {bound / p50 * 100:.1f} % of it; peak "
+            f"{peak:.2f} GiB")
+        del caches
+    del params
+    _reset_peak()
+    return out
+
+
+def _argmax_ties(dev) -> None:
+    """``torch.argmax`` on the card takes the first maximum, as
+    ``jnp.argmax``: bf16 rows of 262,144 ids with the maximum repeated."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((64, 262_144), generator=g, device=dev).to(
+        torch.bfloat16).clamp(max=3.0)
+    ids = torch.arange(x.shape[1], device=dev).expand_as(x)
+    first = torch.where(x == x.amax(-1, keepdim=True), ids,
+                        x.shape[1]).amin(-1)
+    check(bool((x == 3.0).sum(-1).min() > 1) and
+          bool((torch.argmax(x, dim=-1) == first).all()),
+          "argmax on the card does not take the first of tied maxima")
+
+
+def phase_lm(seed: int) -> dict:
+    """The dense LMs (qwen3-14b, qwen2-1.5b, gemma3-12b) on the card: (a)
+    one pattern group at full width against the CPU, (b) decode against
+    forward at full width and depth in f32, (c) the cells in bf16 at full
+    width and depth (``LM_*`` sizes; cuts printed).  Returns the figures
+    by arch."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    _argmax_ties(dev)
+    out: dict = {}
+    for i, name in enumerate(LM_ARCHS):
+        full = get_arch(name).full_config
+        res = out[name] = {}
+        one = dataclasses.replace(full, n_layers=len(full.pattern),
+                                  dtype="float32")
+        res["card_vs_cpu"] = lm_card_vs_cpu(
+            name, one, LM_PARITY_LEN[name], LM_PARITY_STEPS, seed + i, dev)
+        _reset_peak()
+        res["decode_vs_forward"] = lm_decode_vs_forward(
+            name, dataclasses.replace(full, dtype="float32"), LM_DEPTH_LEN,
+            seed + i, dev)
+        _reset_peak()
+        res.update(lm_cells_run(name, seed + i, dev))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[lm] phase {out['seconds']:.1f} s")
+    return out
 
 
 FILTERED_KERNELS = ("l2_rows", "adc_rows", "frontier_select", "gather_rows")
@@ -3149,7 +3524,7 @@ def main(argv=None) -> int:
     ap.add_argument("--centres", type=int, default=4096,
                     help="Gaussian centres of the main path's corpus")
     ap.add_argument("--phases",
-                    default="build,kernels,parity,recsys,main,filtered,"
+                    default="build,kernels,parity,recsys,lm,main,filtered,"
                     "storage,serving")
     ap.add_argument("--src", default=None,
                     help="import the port from this src directory instead "
@@ -3187,6 +3562,8 @@ def main(argv=None) -> int:
             for name, entries in readings.items():
                 if name in recs:
                     recs[name].setdefault("by_shape", []).extend(entries)
+        if "lm" in phases:
+            log(f"[lm] figures {json.dumps(phase_lm(args.seed))}")
         if "main" in phases:
             with shape_census() as census:
                 launches, s, data = phase_main(args.seed, args.n,

@@ -1,0 +1,163 @@
+"""Probe the dense LMs' plain-PyTorch paths on one NVIDIA GPU.
+
+    python3 scripts/torch_lm_probe.py
+
+Prints the card's name and power limit, then one JSON line with:
+
+* ``gemm``: the rounding error of an f32 product against an f64 one (rms
+  relative error and max absolute error, outputs of unit scale), on the
+  CPU (``torch.matmul`` in f32), on the card (cuBLAS in f32, TF32 off) and
+  through the port's ``layers.matmul`` on the card (f64, rounded once), at
+  gemma3-12b's w_down (M 2,048), qwen3-14b's w_down (M 512) and
+  qwen3-14b's head (M 1);
+* ``decode``: one bf16 ``decode_step`` of qwen3-14b at full width and 8
+  of its 40 layers (B 1, a 4,096-slot cache): wall ms a step (host clock
+  around synchronised steps) and the device's busy ms a step
+  (torch.profiler's CUDA kernel time), so the host's share;
+* ``attention``: ``chunked_attention`` of one qwen3-14b layer in bf16 at
+  B 1 x S 32,768 (CUDA events) against its FLOP bound (QK^T and PV over
+  the causal pairs at 989 TFLOP/s);
+* ``scores``: the two forms of an f32 product of bf16 operands, ms a call
+  (CUDA events, mean of 20): ``torch.bmm(..., out_dtype=float32)``, which
+  ``layers.mm_f32`` uses on the card, and the operands upcast to f32
+  first, on one kv block of that prefill (all 32,768 query rows x 256
+  keys) and on one kv head of a decode_32k step (B 8 x 32,768 slots).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+
+def _err(got, truth) -> dict:
+    e = got.double().cpu() - truth
+    return dict(rms_rel=float(e.pow(2).mean().sqrt() / truth.pow(2).mean()
+                              .sqrt()), max_abs=float(e.abs().max()))
+
+
+def gemm_errors(dev) -> list:
+    import torch
+    from repro_torch.models import layers as L
+    g = torch.Generator().manual_seed(0)
+    out = []
+    for M, K, N in ((2048, 15360, 3840), (512, 17408, 5120),
+                    (1, 5120, 151936)):
+        a = torch.randn(M, K, generator=g)
+        b = torch.randn(K, N, generator=g) * K ** -0.5
+        truth = a.double() @ b.double()
+        ad, bd = a.to(dev), b.to(dev)
+        out.append(dict(shape=[M, K, N], cpu_f32=_err(a @ b, truth),
+                        card_f32=_err(ad @ bd, truth),
+                        card_matmul=_err(L.matmul(ad, bd), truth)))
+    return out
+
+
+def decode_share(dev) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(get_arch("qwen3-14b").full_config, n_layers=8)
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    caches = tf.init_cache(cfg, 1, 4096, dev)
+    tok = torch.ones(1, dtype=torch.int32, device=dev)
+    for t in range(3):
+        _, caches = tf.decode_step(params, caches, tok, t, cfg)
+    torch.cuda.synchronize()
+    n = 10
+    t0 = time.perf_counter()
+    for t in range(n):
+        _, caches = tf.decode_step(params, caches, tok, 3 + t, cfg)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for t in range(n):
+            _, caches = tf.decode_step(params, caches, tok, 20 + t, cfg)
+        torch.cuda.synchronize()
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy = busy / n / 1e3
+    return dict(layers=cfg.n_layers, wall_ms=wall, device_busy_ms=busy,
+                host_share=1 - busy / wall)
+
+
+def attention_time(dev) -> dict:
+    import torch
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=dev).manual_seed(1)
+    S, H, KV, dh = 32768, 40, 8, 128
+    q = torch.randn(1, S, H, dh, generator=g, device=dev).bfloat16()
+    k = torch.randn(1, S, KV, dh, generator=g, device=dev).bfloat16()
+    v = torch.randn(1, S, KV, dh, generator=g, device=dev).bfloat16()
+    L.chunked_attention(q[:, :1024], k[:, :1024], v[:, :1024], q_chunk=256,
+                        kv_chunk=256)
+    a, b = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    a.record()
+    L.chunked_attention(q, k, v, q_chunk=256, kv_chunk=256)
+    b.record()
+    torch.cuda.synchronize()
+    bound = 4 * H * dh * (S * (S + 1) // 2) / 989e12 * 1e3
+    return dict(seq=S, ms=a.elapsed_time(b), flop_bound_ms=bound)
+
+
+def _ms(fn, runs: int = 20) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    a.record()
+    for _ in range(runs):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / runs
+
+
+def score_forms(dev) -> list:
+    import torch
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn(8, 32768 * 5, 128, generator=g, device=dev).bfloat16()
+    k = torch.randn(8, 256, 128, generator=g, device=dev).bfloat16()
+    cache = torch.randn(8, 32768, 8, 128, generator=g,
+                        device=dev).bfloat16()
+    qd = torch.randn(8, 5, 128, generator=g, device=dev).bfloat16()
+    out = []
+    for what, a, b in (("prefill kv block", q, k.transpose(1, 2)),
+                       ("decode kv head", qd, cache[:, :, 0].transpose(1, 2))):
+        out.append(dict(
+            what=what, a=list(a.shape), b=list(b.shape),
+            out_dtype_ms=_ms(lambda: torch.bmm(a, b,
+                                               out_dtype=torch.float32)),
+            upcast_ms=_ms(lambda: torch.bmm(a.float(), b.float()))))
+    return out
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_lm_probe: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    from repro_torch.core.config import resolve_device
+    dev = resolve_device("cuda")
+    ident = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(ident)
+    print(json.dumps(dict(gemm=gemm_errors(dev), decode=decode_share(dev),
+                          attention=attention_time(dev),
+                          scores=score_forms(dev))))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

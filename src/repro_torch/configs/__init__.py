@@ -1,14 +1,17 @@
 """Architecture registry of the port: ``get_arch(name)`` /
-``list_archs()`` over the archs ported so far -- the recsys family and the
-paper's own billion-point deployment config (``freshdiskann-1b``).  The
-reference's other archs raise ``KeyError`` naming the ``ROADMAP.md`` item
-that ports them.
+``list_archs()`` over the archs ported so far -- the dense decoder LMs, the
+recsys family and the paper's own billion-point deployment config
+(``freshdiskann-1b``).  The reference's other archs raise ``KeyError``
+naming the ``ROADMAP.md`` item that ports them.
 """
 from __future__ import annotations
 
 import importlib
 
 _MODULES = {
+    "qwen3-14b": "qwen3_14b",
+    "qwen2-1.5b": "qwen2_1_5b",
+    "gemma3-12b": "gemma3_12b",
     "fm": "fm",
     "xdeepfm": "xdeepfm",
     "sasrec": "sasrec",
@@ -16,13 +19,10 @@ _MODULES = {
     "freshdiskann-1b": "freshdiskann_1b",
 }
 
-_LM = "ROADMAP.md Queue 1 item 5 (LM serving)"
+_MOE = "ROADMAP.md Queue 1 item 5b (MoE LM serving)"
 _UNPORTED = {
-    "qwen3-14b": _LM,
-    "qwen2-1.5b": _LM,
-    "gemma3-12b": _LM,
-    "mixtral-8x7b": _LM,
-    "qwen3-moe-30b-a3b": _LM,
+    "mixtral-8x7b": _MOE,
+    "qwen3-moe-30b-a3b": _MOE,
     "graphsage-reddit": "ROADMAP.md Queue 1 item 6 (GraphSAGE)",
 }
 

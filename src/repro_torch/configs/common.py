@@ -10,8 +10,9 @@ Each ``configs/<arch>.py`` exposes ``ARCH: ArchSpec`` with:
     step kind.
 
 The reference's specs are ``jax.ShapeDtypeStruct``s; the port's are its
-own ``TensorSpec`` records of a shape and a ``torch.dtype``.
-``lm_cells`` and ``gnn_cells`` wait for their families' slices.
+own ``TensorSpec`` records of a shape and a ``torch.dtype``, and
+``cache_specs`` stands in for the reference's ``abstract_cache``.
+``gnn_cells`` waits for the GraphSAGE slice.
 """
 from __future__ import annotations
 
@@ -53,6 +54,57 @@ class ArchSpec:
             if c.shape == shape:
                 return c
         raise KeyError(f"{self.name}: no shape {shape}")
+
+
+# ---------------------------------------------------------------------------
+# LM cells
+# ---------------------------------------------------------------------------
+
+def cache_specs(cfg, batch: int, max_len: int) -> list:
+    """The specs of ``transformer.init_cache(cfg, batch, max_len)``: per
+    pattern position, k and v [n_groups, batch, W, KV, dh] in the
+    activation dtype and pos [W] int32 (no allocation)."""
+    from ..models.transformer import cache_widths
+    out = []
+    for W in cache_widths(cfg, max_len):
+        kv = S((cfg.n_groups, batch, W, cfg.n_kv_heads, cfg.d_head),
+               cfg.act_dtype)
+        out.append({"k": kv, "v": kv, "pos": S((W,), torch.int32)})
+    return out
+
+
+def lm_cells(cfg) -> list[Cell]:
+    """The four LM shapes.  long_500k is skipped for pure full-attention
+    configs (every pattern position global and no window)."""
+    full_attention = all(k == "g" for k in cfg.pattern)
+
+    def train_specs():
+        return {"tokens": S((256, 4096), torch.int32),
+                "targets": S((256, 4096), torch.int32)}
+
+    def prefill_specs():
+        return {"tokens": S((32, 32768), torch.int32)}
+
+    def decode_specs(batch, seq):
+        return {"caches": cache_specs(cfg, batch, seq),
+                "tokens": S((batch,), torch.int32),
+                "pos": S((), torch.int32)}
+
+    return [
+        Cell("train_4k", "train", train_specs,
+             {"batch": 256, "seq": 4096}),
+        Cell("prefill_32k", "prefill", prefill_specs,
+             {"batch": 32, "seq": 32768}),
+        Cell("decode_32k", "decode",
+             lambda: decode_specs(128, 32768),
+             {"batch": 128, "seq": 32768}),
+        Cell("long_500k", "decode",
+             lambda: decode_specs(1, 524288),
+             {"batch": 1, "seq": 524288},
+             skip=("pure full-attention arch: 500k decode needs "
+                   "sub-quadratic attention (DESIGN.md §Arch-applicability)"
+                   if full_attention else "")),
+    ]
 
 
 # ---------------------------------------------------------------------------

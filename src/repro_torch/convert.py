@@ -5,7 +5,10 @@ The JAX package's state is handed over as numpy arrays (``np.asarray`` of
 each field), so this module needs neither package's arrays at import.  Both
 directions keep every field's values and dtypes: int32 adjacency and
 scalars, bool flags, f32 vectors and centroids, uint8 codes, int64
-external-id tables, f32 recsys parameters.
+external-id tables, f32 recsys parameters.  LM parameters keep their
+values; bf16 ones (numpy has no bf16 of its own) cross as the
+reference's ``ml_dtypes`` arrays one way and as exact f32 arrays the
+other.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from .core.config import resolve_device
 from .core.graph import GraphState
 from .core.lti import LTIState
 from .core.pq import PQCodebook
+from .models import transformer as tf
 from .models.recsys import RecsysConfig, make_model
 
 GRAPH_FIELDS = ("vectors", "adjacency", "active", "deleted", "start",
@@ -105,3 +109,48 @@ def recsys_to_numpy(model) -> dict:
         out["cin"] = [arr(w) for w in model.cin]
         out["cin_head"] = arr(model.cin_head)
     return out
+
+
+def _leaf_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A CPU tensor of a numpy leaf; a bf16 leaf (``ml_dtypes.bfloat16``,
+    as ``np.asarray`` gives a JAX bf16 array) crosses by its bits."""
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(
+            np.ascontiguousarray(arr).view(np.uint16).copy()).view(
+                torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def lm_params(tree, cfg: tf.TransformerConfig, device="cuda") -> dict:
+    """The port's LM parameters from the reference's parameter dict (its
+    leaves read with ``np.asarray``; ``blocks`` a list by pattern
+    position): each parameter of ``transformer.param_layout(cfg)`` takes
+    the value of the leaf at its dotted name (``blocks.0.wq`` is
+    ``tree["blocks"][0]["wq"]``) in the layout's dtype (the activation
+    dtype for weights and biases, f32 for norms), so bf16 leaves and
+    ``lm_to_numpy``'s exact f32 copies of them give the same tensors.  On
+    the card unless ``device`` asks for the CPU."""
+    device = resolve_device(device)
+    params: dict = {}
+    for name, (shape, dtype, _) in tf.param_layout(cfg).items():
+        arr = np.asarray(tf.get_param(tree, name))
+        if arr.shape != tuple(shape):
+            raise ValueError(f"{name}: shape {arr.shape} != {tuple(shape)}")
+        tf.set_param(params, name,
+                     _leaf_tensor(arr).to(dtype).to(device))
+    return params
+
+
+def lm_to_numpy(params: dict) -> dict:
+    """The port's LM parameters as the reference's dict of numpy arrays
+    (``blocks`` a list of dicts): f32 leaves as f32, bf16 ones widened to
+    f32 (exactly)."""
+    def arr(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+    return {"embed": arr(params["embed"]),
+            "lm_head": arr(params["lm_head"]),
+            "final_norm": arr(params["final_norm"]),
+            "blocks": [{n: arr(t) for n, t in bp.items()}
+                       for bp in params["blocks"]]}

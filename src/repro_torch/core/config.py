@@ -132,7 +132,8 @@ def resolve_device(device) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
     the CPU.  Raises when CUDA is asked for (the default) and missing --
     the port never carries on silently on the CPU.  On CUDA it turns TF32
-    off for the process (PyTorch's matmul default, and cuDNN's flag)."""
+    off for the process (PyTorch's matmul default, and cuDNN's flag), and
+    cuBLAS's bf16 reduced-precision reduction."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -144,4 +145,8 @@ def resolve_device(device) -> torch.device:
         # run in full f32, as the reference's: TF32 would shift PQ codes.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # A bf16 matmul accumulates in f32 in the reference (XLA); cuBLAS's
+        # reduced-precision split-K would add its partial sums in bf16.
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+            False)
     return dev

@@ -1,6 +1,7 @@
 """Synthetic data streams of the port (its own copy of the JAX package's
-``data/pipelines.py`` streams that the ANN serving entry point and the
-recsys models use)."""
-from .pipelines import click_stream, sasrec_stream, vector_stream
+``data/pipelines.py`` streams that the ANN serving entry point, the recsys
+models and the decoder LMs use)."""
+from .pipelines import click_stream, lm_token_stream, sasrec_stream, vector_stream
 
-__all__ = ["click_stream", "sasrec_stream", "vector_stream"]
+__all__ = ["click_stream", "lm_token_stream", "sasrec_stream",
+           "vector_stream"]

@@ -5,10 +5,11 @@ the reference's arrays byte for byte.
 
 * ``vector_stream``: the ANN index's update and query stream;
 * ``click_stream``: the FM family's Criteo-like click batches;
-* ``sasrec_stream``: SASRec's item sequences and BPR negatives.
+* ``sasrec_stream``: SASRec's item sequences and BPR negatives;
+* ``lm_token_stream``: the decoder LMs' token batches.
 
-``lm_token_stream`` and ``synthetic_graph`` wait for the LM and GraphSAGE
-slices (``ROADMAP.md``, Queue 1).
+``synthetic_graph`` waits for the GraphSAGE slice (``ROADMAP.md``,
+Queue 1).
 """
 from __future__ import annotations
 
@@ -19,6 +20,23 @@ import numpy as np
 
 def _rng(seed: int, step: int) -> np.random.Generator:
     return np.random.default_rng(np.random.SeedSequence([seed, step]))
+
+
+def lm_token_stream(batch: int, seq_len: int, vocab: int, seed: int = 0,
+                    start_step: int = 0) -> Iterator[dict]:
+    """Zipf-ish token stream with local correlations: ``tokens`` and
+    ``targets`` (the next token; the last one (token * 31 + 7) mod the
+    range), int32 [batch, seq_len], ids in [1, vocab - 2]."""
+    step = start_step
+    while True:
+        r = _rng(seed, step)
+        base = r.zipf(1.3, size=(batch, seq_len)).astype(np.int64)
+        tokens = (base % (vocab - 2)) + 1
+        targets = np.roll(tokens, -1, axis=1)
+        targets[:, -1] = (tokens[:, -1] * 31 + 7) % (vocab - 2) + 1
+        yield {"tokens": tokens.astype(np.int32),
+               "targets": targets.astype(np.int32)}
+        step += 1
 
 
 def click_stream(batch: int, n_sparse: int, rows_per_field: int,

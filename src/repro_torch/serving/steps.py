@@ -21,10 +21,12 @@ bit, for any shard count, on the card and on the CPU.
 ``make_disk_lti_lane`` is the storage tier's sibling: the LTI lane with its
 adjacency rows read off the on-disk layout.
 
-The recsys steps: ``make_recsys_serve_step`` (click probabilities of the
-FM family) and ``make_retrieval_step`` (the exact candidate-scoring
-baseline at the ``retrieval_cand`` shape).  The LM prefill and decode
-steps wait for the LM slice (``ROADMAP.md``, Queue 1).
+The LM steps: ``make_lm_prefill_step`` (the last position's logits and
+the KV caches of a prompt batch) and ``make_lm_decode_step`` (one greedy
+token against the caches, which it updates in place).  The recsys steps:
+``make_recsys_serve_step`` (click probabilities of the FM family) and
+``make_retrieval_step`` (the exact candidate-scoring baseline at the
+``retrieval_cand`` shape).
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from ..core.search import (FullPrecisionBackend, PQBackend, batch_distances,
 from ..distributed.ctx import psum
 from ..kernels import ops
 from ..models import recsys as rec
+from ..models import transformer as tf
 
 
 def _owned(ids: torch.Tensor, offset: int, n_local: int):
@@ -275,6 +278,34 @@ def make_disk_lti_lane(layout, cfg: IndexConfig, *, k_lane: int, L: int,
     lane.searcher = searcher
     lane.close = searcher.close
     return lane
+
+
+# ---------------------------------------------------------------------------
+# LM: prefill and decode
+# ---------------------------------------------------------------------------
+
+def make_lm_prefill_step(cfg: tf.TransformerConfig) -> Callable:
+    """``prefill(params, tokens)`` -> (logits [B, V] of the last position,
+    caches): the prompt's KV caches as ``transformer.forward`` collects
+    them (the last W tokens of each layer at slots 0..W-1)."""
+    def prefill(params, tokens):
+        logits, _, caches = tf.forward(params, tokens, cfg,
+                                       collect_cache=True, last_only=True)
+        return logits[:, -1], caches
+
+    return prefill
+
+
+def make_lm_decode_step(cfg: tf.TransformerConfig) -> Callable:
+    """``decode(params, caches, tokens, pos)`` -> (next_token [B] int32,
+    the greedy argmax (the first maximum on ties, as ``jnp.argmax``),
+    logits [B, V], caches): the caches are updated in place."""
+    def decode(params, caches, tokens, pos):
+        logits, new_caches = tf.decode_step(params, caches, tokens, pos, cfg)
+        next_token = torch.argmax(logits, dim=-1).to(torch.int32)
+        return next_token, logits, new_caches
+
+    return decode
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,10 @@ fixtures of ``tests/conftest.py``):
 Integer-valued inputs make every f32 sum exact, so kernel and plain
 version must be equal; the frontier step and the row gather are compared
 bit for bit on any input.  ``chip_smoke.py`` repeats these checks at the main path's shapes.
+
+The dense LMs (no kernel of their own) are held against the CPU here too:
+each layer in f32 and bf16, one pattern group of each FULL config at full
+width, and decode against forward at full width on two pattern groups.
 """
 import numpy as np
 import pytest
@@ -509,3 +513,113 @@ def test_embedding_bag_same_bits_twice_on_card(dev):
         torch.testing.assert_close(a.cpu()[17], want[17], rtol=1e-5,
                                    atol=1e-2 if mode == "sum" else 1e-7)
         assert not a[4096].any()                     # the empty bag
+
+
+# ---------------------------------------------------------------------------
+# The dense LMs: layers, one pattern group and decode against forward
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _lm_layer(name, dtype, device):
+    """(function, args) of one LM layer at small widths, drawn on the CPU
+    and moved to ``device``."""
+    from repro_torch.models import layers as L
+    g = torch.Generator().manual_seed(5)
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).to(dtype).to(device)
+
+    if name == "rms_norm":
+        return L.rms_norm, (r(4, 33, 256, s=3.0), r(256, s=0.1).float())
+    if name == "rope":
+        pos = torch.cat([torch.arange(64), torch.arange(524_224, 524_288)])
+        return (lambda x, p: L.rope(x, p, 1e6)), (r(2, 128, 4, 256),
+                                                  pos[None].to(device))
+    if name == "swiglu":
+        return L.swiglu, (r(3, 40, 256), r(256, 512, s=0.06),
+                          r(256, 512, s=0.06), r(512, 256, s=0.04))
+    if name == "chunked_attention":
+        return (lambda q, k, v: L.chunked_attention(
+            q, k, v, window=200, q_chunk=64, kv_chunk=128)), (
+            r(2, 512, 8, 64), r(2, 512, 2, 64), r(2, 512, 2, 64))
+    pos = torch.arange(300, dtype=torch.int32)
+    pos[250:] = -1
+    return (lambda q, k, v, c: L.decode_attention(q, k, v, c, 249,
+                                                  window=100)), (
+        r(3, 1, 8, 64), r(3, 300, 2, 64), r(3, 300, 2, 64), pos.to(device))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["rms_norm", "rope", "swiglu",
+                                  "chunked_attention", "decode_attention"])
+def test_lm_layer_card_equals_cpu(dev, name, dtype):
+    """Each LM layer on the card against the CPU on the same inputs: f32
+    rtol 1e-4, atol 1e-6 (rope at positions up to 524,287 included; TF32
+    off); bf16 rtol 1e-2, atol 1e-2 (one bf16 rounding apart at most)."""
+    from repro_torch.core.config import resolve_device
+    resolve_device(dev)
+    dt = getattr(torch, dtype)
+    fn, args = _lm_layer(name, dt, "cpu")
+    _, card_args = _lm_layer(name, dt, dev)
+    got = fn(*card_args)
+    assert got.dtype == dt
+    tol = (dict(rtol=1e-4, atol=1e-6) if dtype == "float32"
+           else dict(rtol=1e-2, atol=1e-2))
+    torch.testing.assert_close(got.cpu().float(), fn(*args).float(), **tol)
+
+
+def test_mm_f32_on_card(dev):
+    """bf16 operands: ``torch.bmm(out_dtype=float32)`` on a strided cache
+    view equals the f32 product of the upcast operands (every bf16 product
+    is exact in f32; only the order of the f32 sums differs)."""
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=dev).manual_seed(1)
+    a = torch.randn(4, 6, 128, generator=g, device=dev).bfloat16()
+    cache = torch.randn(4, 1000, 8, 128, generator=g, device=dev).bfloat16()
+    b = cache[:, :, 3].transpose(1, 2)
+    got = L.mm_f32(a, b)
+    assert got.dtype == torch.float32
+    want = torch.bmm(a.float(), b.float())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_argmax_takes_first_maximum_on_card(dev):
+    _chip_smoke()._argmax_ties(dev)
+
+
+@pytest.mark.parametrize("name", ["qwen3-14b", "qwen2-1.5b", "gemma3-12b"])
+def test_lm_one_group_full_width_card_equals_cpu(dev, name):
+    """One pattern group of the FULL config in f32, weights drawn on the
+    card and copied to the CPU: prefill logits and caches, then 2 greedy
+    steps, held to ``chip_smoke._tolerance`` (gemma3 at S 1,280, past its
+    window)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cs = _chip_smoke()
+    full = get_arch(name).full_config
+    cfg = dataclasses.replace(full, n_layers=len(full.pattern),
+                              dtype="float32")
+    S = 1280 if full.window else 256
+    cs.lm_card_vs_cpu(name, cfg, S, 2, 0, dev)
+
+
+@pytest.mark.parametrize("name", ["qwen3-14b", "qwen2-1.5b", "gemma3-12b"])
+def test_lm_decode_matches_forward_on_card(dev, name):
+    """Decode against forward on the card at full width, two pattern
+    groups in f32 (B 1, S 128, 128 steps from ``init_cache``), to
+    ``chip_smoke._tolerance``."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    full = get_arch(name).full_config
+    cfg = dataclasses.replace(full, n_layers=2 * len(full.pattern),
+                              dtype="float32")
+    _chip_smoke().lm_decode_vs_forward(name, cfg, 128, 0, dev)

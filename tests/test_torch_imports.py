@@ -3,9 +3,11 @@
 In a fresh interpreter where ``import jax`` and ``import repro`` fail
 (``sys.modules`` entries set to None), every module of ``repro_torch``
 imports (the serving, distributed, launch, data, models and configs
-subpackages named), ``chip_smoke.py`` and the port's two examples
+subpackages named, the LM modules and configs among them),
+``chip_smoke.py`` and the port's two examples
 (``examples/torch_quickstart.py``, ``examples/torch_serve_ann.py``)
-import as modules (without running ``main``),
+and ``scripts/torch_lm_probe.py`` import as modules (without running
+``main``),
 and a snapshot written by the reference -- whose pickles name the
 reference's classes -- loads into the port and serves the reference's
 results.
@@ -53,7 +55,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for n in names:
     importlib.import_module(n)
 for path in ("chip_smoke.py", "examples/torch_quickstart.py",
-             "examples/torch_serve_ann.py"):
+             "examples/torch_serve_ann.py", "scripts/torch_lm_probe.py"):
     spec = importlib.util.spec_from_file_location("m", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -70,9 +72,11 @@ print(" ".join(names))
     for mod in ("serving.steps", "serving.scheduler", "serving.replica",
                 "distributed.sharding", "distributed.ctx",
                 "launch.ann_steps", "launch.serve", "data.pipelines",
-                "core.autotune", "models.recsys", "configs.common",
-                "configs.fm", "configs.deepfm", "configs.xdeepfm",
-                "configs.sasrec", "configs.freshdiskann_1b"):
+                "core.autotune", "models.recsys", "models.layers",
+                "models.transformer", "configs.common", "configs.fm",
+                "configs.deepfm", "configs.xdeepfm", "configs.sasrec",
+                "configs.freshdiskann_1b", "configs.qwen3_14b",
+                "configs.qwen2_1_5b", "configs.gemma3_12b"):
         assert f"repro_torch.{mod}" in names
 
 
