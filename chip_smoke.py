@@ -49,21 +49,28 @@ Phases:
            ``l2_rows`` (d 50), ``adc_rows`` (m 25) and ``robust_prune_fp``
            (d 50) against their plain versions and timed (added to their
            records' ``by_shape``);
-  lm       the dense decoder LMs (qwen3-14b, qwen2-1.5b, gemma3-12b; no
-           kernel of their own): (a) one pattern group at full width in
-           f32, weights drawn on the card and copied to the CPU, a prefill
-           (B 1 x S 512; gemma3 S 2048, past its 1,024-token window) and 8
-           greedy decode steps from the placed caches, logits and caches
-           held against the CPU; (b) decode against forward at full width
-           and depth in f32 (B 1, S 256, 256 steps from ``init_cache``);
-           (c) the cells in bf16 at full width and depth through
-           ``make_lm_prefill_step`` / ``make_lm_decode_step``:
-           prefill_32k (B 1 / 4 / 2 of the published 32; TTFT, tokens/s,
-           16 greedy tokens' ms), decode_32k (B 8 / 64 / 16 of the
-           published 128, caches drawn for positions 0..S-17; p50 ms a
-           step against its byte bound) and gemma3's long_500k (B 1 x
-           524,288); finite logits and peak memory under 80 GiB
-           asserted; ``torch.argmax``'s first-maximum rule on ties;
+  lm       the decoder LMs, dense (qwen3-14b, qwen2-1.5b, gemma3-12b) and
+           MoE (mixtral-8x7b, qwen3-moe-30b-a3b; no kernel of their own):
+           (a) one pattern group at full width in f32, weights drawn on
+           the card and copied to the CPU, a prefill (B 1 x S 512; gemma3
+           S 1280, past its 1,024-token window) and 8 greedy decode steps
+           from the placed caches, logits and caches held against the CPU
+           (MoE: expert choices and drop masks too, top-K sets differing
+           only at near ties); (b) decode against forward at full width
+           in f32 (B 1 from ``init_cache``), at full depth and S 128 (128
+           steps) for the dense archs, at 4 / 8 layers and S 256 for
+           mixtral / qwen3-moe against a forward that drops nothing; (c)
+           the cells in bf16 at full width through
+           ``make_lm_prefill_step`` / ``make_lm_decode_step``, at full
+           depth but mixtral's (16 of its 32 layers): prefill_32k (B 1
+           / 4 / 2 / 1 / 1 of the published 32; TTFT, tokens/s, 16
+           greedy tokens' ms),
+           decode_32k (B 8 / 64 / 16 / 64 / 4 of the published 128,
+           caches drawn for positions 0..S-18; p50 ms a step against its
+           byte bound, MoE against the experts its tokens select and all
+           of them) and the windowed archs' long_500k (B 1 x 524,288);
+           finite logits and peak memory under 80 GiB asserted;
+           ``torch.argmax``'s first-maximum rule on ties;
   main     bootstrap_system (points labelled with the selectivity ladder
            of tests/test_filtered.py and 4 tenants) -> 1 % deletes ->
            labelled streaming inserts with RW->RO
@@ -1868,21 +1875,40 @@ def phase_recsys(seed: int) -> tuple[dict, dict]:
 
 
 # --------------------------------------------------------------- lm phase
-LM_ARCHS = ("qwen3-14b", "qwen2-1.5b", "gemma3-12b")
+LM_ARCHS = ("qwen3-14b", "qwen2-1.5b", "gemma3-12b", "mixtral-8x7b",
+            "qwen3-moe-30b-a3b")
 # (a) card against CPU, one pattern group in f32: the prompt lengths
-# (gemma3's 2,048 puts its 1,024-token window in effect) and greedy steps.
-LM_PARITY_LEN = {"qwen3-14b": 512, "qwen2-1.5b": 512, "gemma3-12b": 2048}
+# (gemma3's 1,280 puts its 1,024-token window in effect) and greedy steps.
+LM_PARITY_LEN = {"qwen3-14b": 512, "qwen2-1.5b": 512, "gemma3-12b": 1280,
+                 "mixtral-8x7b": 512, "qwen3-moe-30b-a3b": 512}
 LM_PARITY_STEPS = 8
-# (b) the reference's test_decode_matches_forward at full width and depth.
-LM_DEPTH_LEN = 256
-# (c) the cells in bf16 at full width and depth.  Batches cut from the
-# published 32 (prefill_32k) and 128 (decode_32k) to what one 80 GB card
-# holds beside the weights; long_500k runs uncut where the arch has it.
+# A top-K set may differ between card and CPU only where the K-th and
+# (K+1)-th router probabilities lie this close (a near tie).
+LM_ROUTER_TIE = 1e-5
+# (b) the reference's test_decode_matches_forward at full width: full
+# depth, but the MoE archs cut to the layers whose f32 weights fit one card
+# (mixtral's 4 of 32 are 22.5 GB, qwen3-moe's 8 of 48 19.3 GB); prompt
+# lengths (= steps): the dense archs' cut from 256 to 128 to keep the whole
+# script within 900 s on the card.
+LM_DEPTH_LEN = {"qwen3-14b": 128, "qwen2-1.5b": 128,
+                "gemma3-12b": 128, "mixtral-8x7b": 256,
+                "qwen3-moe-30b-a3b": 256}
+LM_DEPTH_LAYERS = {"mixtral-8x7b": 4, "qwen3-moe-30b-a3b": 8}
+# (c) the cells in bf16 at full width, at full depth but mixtral's (its
+# 32 layers are 93.4 GB; 16 are 46.96 GB).  Batches cut from the published
+# 32 (prefill_32k) and 128 (decode_32k) to what one 80 GB card holds beside
+# the weights; long_500k runs uncut where the arch has it.
 LM_SEQ = 32_768
 LM_LONG = 524_288
-LM_PREFILL_BATCH = {"qwen3-14b": 1, "qwen2-1.5b": 4, "gemma3-12b": 2}
-LM_DECODE_BATCH = {"qwen3-14b": 8, "qwen2-1.5b": 64, "gemma3-12b": 16}
+LM_CELL_LAYERS = {"mixtral-8x7b": 16}
+LM_PREFILL_BATCH = {"qwen3-14b": 1, "qwen2-1.5b": 4, "gemma3-12b": 2,
+                    "mixtral-8x7b": 1, "qwen3-moe-30b-a3b": 1}
+LM_DECODE_BATCH = {"qwen3-14b": 8, "qwen2-1.5b": 64, "gemma3-12b": 16,
+                   "mixtral-8x7b": 64, "qwen3-moe-30b-a3b": 4}
 LM_NEW_TOKENS = 16
+# An MoE layer's expert stacks (read whole or by the experts a step
+# selects): the leaves the decode cells' byte bounds count apart.
+MOE_EXPERTS = ("moe.w_gate", "moe.w_up", "moe.w_down")
 # H100 SXM dense bf16 peak (NVIDIA data sheet, at 700 W).
 BF16_FLOP_PER_S = 989e12
 
@@ -1905,16 +1931,20 @@ def place_caches(cfg, pre, batch: int, max_len: int, device) -> list:
 
 
 def _params_to(params: dict, device) -> dict:
-    return {k: ([{n: t.to(device) for n, t in bp.items()} for bp in v]
-                if k == "blocks" else v.to(device))
-            for k, v in params.items()}
+    from repro_torch.models import transformer as tf
+    out: dict = {}
+    for name, t in tf.param_items(params):
+        tf.set_param(out, name, t.to(device))
+    return out
 
 
 def _param_bytes(params: dict, skip=("embed",)) -> int:
-    n = sum(t.numel() * t.element_size()
-            for k, t in params.items() if k != "blocks" and k not in skip)
-    return n + sum(t.numel() * t.element_size()
-                   for bp in params["blocks"] for t in bp.values())
+    """Bytes of the parameters but those whose dotted name is or ends in
+    an entry of ``skip``."""
+    from repro_torch.models import transformer as tf
+    return sum(t.numel() * t.element_size()
+               for name, t in tf.param_items(params)
+               if not any(name == k or name.endswith("." + k) for k in skip))
 
 
 def _tokens_vs_cpu(got, want, logits, what: str) -> int:
@@ -1933,47 +1963,162 @@ def _tokens_vs_cpu(got, want, logits, what: str) -> int:
     return int(rows.numel())
 
 
+def _routes_vs_cpu(got: list, want: list, cfg, B: int, S: int,
+                   what: str) -> tuple:
+    """A prefill's MoE routing on the card (``moe.Routing`` a layer)
+    against the CPU's: top-K sets equal but at near ties (the CPU's K-th
+    less (K+1)-th router probability under ``LM_ROUTER_TIE``), and drop
+    masks equal in every dispatch group that holds no differing set (a
+    set that differs may move a later token of its group past capacity).
+    Returns (positions whose set differs, the batch rows holding one,
+    assignments the CPU dropped)."""
+    import torch
+    check(len(got) == len(want), f"{what}: routed layers differ")
+    n_diff, dropped = 0, 0
+    rows = torch.zeros(B, dtype=torch.bool)
+    for li, (a, b) in enumerate(zip(got, want)):
+        n_s = cfg.moe_cfg(S).n_groups
+        diff = (a.experts.cpu().sort(-1).values
+                != b.experts.sort(-1).values).any(-1)          # [B, S]
+        check(bool((b.margin[diff] < LM_ROUTER_TIE).all()),
+              f"{what} layer {li}: top-K sets differ from the CPU's off "
+              f"near ties")
+        same = ~diff.view(diff.shape[0], n_s, -1).any(-1, keepdim=True)
+        same = same.expand(-1, -1, S // n_s).reshape(diff.shape)
+        check(torch.equal(a.kept.cpu()[same], b.kept[same]),
+              f"{what} layer {li}: drop masks differ from the CPU's")
+        n_diff += int(diff.sum())
+        dropped += int((~b.kept).sum())
+        rows |= diff.any(-1)
+    return n_diff, rows, dropped
+
+
+def prefill_vs_f64(params: dict, cpu_params: dict, toks, cfg,
+                   card: tuple | None = None,
+                   cpu: tuple | None = None) -> dict:
+    """(a)'s prefill of ``toks`` (the last position's logits and every
+    cache) on the card (``params``) and on the CPU (``cpu_params``) --
+    ``card`` and ``cpu`` as (logits, caches) where they have run -- each
+    run once more, and an f64 prefill on the CPU of the card's weights
+    copied afresh (its attention products f32: good to ~1e-6 of the
+    logits' scale).  Returns the max abs differences card-CPU, each
+    device against its second run and against f64, and, at the element
+    where card and CPU differ most, the CPU's value and each device's
+    error against f64."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import transformer as tf
+
+    def run(p, cfg_):
+        lg, _, pre = tf.forward(p, toks.to(p["embed"].device), cfg_,
+                                collect_cache=True, last_only=True)
+        return lg[:, -1], pre
+
+    def flat(out):
+        ts = [out[0]] + [c[k] for c in out[1] for k in ("k", "v")]
+        return torch.cat([t.detach().double().cpu().flatten() for t in ts])
+
+    got = flat(card or run(params, cfg))
+    want = flat(cpu or run(cpu_params, cfg))
+    again = flat(run(params, cfg)), flat(run(cpu_params, cfg))
+    p64: dict = {}
+    for n, t in tf.param_items(params):
+        t = t.cpu()
+        tf.set_param(p64, n, t.double() if t.is_floating_point() else t)
+    ref = flat(run(p64, dataclasses.replace(cfg, dtype="float64")))
+    i = int((got - want).abs().argmax())
+    return dict(card_cpu=float((got - want).abs().max()),
+                card_again=float((again[0] - got).abs().max()),
+                cpu_again=float((again[1] - want).abs().max()),
+                card_f64=float((got - ref).abs().max()),
+                cpu_f64=float((want - ref).abs().max()),
+                worst_want=float(want[i]),
+                worst_card_f64=float(got[i] - ref[i]),
+                worst_cpu_f64=float(want[i] - ref[i]))
+
+
+def _prefill_diagnosis(*args) -> str:
+    """``prefill_vs_f64`` for a failed prefill check's message, with the
+    settings that decide the f32 arithmetic.  The check fails whatever
+    it says: it only tells which side moved."""
+    import torch
+    try:
+        d = prefill_vs_f64(*args)
+    except Exception as e:                     # the check fails regardless
+        return f"diagnosis failed: {type(e).__name__}: {e}"
+    return (f"diagnosis: each device run again differs by "
+            f"{d['card_again']:.3g} (card) and {d['cpu_again']:.3g} (CPU); "
+            f"against an f64 prefill the card errs {d['card_f64']:.3g} "
+            f"({d['worst_card_f64']:.3g} at the worst element), the CPU "
+            f"{d['cpu_f64']:.3g} ({d['worst_cpu_f64']:.3g}); torch "
+            f"{torch.__version__}, CPU "
+            f"{torch.backends.cpu.get_cpu_capability()} x "
+            f"{torch.get_num_threads()} threads, allow_tf32 "
+            f"{torch.backends.cuda.matmul.allow_tf32}")
+
+
 def lm_card_vs_cpu(name: str, cfg, S: int, steps: int, seed: int,
                    dev) -> dict:
     """(a) One pattern group of ``cfg`` (full width) in f32: weights drawn
     on ``dev`` and copied to the CPU; a prefill of an ``lm_token_stream``
-    prompt of B 1 x S through ``make_lm_prefill_step`` (last-position
-    logits and every cache to ``_tolerance``), the caches placed into
-    ``init_cache(1, S + steps)``, then ``steps`` greedy decode steps on
-    each device, both fed the CPU's token: logits to ``_tolerance``,
-    tokens equal off near ties."""
+    prompt of B 1 x S (``forward`` with ``collect_cache`` and
+    ``last_only``, as ``make_lm_prefill_step``, recording MoE routing):
+    expert choices and drop masks by ``_routes_vs_cpu``, last-position
+    logits (of the rows without a differing top-K set) and every cache
+    to ``_tolerance``; the caches placed into ``init_cache(1, S +
+    steps)``, then ``steps`` greedy decode steps on each device, both fed
+    the CPU's token: logits to ``_tolerance``, tokens equal off near
+    ties."""
     import torch
     from repro_torch.data.pipelines import lm_token_stream
     from repro_torch.models import transformer as tf
-    from repro_torch.serving.steps import (make_lm_decode_step,
-                                           make_lm_prefill_step)
+    from repro_torch.serving.steps import make_lm_decode_step
     t0 = time.perf_counter()
     params = tf.init_params(
         cfg, torch.Generator(device=dev).manual_seed(seed), dev)
     cpu_params = _params_to(params, "cpu")
     toks = torch.from_numpy(
         next(lm_token_stream(1, S, cfg.vocab, seed))["tokens"])
-    prefill, decode = make_lm_prefill_step(cfg), make_lm_decode_step(cfg)
+    decode = make_lm_decode_step(cfg)
+
+    def prefill(p, t, routes):
+        lg, _, pre = tf.forward(p, t, cfg, collect_cache=True,
+                                last_only=True, routing=routes)
+        return lg[:, -1], pre
+
     t_draw = time.perf_counter() - t0
     t_cpu = time.perf_counter()
-    lg_c, pre_c = prefill(cpu_params, toks)
+    routes_c, routes = [], []
+    lg_c, pre_c = prefill(cpu_params, toks, routes_c)
     t_cpu = time.perf_counter() - t_cpu
-    lg, pre = prefill(params, toks.to(dev))
-    err = _card_vs_cpu(lg, lg_c, f"{name} prefill logits")
-    for pi, (a, b) in enumerate(zip(pre, pre_c)):
-        for key in ("k", "v"):
-            rows = a[key].shape[0] * a[key].shape[1] * a[key].shape[2]
-            err = max(err, _card_vs_cpu(a[key].reshape(rows, -1),
-                                        b[key].reshape(rows, -1),
-                                        f"{name} prefill cache {pi} {key}"))
-        check(torch.equal(a["pos"].cpu(), b["pos"]),
-              f"{name} prefill cache {pi}: positions differ")
+    lg, pre = prefill(params, toks.to(dev), routes)
+    n_tied, tied_rows, dropped = _routes_vs_cpu(routes, routes_c, cfg, 1, S,
+                                                f"{name} prefill")
+    held = torch.nonzero(~tied_rows).flatten()
+    try:
+        err = (_card_vs_cpu(lg.cpu()[held], lg_c[held],
+                            f"{name} prefill logits")
+               if held.numel() else 0.0)
+        for pi, (a, b) in enumerate(zip(pre, pre_c)):
+            for key in ("k", "v"):
+                rows = a[key].shape[0] * a[key].shape[1] * a[key].shape[2]
+                err = max(err, _card_vs_cpu(
+                    a[key].reshape(rows, -1), b[key].reshape(rows, -1),
+                    f"{name} prefill cache {pi} {key}"))
+            check(torch.equal(a["pos"].cpu(), b["pos"]),
+                  f"{name} prefill cache {pi}: positions differ")
+    except PhaseError as e:
+        why = _prefill_diagnosis(params, cpu_params, toks, cfg, (lg, pre),
+                                 (lg_c, pre_c))
+        raise PhaseError(f"{e}; {why}") from None
     caches = place_caches(cfg, pre, 1, S + steps, dev)
     caches_c = place_caches(cfg, pre_c, 1, S + steps, "cpu")
     del pre, pre_c
     tok = torch.argmax(lg_c, dim=-1).to(torch.int32)
-    n_diff = _tokens_vs_cpu(torch.argmax(lg, dim=-1), tok, lg_c,
-                            f"{name} prefill")
+    n_diff = (_tokens_vs_cpu(torch.argmax(lg, dim=-1).cpu()[held], tok[held],
+                             lg_c[held], f"{name} prefill")
+              if held.numel() else 0)
     t_dec = 0.0
     for t in range(steps):
         nt, lg, caches = decode(params, caches, tok.to(dev), S + t)
@@ -1983,20 +2128,34 @@ def lm_card_vs_cpu(name: str, cfg, S: int, steps: int, seed: int,
         err = max(err, _card_vs_cpu(lg, lg_c, f"{name} decode step {t}"))
         n_diff += _tokens_vs_cpu(nt, tok, lg_c, f"{name} decode step {t}")
     secs = time.perf_counter() - t0
+    moe = (f"; MoE routing: {n_tied} positions' top-K sets differ (near "
+           f"ties only, left out of the logits check), drop masks equal, "
+           f"{dropped} of {S * cfg.moe_top_k * cfg.n_layers} assignments "
+           f"dropped" if cfg.is_moe else "")
     log(f"[lm] (a) {name}: {cfg.n_layers} layers f32, B 1 x S {S} prefill "
         f"+ {steps} greedy steps, card vs CPU max err {err:.3g} (logits "
-        f"and caches), {n_diff} tokens differ (near ties only); {secs:.1f} s"
-        f" (weights drawn and copied {t_draw:.1f} s, the CPU's prefill "
-        f"{t_cpu:.1f} s and decode {t_dec / steps:.2f} s a step)")
+        f"and caches), {n_diff} tokens differ (near ties only){moe}; "
+        f"{secs:.1f} s (weights drawn and copied {t_draw:.1f} s, the CPU's "
+        f"prefill {t_cpu:.1f} s and decode {t_dec / steps:.2f} s a step)")
     del params, cpu_params, caches, caches_c
-    return dict(max_err=err, tokens_differing=n_diff, seconds=secs,
-                cpu_prefill_s=t_cpu, cpu_decode_s_per_step=t_dec / steps)
+    out = dict(max_err=err, tokens_differing=n_diff, seconds=secs,
+               cpu_prefill_s=t_cpu, cpu_decode_s_per_step=t_dec / steps)
+    if cfg.is_moe:
+        out.update(topk_sets_differing=n_tied, dropped=dropped)
+    return out
+
+
+def _dropped(routes: list) -> int:
+    return sum(int((~r.kept).sum()) for r in routes)
 
 
 def lm_decode_vs_forward(name: str, cfg, S: int, seed: int, dev) -> dict:
     """(b) The reference's ``test_decode_matches_forward`` for ``cfg``:
     ``forward`` over B 1 x S against S ``decode_step``s from
-    ``init_cache``; the last logits to ``_tolerance``."""
+    ``init_cache``; the last logits to ``_tolerance``.  Decoding never
+    drops an MoE assignment, so an MoE config's forward runs at a capacity
+    factor (E / K) where nothing drops, and the assignments ``cfg``'s own
+    forward drops at S are counted (decode is not held against it)."""
     import torch
     from repro_torch.data.pipelines import lm_token_stream
     from repro_torch.models import transformer as tf
@@ -2004,23 +2163,37 @@ def lm_decode_vs_forward(name: str, cfg, S: int, seed: int, dev) -> dict:
         cfg, torch.Generator(device=dev).manual_seed(seed), dev)
     toks = torch.from_numpy(
         next(lm_token_stream(1, S, cfg.vocab, seed + 1))["tokens"]).to(dev)
+    no_drop = (dataclasses.replace(cfg, moe_cf=cfg.moe_experts
+                                   / cfg.moe_top_k) if cfg.is_moe else cfg)
+    routes: list = []
     t0 = time.perf_counter()
-    want, _, _ = tf.forward(params, toks, cfg, last_only=True)
+    want, _, _ = tf.forward(params, toks, no_drop, last_only=True,
+                            routing=routes)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    check(_dropped(routes) == 0, f"{name}: the no-drop forward dropped")
     caches = tf.init_cache(cfg, 1, S, dev)
     for t in range(S):
         got, caches = tf.decode_step(params, caches, toks[:, t], t, cfg)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     err = _card_vs_cpu(got, want[:, -1].cpu(), f"{name} decode vs forward")
+    out = dict(max_err=err, forward_ms=(t1 - t0) * 1e3,
+               decode_ms_per_step=(t2 - t1) / S * 1e3)
+    moe = ""
+    if cfg.is_moe:
+        routes = []
+        tf.forward(params, toks, cfg, last_only=True, routing=routes)
+        out["forward_dropped"] = _dropped(routes)
+        moe = (f" (forward at cf {no_drop.moe_cf:g}, nothing dropped; at cf "
+               f"{cfg.moe_cf:g} it drops {out['forward_dropped']} of "
+               f"{S * cfg.moe_top_k * cfg.n_layers} assignments)")
     log(f"[lm] (b) {name}: {cfg.n_layers} layers f32, B 1 x S {S}: "
-        f"{S} decode steps vs forward, max err {err:.3g}; forward "
+        f"{S} decode steps vs forward{moe}, max err {err:.3g}; forward "
         f"{(t1 - t0) * 1e3:.1f} ms, decode {(t2 - t1) / S * 1e3:.2f} ms a "
         f"step")
     del params, caches
-    return dict(max_err=err, forward_ms=(t1 - t0) * 1e3,
-                decode_ms_per_step=(t2 - t1) / S * 1e3)
+    return out
 
 
 def _reset_peak() -> None:
@@ -2047,21 +2220,39 @@ def _greedy(decode, params, caches, tok, pos0: int, n: int, dev):
     return [a.elapsed_time(b) for a, b in ev], bool(finite), caches
 
 
-def prefill_flops(cfg, B: int, S: int) -> float:
+def moe_rows(cfg, B: int, S: int) -> tuple:
+    """One MoE layer over B x S: (assignments routed, B * S * K; rows each
+    expert product computes, B * n_s * E * C: the padded dispatch
+    buffer)."""
+    from repro_torch.models.moe import capacity
+    m = cfg.moe_cfg(S)
+    return (B * S * cfg.moe_top_k,
+            B * m.n_groups * cfg.moe_experts * capacity(m, S // m.n_groups))
+
+
+def prefill_flops(cfg, B: int, S: int) -> tuple:
     """Operations of a prefill of B x S: 2 per weight per token in the
-    layers, the head at the last position, and QK^T and PV over the
-    (query, key) pairs each layer's mask keeps."""
+    layers (an MoE layer's experts: 2 x 3 x D x F per row they take), the
+    head at the last position, and QK^T and PV over the (query, key) pairs
+    each layer's mask keeps.  Returns (as computed, with the MoE dispatch
+    buffer's padding; the active count, assignments only): equal for a
+    dense model."""
     from repro_torch.models import transformer as tf
     D, H, dh = cfg.d_model, cfg.n_heads, cfg.d_head
-    per_layer = sum(int(np.prod(shape)) for shape, _, _ in
-                    tf.block_layout(cfg).values())
+    per_layer = sum(int(np.prod(shape)) for name, (shape, _, _) in
+                    tf.block_layout(cfg).items()
+                    if name not in MOE_EXPERTS)
     flops = 2 * B * S * per_layer * cfg.n_layers + 2 * B * D * cfg.vocab
     for kind in cfg.pattern:
         w = cfg.window if kind == "l" else 0
         pairs = (S * (S + 1) // 2 if not w or w >= S
                  else w * (w + 1) // 2 + (S - w) * w)
         flops += cfg.n_groups * 4 * B * H * dh * pairs
-    return float(flops)
+    if not cfg.is_moe:
+        return float(flops), float(flops)
+    per_row = 2 * 3 * D * cfg.moe_d_ff * cfg.n_layers
+    active, computed = moe_rows(cfg, B, S)
+    return float(flops + computed * per_row), float(flops + active * per_row)
 
 
 def fill_caches(caches, gen, n_filled: int) -> None:
@@ -2079,17 +2270,21 @@ def fill_caches(caches, gen, n_filled: int) -> None:
 
 
 def lm_cells_run(name: str, seed: int, dev) -> dict:
-    """(c) The arch's FULL config (bf16) through the two serve steps.
+    """(c) The arch's FULL config (bf16; ``LM_CELL_LAYERS`` cuts its
+    depth) through the two serve steps.
 
     prefill_32k: an ``lm_token_stream`` batch of ``LM_PREFILL_BATCH`` x S
-    prefilled (time to first token, prefill tokens/s, its FLOP bound), the
-    caches placed into ``init_cache(B, S + LM_NEW_TOKENS)``, then
-    ``LM_NEW_TOKENS`` greedy tokens (ms per output token).  decode_32k
-    (and long_500k where the arch has it): caches of ``LM_DECODE_BATCH``
-    x S (1 x ``LM_LONG``) filled from a seeded draw for positions
-    0..S-17, then 16 timed steps (p50 ms, tokens/s, the byte bound:
-    weights read + KV read over 3.35 TB/s).  Asserted: finite logits,
-    peak memory under 80 GiB."""
+    prefilled (time to first token, prefill tokens/s, its FLOP bound:
+    ``prefill_flops``), the caches placed into ``init_cache(B, S +
+    LM_NEW_TOKENS)``, then ``LM_NEW_TOKENS`` greedy tokens (ms per output
+    token).  decode_32k (and long_500k where the arch has it): caches of
+    ``LM_DECODE_BATCH`` x S (1 x ``LM_LONG``) filled from a seeded draw
+    for positions 0..S-18, one untimed step at S-17 recording the MoE
+    routing, then 16 timed steps (p50 ms, tokens/s, the byte bound: the
+    weights but the embedding read whole, the tokens' embedding rows and
+    the KV over 3.35 TB/s; an MoE arch's also with only the experts that
+    step selected, distinct ones a layer).  Asserted: finite logits, peak
+    memory under 80 GiB."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data.pipelines import lm_token_stream
@@ -2098,16 +2293,23 @@ def lm_cells_run(name: str, seed: int, dev) -> dict:
                                            make_lm_prefill_step)
     arch = get_arch(name)
     cfg, long_cell = arch.full_config, arch.cell("long_500k")
+    cfg = dataclasses.replace(cfg, n_layers=LM_CELL_LAYERS.get(
+        name, cfg.n_layers))
     S, new_tokens = LM_SEQ, LM_NEW_TOKENS
     gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
     params = tf.init_params(cfg, gen, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    w_bytes = _param_bytes(params)
+    # bytes a decode step reads whole; an MoE layer's experts counted apart
+    w_bytes = _param_bytes(params, skip=("embed",) + MOE_EXPERTS)
+    esize = params["embed"].element_size()
+    expert_bytes = 3 * cfg.d_model * cfg.moe_d_ff * esize
     prefill, decode = make_lm_prefill_step(cfg), make_lm_decode_step(cfg)
-    out = {"init_s": init_s,
+    out = {"layers": cfg.n_layers, "init_s": init_s,
            "weights_gib": _param_bytes(params, skip=()) / 2**30}
+    cut = (f", {cfg.n_layers} of its {arch.full_config.n_layers} layers"
+           if cfg.n_layers != arch.full_config.n_layers else "")
 
     # ---- prefill_32k ------------------------------------------------
     B = LM_PREFILL_BATCH[name]
@@ -2130,16 +2332,24 @@ def lm_cells_run(name: str, seed: int, dev) -> dict:
     check(finite, f"{name} prefill_32k decode: non-finite logits")
     peak = torch.cuda.max_memory_allocated() / 2**30
     check(peak < 80, f"{name} prefill_32k: peak {peak:.2f} GiB")
-    flop_ms = prefill_flops(cfg, B, S) / BF16_FLOP_PER_S * 1e3
+    flops, active = prefill_flops(cfg, B, S)
+    flop_ms = flops / BF16_FLOP_PER_S * 1e3
     out["prefill_32k"] = dict(
         batch=B, seq=S, ttft_s=ttft, prefill_tokens_per_s=B * S / ttft,
         ms_per_output_token=float(np.median(ms)), peak_gib=peak,
-        flop_bound_ms=flop_ms)
-    log(f"[lm] (c) {name} prefill_32k B {B} (published 32) x S {S}: TTFT "
-        f"{ttft * 1e3:.1f} ms ({B * S / ttft:.0f} tokens/s; FLOP bound "
-        f"{flop_ms:.1f} ms at 989 TFLOP/s), then {new_tokens} greedy "
-        f"tokens p50 {np.median(ms):.3f} ms a token (min {min(ms):.3f}, "
-        f"max {max(ms):.3f}); peak {peak:.2f} GiB")
+        flop_bound_ms=flop_ms,
+        active_flop_bound_ms=active / BF16_FLOP_PER_S * 1e3)
+    moe = ""
+    if cfg.is_moe:
+        assigned, slots = moe_rows(cfg, B, S)
+        moe = (f"; active FLOP bound {active / BF16_FLOP_PER_S * 1e3:.1f} "
+               f"ms, the dispatch buffer's {slots} rows an expert product "
+               f"for {assigned} assignments")
+    log(f"[lm] (c) {name}{cut} prefill_32k B {B} (published 32) x S {S}: "
+        f"TTFT {ttft * 1e3:.1f} ms ({B * S / ttft:.0f} tokens/s; FLOP "
+        f"bound {flop_ms:.1f} ms at 989 TFLOP/s{moe}), then {new_tokens} "
+        f"greedy tokens p50 {np.median(ms):.3f} ms a token (min "
+        f"{min(ms):.3f}, max {max(ms):.3f}); peak {peak:.2f} GiB")
     del caches, lg, toks
 
     # ---- decode_32k, long_500k ----------------------------------------
@@ -2151,29 +2361,44 @@ def lm_cells_run(name: str, seed: int, dev) -> dict:
     for cell, Bd, Sd in cells:
         _reset_peak()
         caches = tf.init_cache(cfg, Bd, Sd, dev)
-        fill_caches(caches, gen, Sd - new_tokens)
+        fill_caches(caches, gen, Sd - new_tokens - 1)
         kv_bytes = sum(c[k].numel() * c[k].element_size()
                        for c in caches for k in ("k", "v"))
         tok = torch.randint(1, cfg.vocab - 1, (Bd,), generator=gen,
                             device=dev, dtype=torch.int32)
+        routes: list = []
+        tf.decode_step(params, caches, tok, Sd - new_tokens - 1, cfg,
+                       routing=routes)
+        distinct = [int(torch.unique(r.experts).numel()) for r in routes]
         ms, finite, caches = _greedy(decode, params, caches, tok,
                                      Sd - new_tokens, new_tokens, dev)
         check(finite, f"{name} {cell}: non-finite logits")
         peak = torch.cuda.max_memory_allocated() / 2**30
         check(peak < 80, f"{name} {cell}: peak {peak:.2f} GiB")
         p50 = float(np.median(ms))
-        bound = (w_bytes + Bd * cfg.d_model * params["embed"].element_size()
-                 + kv_bytes) / HBM_BYTES_PER_S * 1e3
+        read = w_bytes + Bd * cfg.d_model * esize + kv_bytes
+        n_experts = cfg.n_layers * cfg.moe_experts
+        bound = (read + n_experts * expert_bytes) / HBM_BYTES_PER_S * 1e3
         out[cell] = dict(batch=Bd, seq=Sd, p50_ms=p50,
                          tokens_per_s=Bd / p50 * 1e3, byte_bound_ms=bound,
                          kv_gib=kv_bytes / 2**30, peak_gib=peak,
                          ms=[round(x, 4) for x in ms])
-        log(f"[lm] (c) {name} {cell} B {Bd} x S {Sd}: p50 {p50:.3f} ms a "
-            f"step (min {min(ms):.3f}, max {max(ms):.3f}), "
-            f"{Bd / p50 * 1e3:.0f} tokens/s; byte bound {bound:.2f} ms "
-            f"(weights {w_bytes / 1e9:.2f} GB + KV {kv_bytes / 1e9:.2f} GB "
-            f"at 3.35 TB/s), {bound / p50 * 100:.1f} % of it; peak "
-            f"{peak:.2f} GiB")
+        weights = (read - kv_bytes + n_experts * expert_bytes) / 1e9
+        what = (f"byte bound {bound:.2f} ms (weights {weights:.2f} GB + KV "
+                f"{kv_bytes / 1e9:.2f} GB at 3.35 TB/s), "
+                f"{bound / p50 * 100:.1f} % of it")
+        if cfg.is_moe:
+            sel = (read + sum(distinct) * expert_bytes) / HBM_BYTES_PER_S * 1e3
+            out[cell].update(selected_bound_ms=sel,
+                             distinct_experts_per_layer=float(
+                                 np.mean(distinct)))
+            what = (f"byte bound with the experts its tokens select "
+                    f"{sel:.2f} ms ({np.mean(distinct):.1f} distinct of "
+                    f"{cfg.moe_experts} a layer), {sel / p50 * 100:.1f} % of "
+                    f"it; with all experts: {what}")
+        log(f"[lm] (c) {name}{cut} {cell} B {Bd} x S {Sd}: p50 {p50:.3f} ms "
+            f"a step (min {min(ms):.3f}, max {max(ms):.3f}), "
+            f"{Bd / p50 * 1e3:.0f} tokens/s; {what}; peak {peak:.2f} GiB")
         del caches
     del params
     _reset_peak()
@@ -2196,11 +2421,11 @@ def _argmax_ties(dev) -> None:
 
 
 def phase_lm(seed: int) -> dict:
-    """The dense LMs (qwen3-14b, qwen2-1.5b, gemma3-12b) on the card: (a)
-    one pattern group at full width against the CPU, (b) decode against
-    forward at full width and depth in f32, (c) the cells in bf16 at full
-    width and depth (``LM_*`` sizes; cuts printed).  Returns the figures
-    by arch."""
+    """The LMs (``LM_ARCHS``: three dense, two MoE) on the card: (a) one
+    pattern group at full width against the CPU, (b) decode against
+    forward at full width in f32, (c) the cells in bf16 at full width
+    (``LM_*`` sizes and depth cuts; cuts printed).  Returns the figures by
+    arch."""
     import dataclasses
 
     import torch
@@ -2218,8 +2443,10 @@ def phase_lm(seed: int) -> dict:
             name, one, LM_PARITY_LEN[name], LM_PARITY_STEPS, seed + i, dev)
         _reset_peak()
         res["decode_vs_forward"] = lm_decode_vs_forward(
-            name, dataclasses.replace(full, dtype="float32"), LM_DEPTH_LEN,
-            seed + i, dev)
+            name, dataclasses.replace(full, dtype="float32",
+                                      n_layers=LM_DEPTH_LAYERS.get(
+                                          name, full.n_layers)),
+            LM_DEPTH_LEN[name], seed + i, dev)
         _reset_peak()
         res.update(lm_cells_run(name, seed + i, dev))
     out["seconds"] = time.perf_counter() - t_phase

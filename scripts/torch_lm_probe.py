@@ -1,4 +1,4 @@
-"""Probe the dense LMs' plain-PyTorch paths on one NVIDIA GPU.
+"""Probe the LMs' plain-PyTorch paths on one NVIDIA GPU.
 
     python3 scripts/torch_lm_probe.py
 
@@ -14,6 +14,16 @@ Prints the card's name and power limit, then one JSON line with:
   of its 40 layers (B 1, a 4,096-slot cache): wall ms a step (host clock
   around synchronised steps) and the device's busy ms a step
   (torch.profiler's CUDA kernel time), so the host's share;
+  ``moe_decode`` the same for qwen3-moe-30b-a3b at 8 of its 48 layers and
+  B 4 (decode_32k's batch);
+* ``moe``: one qwen3-moe-30b-a3b MoE FFN layer (``models/moe.py``) in
+  bf16 at prefill_32k's B 1 x S 32,768, ms by part (CUDA events, median
+  of 5): router and top-K (``route``), dispatch (``dispatch``: sort,
+  positions, the buffer's index), expert products (``expert_ffn``: the
+  gather into the padded buffer and three batched GEMMs), combine
+  (``combine``), and the whole ``moe_ffn``; against the FLOP bound of the
+  products over the rows computed (the padded buffer) and over the
+  assignments alone, at 989 TFLOP/s; the assignments capacity dropped;
 * ``attention``: ``chunked_attention`` of one qwen3-14b layer in bf16 at
   B 1 x S 32,768 (CUDA events) against its FLOP bound (QK^T and PV over
   the causal pairs at 989 TFLOP/s);
@@ -27,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -58,16 +69,16 @@ def gemm_errors(dev) -> list:
     return out
 
 
-def decode_share(dev) -> dict:
+def decode_share(dev, name: str, batch: int) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as tf
-    cfg = dataclasses.replace(get_arch("qwen3-14b").full_config, n_layers=8)
+    cfg = dataclasses.replace(get_arch(name).full_config, n_layers=8)
     params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             dev)
-    caches = tf.init_cache(cfg, 1, 4096, dev)
-    tok = torch.ones(1, dtype=torch.int32, device=dev)
+    caches = tf.init_cache(cfg, batch, 4096, dev)
+    tok = torch.arange(1, batch + 1, dtype=torch.int32, device=dev)
     for t in range(3):
         _, caches = tf.decode_step(params, caches, tok, t, cfg)
     torch.cuda.synchronize()
@@ -84,8 +95,56 @@ def decode_share(dev) -> dict:
     busy = sum(e.time_range.elapsed_us() for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA)
     busy = busy / n / 1e3
-    return dict(layers=cfg.n_layers, wall_ms=wall, device_busy_ms=busy,
-                host_share=1 - busy / wall)
+    return dict(arch=name, layers=cfg.n_layers, batch=batch, wall_ms=wall,
+                device_busy_ms=busy, host_share=1 - busy / wall)
+
+
+def moe_parts(dev) -> dict:
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    full = get_arch("qwen3-moe-30b-a3b").full_config
+    S = 32768
+    cfg = full.moe_cfg(S)
+    E, K, D, Fd = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff
+    n_s = cfg.n_groups
+    C = moe.capacity(cfg, S // n_s)
+    g = torch.Generator(device=dev).manual_seed(3)
+    params = {name: (torch.randn(shape, generator=g, device=dev) * std).to(dt)
+              for name, (shape, dt, std) in moe.moe_layout(
+                  cfg, torch.bfloat16).items()}
+    # an rms_norm output: unit scale
+    x = torch.randn(1, S, D, generator=g, device=dev).bfloat16()
+    names = ("route", "dispatch", "expert_ffn", "combine")
+
+    def parts():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        top_e, top_w, _, _ = moe.route(params, x, cfg, n_s)
+        ev[1].record()
+        dst, order, slots = moe.dispatch(top_e.reshape(n_s, -1), cfg, C)
+        ev[2].record()
+        yb = moe.expert_ffn(params, x.reshape(S, D), slots, E)
+        ev[3].record()
+        _, kept = moe.combine(yb, dst, order, top_w, K)
+        ev[4].record()
+        return ev, kept
+
+    runs = []
+    for i in range(7):
+        ev, kept = parts()
+        torch.cuda.synchronize()
+        if i >= 2:
+            runs.append([a.elapsed_time(b) for a, b in zip(ev, ev[1:])])
+    ms = {n: statistics.median(r[j] for r in runs)
+          for j, n in enumerate(names)}
+    ms["moe_ffn"] = _ms(lambda: moe.moe_ffn(params, x, cfg), runs=5)
+    rows = E * n_s * C
+    per_row = 2 * 3 * D * Fd
+    return dict(batch=1, seq=S, groups=n_s, capacity=C,
+                assignments=S * K, rows=rows, dropped=int((~kept).sum()),
+                ms=ms, flop_bound_ms=rows * per_row / 989e12 * 1e3,
+                active_flop_bound_ms=S * K * per_row / 989e12 * 1e3)
 
 
 def attention_time(dev) -> dict:
@@ -153,9 +212,11 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(ident)
-    print(json.dumps(dict(gemm=gemm_errors(dev), decode=decode_share(dev),
-                          attention=attention_time(dev),
-                          scores=score_forms(dev))))
+    print(json.dumps(dict(
+        gemm=gemm_errors(dev), decode=decode_share(dev, "qwen3-14b", 1),
+        moe_decode=decode_share(dev, "qwen3-moe-30b-a3b", 4),
+        moe=moe_parts(dev), attention=attention_time(dev),
+        scores=score_forms(dev))))
     return 0
 
 

@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``get_arch(name)`` /
-``list_archs()`` over the archs ported so far -- the dense decoder LMs, the
-recsys family and the paper's own billion-point deployment config
-(``freshdiskann-1b``).  The reference's other archs raise ``KeyError``
+``list_archs()`` over the archs ported so far -- the decoder LMs (dense
+and MoE), the recsys family and the paper's own billion-point deployment
+config (``freshdiskann-1b``).  The reference's other archs raise ``KeyError``
 naming the ``ROADMAP.md`` item that ports them.
 """
 from __future__ import annotations
@@ -12,6 +12,8 @@ _MODULES = {
     "qwen3-14b": "qwen3_14b",
     "qwen2-1.5b": "qwen2_1_5b",
     "gemma3-12b": "gemma3_12b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b",
     "fm": "fm",
     "xdeepfm": "xdeepfm",
     "sasrec": "sasrec",
@@ -19,10 +21,7 @@ _MODULES = {
     "freshdiskann-1b": "freshdiskann_1b",
 }
 
-_MOE = "ROADMAP.md Queue 1 item 5b (MoE LM serving)"
 _UNPORTED = {
-    "mixtral-8x7b": _MOE,
-    "qwen3-moe-30b-a3b": _MOE,
     "graphsage-reddit": "ROADMAP.md Queue 1 item 6 (GraphSAGE)",
 }
 

@@ -126,10 +126,12 @@ def lm_params(tree, cfg: tf.TransformerConfig, device="cuda") -> dict:
     leaves read with ``np.asarray``; ``blocks`` a list by pattern
     position): each parameter of ``transformer.param_layout(cfg)`` takes
     the value of the leaf at its dotted name (``blocks.0.wq`` is
-    ``tree["blocks"][0]["wq"]``) in the layout's dtype (the activation
-    dtype for weights and biases, f32 for norms), so bf16 leaves and
-    ``lm_to_numpy``'s exact f32 copies of them give the same tensors.  On
-    the card unless ``device`` asks for the CPU."""
+    ``tree["blocks"][0]["wq"]``, ``blocks.0.moe.router`` is
+    ``tree["blocks"][0]["moe"]["router"]``) in the layout's dtype (the
+    activation dtype for weights and biases, f32 for norms and an MoE
+    router), so bf16 leaves and ``lm_to_numpy``'s exact f32 copies of
+    them give the same tensors.  On the card unless ``device`` asks for
+    the CPU."""
     device = resolve_device(device)
     params: dict = {}
     for name, (shape, dtype, _) in tf.param_layout(cfg).items():
@@ -143,14 +145,11 @@ def lm_params(tree, cfg: tf.TransformerConfig, device="cuda") -> dict:
 
 def lm_to_numpy(params: dict) -> dict:
     """The port's LM parameters as the reference's dict of numpy arrays
-    (``blocks`` a list of dicts): f32 leaves as f32, bf16 ones widened to
-    f32 (exactly)."""
-    def arr(t):
+    (``blocks`` a list of dicts, an MoE layer's leaves under ``moe``): f32
+    leaves as f32, bf16 ones widened to f32 (exactly)."""
+    out: dict = {}
+    for name, t in tf.param_items(params):
         t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
-
-    return {"embed": arr(params["embed"]),
-            "lm_head": arr(params["lm_head"]),
-            "final_norm": arr(params["final_norm"]),
-            "blocks": [{n: arr(t) for n, t in bp.items()}
-                       for bp in params["blocks"]]}
+        tf.set_param(out, name, (t.float() if t.dtype == torch.bfloat16
+                                 else t).numpy().copy())
+    return out

@@ -112,17 +112,19 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     product by 2.5e-8.  bf16 keeps the plain product (cuBLAS accumulates
     it in f32).
 
-    On the CPU the f64 copy of ``w`` is made ``CPU_F64_BLOCK`` bytes of
-    columns at a time: a whole one (8 GB for gemma3's head) would be
-    allocated, page by page, on every call."""
+    ``w`` may carry leading batch dims (an expert stack [E, K, N] against
+    x [E, M, K]).  On the CPU the f64 copy of ``w`` is made
+    ``CPU_F64_BLOCK`` bytes of columns at a time: a whole one (8 GB for
+    gemma3's head, 3.7 GB for a mixtral expert stack) would be allocated,
+    page by page, on every call."""
     if x.dtype != torch.float32:
         return x @ w
     xd = x.double()
     if x.is_cuda:
         return (xd @ w.double()).float()
-    cols = max(1, CPU_F64_BLOCK // (8 * w.shape[0]))
-    return torch.cat([(xd @ w[:, i:i + cols].double()).float()
-                      for i in range(0, w.shape[1], cols)], dim=-1)
+    cols = max(1, CPU_F64_BLOCK // (8 * w[..., 0].numel()))
+    return torch.cat([(xd @ w[..., i:i + cols].double()).float()
+                      for i in range(0, w.shape[-1], cols)], dim=-1)
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Decoder-only transformer family: the PyTorch port of the JAX package's
-``models/transformer.py``, serving path (forward values) of the dense
-archs (qwen3-14b, qwen2-1.5b, gemma3-12b).
+``models/transformer.py``, serving path (forward values) of the five LM
+archs: the dense qwen3-14b, qwen2-1.5b and gemma3-12b, and the MoE
+mixtral-8x7b and qwen3-moe-30b-a3b.
 
 The reference's layout is kept:
 
@@ -17,15 +18,20 @@ The reference's layout is kept:
   reference's parameters across by name (``blocks.<pi>.<name>``).
 * Chunked flash-style attention for the prefill (``layers``), GQA,
   qk-norm, QKV bias, RoPE, RMSNorm, SwiGLU per config.
+* **MoE** -- when ``moe_experts > 0`` the FFN is ``moe.moe_ffn``, the
+  group-local top-k capacity dispatch, its parameters under
+  ``blocks.<pi>.moe.<name>`` (the router f32 in any model); ``forward``
+  returns the aux loss summed over layers.  The dispatch group count is
+  ``moe_cfg(S)``'s: a decode step is one group of one token, whose K
+  distinct experts take a slot each, so decoding never drops an
+  assignment, while a prefill may.
 
 The reference's ``jax.checkpoint`` + ``lax.scan`` over groups is a loop
 over groups under ``torch.inference_mode()``; its activation-sharding
 hints (``shard_act``, ``gathered``) are identities on one device and have
 no counterpart.  ``decode_step`` updates the caches it is given in place
 (the reference donates them) and returns them: a cache handed to a step
-is consumed by it.  MoE configs (``moe_experts > 0``) wait for
-``ROADMAP.md`` Queue 1 item 5b: ``init_params``, ``forward``,
-``init_cache`` and ``decode_step`` raise ``NotImplementedError`` for them.
+is consumed by it.
 """
 from __future__ import annotations
 
@@ -37,8 +43,7 @@ import torch
 from ..core.config import resolve_device
 from .layers import (chunked_attention, decode_attention, matmul, rms_norm,
                      rope_apply, rope_tables, swiglu)
-
-MOE_ITEM = "ROADMAP.md Queue 1 item 5b (MoE LM serving)"
+from .moe import MoEConfig, group_count, moe_ffn, moe_layout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +81,15 @@ class TransformerConfig:
     def is_moe(self) -> bool:
         return self.moe_experts > 0
 
+    def moe_cfg(self, seq_len: int) -> MoEConfig:
+        """The MoE FFN's config for a sequence of ``seq_len``: ``moe_groups``
+        dispatch groups, lowered until they divide ``seq_len``."""
+        return MoEConfig(
+            n_experts=self.moe_experts, top_k=self.moe_top_k,
+            d_model=self.d_model, d_ff=self.moe_d_ff,
+            n_groups=group_count(self.moe_groups, seq_len),
+            capacity_factor=self.moe_cf)
+
     @property
     def act_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
@@ -103,21 +117,14 @@ class TransformerConfig:
         return self.n_layers * per_layer + 2 * self.vocab * D + D
 
 
-def _dense_only(cfg: TransformerConfig, what: str) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{what}: {cfg.name} is an MoE config; the MoE FFN is not "
-            f"ported yet ({MOE_ITEM})")
-
-
 # ---------------------------------------------------------------------------
 # Parameters (stacked [n_groups, ...] per pattern position)
 # ---------------------------------------------------------------------------
 
 def block_layout(cfg: TransformerConfig) -> dict:
     """One layer's parameters: name -> (shape, dtype, init std or None for
-    zeros), in the reference's ``_init_block`` names and dtypes."""
-    _dense_only(cfg, "block_layout")
+    zeros), in the reference's ``_init_block`` names and dtypes (an MoE
+    config's FFN as ``moe.<name>``)."""
     D, H, KV, dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.d_head, cfg.d_ff)
     dt, f32 = cfg.act_dtype, torch.float32
@@ -137,9 +144,14 @@ def block_layout(cfg: TransformerConfig) -> dict:
     if cfg.qk_norm:
         p["qnorm"] = ((dh,), f32, None)
         p["knorm"] = ((dh,), f32, None)
-    p["w_gate"] = ((D, F), dt, s)
-    p["w_up"] = ((D, F), dt, s)
-    p["w_down"] = ((F, D), dt, F ** -0.5)
+    if cfg.is_moe:
+        for name, leaf in moe_layout(cfg.moe_cfg(cfg.moe_groups),
+                                     dt).items():
+            p[f"moe.{name}"] = leaf
+    else:
+        p["w_gate"] = ((D, F), dt, s)
+        p["w_up"] = ((D, F), dt, s)
+        p["w_down"] = ((F, D), dt, F ** -0.5)
     return p
 
 
@@ -160,17 +172,20 @@ def param_layout(cfg: TransformerConfig) -> dict:
     return out
 
 
-def set_param(params: dict, name: str, value: torch.Tensor) -> None:
-    """Put ``value`` at dotted ``name`` of a parameter dict."""
+def set_param(params: dict, name: str, value) -> None:
+    """Put ``value`` at dotted ``name`` of a parameter dict
+    (``blocks.<pi>.<name>`` or ``blocks.<pi>.moe.<name>``)."""
     parts = name.split(".")
+    node = params
     if parts[0] == "blocks":
         blocks = params.setdefault("blocks", [])
         pi = int(parts[1])
         while len(blocks) <= pi:
             blocks.append({})
-        blocks[pi][parts[2]] = value
-    else:
-        params[parts[0]] = value
+        node, parts = blocks[pi], parts[2:]
+    for part in parts[:-1]:
+        node = node.setdefault(part, {})
+    node[parts[-1]] = value
 
 
 def get_param(params, name: str):
@@ -182,6 +197,21 @@ def get_param(params, name: str):
     return leaf
 
 
+def param_items(params: dict) -> list:
+    """(dotted name, leaf) of every leaf of a parameter dict, in the names
+    ``set_param`` and ``get_param`` take."""
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            items = node.items()
+        elif isinstance(node, list):
+            items = enumerate(node)
+        else:
+            return [(prefix, node)]
+        return [kv for k, v in items
+                for kv in walk(v, f"{prefix}.{k}" if prefix else str(k))]
+    return walk(params, "")
+
+
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device="cuda") -> dict:
     """Parameters of ``cfg`` with the reference's init scales (normal
@@ -191,7 +221,6 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     On the card unless ``device`` asks for the CPU.  The draws are
     torch's, not ``jax.random``'s: to hold the port against the reference,
     carry the reference's parameters across with ``convert.lm_params``."""
-    _dense_only(cfg, "init_params")
     device = resolve_device(device)
     params: dict = {}
     for name, (shape, dtype, std) in param_layout(cfg).items():
@@ -239,9 +268,17 @@ def _out_proj(x: torch.Tensor, o: torch.Tensor, wo: torch.Tensor):
                       wo.reshape(H * dh, D).to(o.dtype))
 
 
-def _ffn(bp: dict, gi: int, x: torch.Tensor, cfg: TransformerConfig):
+def _ffn(bp: dict, gi: int, x: torch.Tensor, cfg: TransformerConfig,
+         routing: list | None):
+    """x + the FFN of layer ``gi`` of a pattern position, and its aux loss
+    (None for a dense FFN)."""
     h = rms_norm(x, bp["ln2"][gi], cfg.norm_eps)
-    return x + swiglu(h, bp["w_gate"][gi], bp["w_up"][gi], bp["w_down"][gi])
+    if cfg.is_moe:
+        y, aux = moe_ffn({n: t[gi] for n, t in bp["moe"].items()}, h,
+                         cfg.moe_cfg(x.shape[1]), routing)
+        return x + y, aux
+    return x + swiglu(h, bp["w_gate"][gi], bp["w_up"][gi],
+                      bp["w_down"][gi]), None
 
 
 def _head(params: dict, x: torch.Tensor, cfg: TransformerConfig):
@@ -258,25 +295,28 @@ def cache_widths(cfg: TransformerConfig, max_len: int) -> list:
 
 @torch.inference_mode()
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
-            *, collect_cache: bool = False, last_only: bool = False):
+            *, collect_cache: bool = False, last_only: bool = False,
+            routing: list | None = None):
     """tokens [B, S] -> (logits [B, S, V] (or [B, 1, V] with last_only),
-    aux_loss (0.0: dense), caches|None).
+    aux_loss (f32: summed over the MoE layers, 0.0 for a dense model),
+    caches|None).
 
     ``last_only`` computes the head only for the final position (prefill
-    serving: no [B, S, V] tensor).
+    serving: no [B, S, V] tensor).  ``routing``, a list, receives each MoE
+    layer's ``moe.Routing`` in the order the layers run.
 
     caches (prefill): per pattern position, stacked over groups:
       k/v [n_groups, B, W_p, KV, dh] filled with the last
       W_p = min(window or S, S) tokens at slots 0..W_p-1, pos [W_p] int32
       absolute positions.
     """
-    _dense_only(cfg, "forward")
     B, S = tokens.shape
     dev = params["embed"].device
     x = params["embed"][tokens.to(dev).long()].to(cfg.act_dtype)
     tables = rope_tables(torch.arange(S, device=dev)[None], cfg.d_head,
                          cfg.rope_theta, dev)             # positions [1, S]
     caches = [] if collect_cache else None
+    aux_total = torch.zeros((), device=dev)
 
     for pi, kind in enumerate(cfg.pattern):
         window = cfg.window if kind == "l" else 0
@@ -299,7 +339,9 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
                 kc[gi] = k[:, S - W:]
                 vc[gi] = v[:, S - W:]
             del k, v
-            x = _ffn(bp, gi, x, cfg)
+            x, aux = _ffn(bp, gi, x, cfg, routing)
+            if aux is not None:
+                aux_total = aux_total + aux
         if collect_cache:
             caches.append({"k": kc, "v": vc, "pos": torch.arange(
                 S - W, S, dtype=torch.int32, device=dev)})
@@ -307,14 +349,14 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     if last_only:
         x = x[:, -1:]
     logits = _head(params, x, cfg)
-    return logits, torch.zeros((), device=dev), caches
+    return logits, aux_total, caches
 
 
 @torch.inference_mode()
 def lm_loss(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
             cfg: TransformerConfig, aux_weight: float = 0.01):
-    """Mean next-token cross-entropy (plus ``aux_weight`` x the aux loss,
-    0 for a dense model): (loss, {"ce", "aux"}), forward value only."""
+    """Mean next-token cross-entropy plus ``aux_weight`` x the aux loss (0
+    for a dense model): (loss, {"ce", "aux"}), forward value only."""
     logits, aux, _ = forward(params, tokens, cfg)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
@@ -334,7 +376,6 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
     for 'l'; k/v zeros [n_groups, batch, W, KV, dh] in the activation
     dtype, pos -1 [W] int32.  On the card unless ``device`` asks for the
     CPU."""
-    _dense_only(cfg, "init_cache")
     device = resolve_device(device)
     caches = []
     for W in cache_widths(cfg, max_len):
@@ -349,11 +390,12 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
 
 @torch.inference_mode()
 def decode_step(params: dict, caches: list, tokens: torch.Tensor, pos,
-                cfg: TransformerConfig):
+                cfg: TransformerConfig, *, routing: list | None = None):
     """One decode step.  tokens [B] int, pos the position of the new token
     (an int or a 0-d tensor).  Writes the new k/v at slot ``pos % W`` of
-    each cache in place and returns (logits [B, V], the caches)."""
-    _dense_only(cfg, "decode_step")
+    each cache in place and returns (logits [B, V], the caches).  An MoE
+    layer routes the step's tokens as one group each (never dropping);
+    ``routing``, a list, receives each one's ``moe.Routing``."""
     pos = int(pos)
     dev = params["embed"].device
     x = params["embed"][tokens.to(dev).long()][:, None, :].to(cfg.act_dtype)
@@ -373,6 +415,6 @@ def decode_step(params: dict, caches: list, tokens: torch.Tensor, pos,
             vc[:, slot] = v[:, 0]
             o = decode_attention(q, kc, vc, cache["pos"], pos, window=window)
             x = _out_proj(x, o, bp["wo"][gi])
-            x = _ffn(bp, gi, x, cfg)
+            x, _ = _ffn(bp, gi, x, cfg, routing)
 
     return _head(params, x, cfg)[:, 0], caches

@@ -11,9 +11,11 @@ Integer-valued inputs make every f32 sum exact, so kernel and plain
 version must be equal; the frontier step and the row gather are compared
 bit for bit on any input.  ``chip_smoke.py`` repeats these checks at the main path's shapes.
 
-The dense LMs (no kernel of their own) are held against the CPU here too:
-each layer in f32 and bf16, one pattern group of each FULL config at full
-width, and decode against forward at full width on two pattern groups.
+The LMs, dense and MoE (no kernel of their own), are held against the CPU
+here too: each layer (the MoE FFN with capacity binding included) in f32
+and bf16, one pattern group of each FULL config at full width (MoE: the
+routing too), and decode against forward at full width on two pattern
+groups (MoE: a forward that drops nothing).
 """
 import numpy as np
 import pytest
@@ -551,6 +553,14 @@ def _lm_layer(name, dtype, device):
         return (lambda q, k, v: L.chunked_attention(
             q, k, v, window=200, q_chunk=64, kv_chunk=128)), (
             r(2, 512, 8, 64), r(2, 512, 2, 64), r(2, 512, 2, 64))
+    if name == "moe_ffn":
+        from repro_torch.models import moe
+        cfg = moe.MoEConfig(n_experts=16, top_k=4, d_model=256, d_ff=128,
+                            capacity_factor=1.0, n_groups=4)
+        return (lambda x, *w: moe.moe_ffn(dict(zip(
+            ("router", "w_gate", "w_up", "w_down"), w)), x, cfg)[0]), (
+            r(3, 40, 256), r(256, 16, s=0.06).float(), r(16, 256, 128, s=0.06),
+            r(16, 256, 128, s=0.06), r(16, 128, 256, s=0.09))
     pos = torch.arange(300, dtype=torch.int32)
     pos[250:] = -1
     return (lambda q, k, v, c: L.decode_attention(q, k, v, c, 249,
@@ -560,7 +570,8 @@ def _lm_layer(name, dtype, device):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", ["rms_norm", "rope", "swiglu",
-                                  "chunked_attention", "decode_attention"])
+                                  "chunked_attention", "decode_attention",
+                                  "moe_ffn"])
 def test_lm_layer_card_equals_cpu(dev, name, dtype):
     """Each LM layer on the card against the CPU on the same inputs: f32
     rtol 1e-4, atol 1e-6 (rope at positions up to 524,287 included; TF32
@@ -596,27 +607,32 @@ def test_argmax_takes_first_maximum_on_card(dev):
     _chip_smoke()._argmax_ties(dev)
 
 
-@pytest.mark.parametrize("name", ["qwen3-14b", "qwen2-1.5b", "gemma3-12b"])
+LM_NAMES = ["qwen3-14b", "qwen2-1.5b", "gemma3-12b", "mixtral-8x7b",
+            "qwen3-moe-30b-a3b"]
+
+
+@pytest.mark.parametrize("name", LM_NAMES)
 def test_lm_one_group_full_width_card_equals_cpu(dev, name):
     """One pattern group of the FULL config in f32, weights drawn on the
-    card and copied to the CPU: prefill logits and caches, then 2 greedy
-    steps, held to ``chip_smoke._tolerance`` (gemma3 at S 1,280, past its
-    window)."""
+    card and copied to the CPU: prefill logits and caches (MoE: expert
+    choices and drop masks), then 2 greedy steps, held to
+    ``chip_smoke._tolerance`` (gemma3 at S 1,280, past its window)."""
     import dataclasses
     from repro_torch.configs import get_arch
     cs = _chip_smoke()
     full = get_arch(name).full_config
     cfg = dataclasses.replace(full, n_layers=len(full.pattern),
                               dtype="float32")
-    S = 1280 if full.window else 256
+    S = 1280 if 0 < full.window < 1280 else 256
     cs.lm_card_vs_cpu(name, cfg, S, 2, 0, dev)
 
 
-@pytest.mark.parametrize("name", ["qwen3-14b", "qwen2-1.5b", "gemma3-12b"])
+@pytest.mark.parametrize("name", LM_NAMES)
 def test_lm_decode_matches_forward_on_card(dev, name):
     """Decode against forward on the card at full width, two pattern
     groups in f32 (B 1, S 128, 128 steps from ``init_cache``), to
-    ``chip_smoke._tolerance``."""
+    ``chip_smoke._tolerance``; an MoE forward at a capacity factor that
+    drops nothing, as decoding never drops."""
     import dataclasses
     from repro_torch.configs import get_arch
     full = get_arch(name).full_config

@@ -55,7 +55,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for n in names:
     importlib.import_module(n)
 for path in ("chip_smoke.py", "examples/torch_quickstart.py",
-             "examples/torch_serve_ann.py", "scripts/torch_lm_probe.py"):
+             "examples/torch_serve_ann.py", "scripts/torch_lm_probe.py",
+             "scripts/torch_lm_parity_probe.py"):
     spec = importlib.util.spec_from_file_location("m", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -73,10 +74,12 @@ print(" ".join(names))
                 "distributed.sharding", "distributed.ctx",
                 "launch.ann_steps", "launch.serve", "data.pipelines",
                 "core.autotune", "models.recsys", "models.layers",
-                "models.transformer", "configs.common", "configs.fm",
-                "configs.deepfm", "configs.xdeepfm", "configs.sasrec",
-                "configs.freshdiskann_1b", "configs.qwen3_14b",
-                "configs.qwen2_1_5b", "configs.gemma3_12b"):
+                "models.moe", "models.transformer", "configs.common",
+                "configs.fm", "configs.deepfm", "configs.xdeepfm",
+                "configs.sasrec", "configs.freshdiskann_1b",
+                "configs.qwen3_14b", "configs.qwen2_1_5b",
+                "configs.gemma3_12b", "configs.mixtral_8x7b",
+                "configs.qwen3_moe_30b"):
         assert f"repro_torch.{mod}" in names
 
 

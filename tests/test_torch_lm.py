@@ -1,5 +1,8 @@
-"""The dense LM slice: qwen3-14b, qwen2-1.5b and gemma3-12b serving in the
-port against the reference, on the CPU at the smoke configs.
+"""The LM slices: the dense qwen3-14b, qwen2-1.5b and gemma3-12b and the
+MoE mixtral-8x7b and qwen3-moe-30b-a3b serving in the port against the
+reference, on the CPU at the smoke configs (whose capacity factor drops
+no assignment; ``test_torch_moe.py`` holds the MoE FFN itself and the
+models where capacity binds).
 
 Reference parameters come from ``repro.models.transformer.init_params``
 (``jax.random.PRNGKey(0)``) with their zero norms, norm scales and biases
@@ -15,7 +18,7 @@ redrawn (so those terms count) and cross to the port through
 * ``rope`` at positions up to 524,287: rtol 1e-5, atol 1e-6 (the angles'
   frequencies are the reference's bits; ``sin``/``cos`` of angles up to
   5.2e5 differ by an ulp or so);
-* models (logits, caches, losses): rtol 1e-5, atol 1e-5 (logits within
+* models (logits, aux, caches, losses): rtol 1e-5, atol 1e-5 (logits within
   ~5); greedy tokens equal except where the reference's two logits lie
   within 1e-5 of each other;
 * the port's decode against its own forward: 5e-4 absolute, the
@@ -85,7 +88,7 @@ def _close(got, want, **tol):
 # Configs, cells, streams
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + MOE)
 def test_configs_field_for_field(name):
     ref, port = jconfigs.get_arch(name), tconfigs.get_arch(name)
     assert (port.name, port.family) == (ref.name, ref.family) == (name, "lm")
@@ -116,7 +119,7 @@ def _spec_tree(tree):
     return (tuple(tree.shape), name)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + MOE)
 def test_lm_cells_and_cache_specs(name):
     ref, port = jconfigs.get_arch(name), tconfigs.get_arch(name)
     assert len(ref.cells) == len(port.cells) == 4
@@ -124,7 +127,8 @@ def test_lm_cells_and_cache_specs(name):
         assert (a.shape, a.kind, a.meta, a.skip) == (
             b.shape, b.kind, b.meta, b.skip)
         assert _spec_tree(a.specs()) == _spec_tree(b.specs())
-    assert bool(port.cell("long_500k").skip) == (name != "gemma3-12b")
+    assert bool(port.cell("long_500k").skip) == (
+        name not in ("gemma3-12b", "mixtral-8x7b"))
     for cfg in (ref.full_config, ref.smoke_config):
         for batch, max_len in ((3, 40), (2, 5)):
             want = jtf.abstract_cache(cfg, batch, max_len)
@@ -132,20 +136,6 @@ def test_lm_cells_and_cache_specs(name):
                 ttf.TransformerConfig(**dataclasses.asdict(cfg)), batch,
                 max_len)
             assert _spec_tree(want) == _spec_tree(got)
-
-
-@pytest.mark.parametrize("name", MOE)
-def test_moe_archs_wait_for_their_item(name):
-    with pytest.raises(KeyError, match="item 5b"):
-        tconfigs.get_arch(name)
-    assert name not in tconfigs.list_archs()
-    cfg = ttf.TransformerConfig(**dataclasses.asdict(
-        jconfigs.get_arch(name).smoke_config))
-    for call in (lambda: ttf.init_params(cfg, torch.Generator(), "cpu"),
-                 lambda: ttf.init_cache(cfg, 1, 8, "cpu"),
-                 lambda: ttf.forward({}, torch.zeros(1, 8), cfg)):
-        with pytest.raises(NotImplementedError, match="item 5b"):
-            call()
 
 
 @pytest.mark.parametrize("seed", [0, 5])
@@ -355,7 +345,7 @@ def _jitted(cfg):
     return fwd, last, dec
 
 
-@pytest.fixture(scope="module", params=DENSE)
+@pytest.fixture(scope="module", params=DENSE + MOE)
 def lm(request):
     """(name, reference cfg, reference params (numpy), port cfg, port
     params, tokens [2, 32])."""
@@ -396,10 +386,15 @@ def test_convert_round_trip(lm):
 def test_forward_logits_and_caches(lm):
     name, cfg, params, tcfg, tparams, toks = lm
     fwd, last, _ = _jitted(cfg)
-    want, _, wcaches = fwd(params, jnp.asarray(toks))
+    want, waux, wcaches = fwd(params, jnp.asarray(toks))
     got, aux, caches = ttf.forward(tparams, _t(toks), tcfg,
                                    collect_cache=True)
-    assert got.shape == (2, 32, cfg.vocab) and float(aux) == 0.0
+    assert got.shape == (2, 32, cfg.vocab) and aux.dtype == torch.float32
+    if cfg.is_moe:
+        assert float(aux) > 0
+        _close(aux, waux)
+    else:
+        assert float(aux) == 0.0
     _close(got, want)
     assert len(caches) == len(wcaches) == len(cfg.pattern)
     for a, b in zip(caches, wcaches):
@@ -420,6 +415,7 @@ def test_lm_loss(lm):
     got, parts = ttf.lm_loss(tparams, _t(toks), _t(tg), tcfg)
     _close(got, want)
     _close(parts["ce"], wparts["ce"])
+    _close(parts["aux"], wparts["aux"])
 
 
 def test_decode_steps_logits_and_caches(lm):
@@ -477,6 +473,36 @@ def test_serve_steps_and_cache_placement(lm):
         _close(lg, wl)
         _tokens_equal_off_near_ties(nt.numpy(), wt, wl)
         tok = np.asarray(wt)
+
+
+@pytest.mark.parametrize("name", ["qwen3-14b", "qwen3-moe-30b-a3b"])
+def test_chip_smoke_card_vs_cpu_names_the_side_that_moved(name, monkeypatch):
+    """``chip_smoke.lm_card_vs_cpu``, the lm phase's (a), run with the CPU
+    as both devices at the smoke config: it passes with equal weights;
+    with the twin's head nudged by 1e-3 its prefill check fails, and the
+    message's f64 evaluation (of the first device's weights) finds the
+    first side within 1e-5 and the twin's off by more than 1e-4."""
+    import re
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(tconfigs.get_arch(name).smoke_config,
+                              dtype="float32")
+    out = cs.lm_card_vs_cpu(name, cfg, 32, 2, 0, "cpu")
+    assert out["max_err"] == 0.0 and out["tokens_differing"] == 0
+    to_cpu = cs._params_to
+
+    def nudged(params, device):
+        twin = to_cpu(params, device)
+        twin["lm_head"] = twin["lm_head"] * (1 + 1e-3)
+        return twin
+
+    monkeypatch.setattr(cs, "_params_to", nudged)
+    with pytest.raises(cs.PhaseError) as e:
+        cs.lm_card_vs_cpu(name, cfg, 32, 2, 0, "cpu")
+    msg = str(e.value)
+    assert "prefill logits" in msg and "again differs by 0 (card) and 0 " \
+        "(CPU)" in msg, msg
+    m = re.search(r"the card errs (\S+) .*the CPU (\S+) ", msg)
+    assert m and float(m[1]) < 1e-5 < 1e-4 < float(m[2]), msg
 
 
 def test_place_caches_matches_token_by_token(lm):

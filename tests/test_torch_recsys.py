@@ -388,8 +388,7 @@ def test_configs_match_reference():
                 if n not in tconfigs.list_archs()]
     assert tconfigs.list_archs() == [n for n in jconfigs.list_archs()
                                      if n not in unported]
-    assert set(unported) == {"mixtral-8x7b", "qwen3-moe-30b-a3b",
-                             "graphsage-reddit"}
+    assert set(unported) == {"graphsage-reddit"}
     for n in unported:
         with pytest.raises(KeyError) as e:
             tconfigs.get_arch(n)
