@@ -71,6 +71,27 @@ Phases:
            of them) and the windowed archs' long_500k (B 1 x 524,288);
            finite logits and peak memory under 80 GiB asserted;
            ``torch.argmax``'s first-maximum rule on ties;
+  gnn      GraphSAGE's four cells at full shape (graphsage-reddit's FULL
+           config specialised per cell; graphs from ``synthetic_graph``
+           at ceil(E / N) edges a node, the first E kept): full_graph_sm
+           (cora's N and E, Planetoid's 140 train nodes), minibatch_lg
+           (reddit's N and E, B 1,024 seeds a step, fanout 15, 10),
+           ogb_products (ogbn-products' N and E, OGB's 196,615 train
+           nodes), molecule (128 graphs x 30 nodes, 48-64 of 64 edge
+           slots): (a) card against CPU (logits, loss and every gradient;
+           ogb_products the logits of 1,024 seeded nodes against a CPU
+           forward over their 2-hop in-neighbourhood), (b) one AdamW
+           train step run twice from one state, equal bits, (c) 20 steps
+           at lr 3e-3: losses finite and falling, ms a step, edges/s, peak
+           memory under 80 GiB, ogb_products' step against its byte bound,
+           and one more step under torch.profiler (device busy share, top
+           kernels);
+  train    ``lm_loss`` and its gradients card vs CPU for the qwen2-1.5b
+           and gemma3-12b smoke configs at S 64 (kv blocks of 16); then
+           ``launch.train.main`` on the card for qwen2-1.5b, fm, sasrec and
+           graphsage-reddit at their smoke configs, 6 steps with a
+           checkpoint every 3, then the last checkpoint deleted and the
+           run resumed: its final state equal bit for bit;
   main     bootstrap_system (points labelled with the selectivity ladder
            of tests/test_filtered.py and 4 tenants) -> 1 % deletes ->
            labelled streaming inserts with RW->RO
@@ -124,8 +145,8 @@ Phases:
            ``--src DIR --phases build,launch`` times that tree's launch path
            on the same card.
 
-P (the phases) defaults to build,kernels,parity,recsys,lm,main,filtered,
-storage,serving.
+P (the phases) defaults to build,kernels,parity,recsys,lm,gnn,train,main,
+filtered,storage,serving.
 Prints diagnostics, then the card's name and power limit, then one JSON
 line of kernel records, and last ``{"ok": true, "device": {...}}``.  Exits
 non-zero, with no result line, if any phase fails or there is no card.
@@ -2454,6 +2475,418 @@ def phase_lm(seed: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------- gnn
+GNN_STEPS = 20
+GNN_LR = 3e-3
+GNN_CHECK_NODES = 1024               # ogb_products' seeded logits in (a)
+# the public splits' train counts: Planetoid's cora, OGB's ogbn-products
+GNN_TRAIN_NODES = {"full_graph_sm": 140, "ogb_products": 196_615}
+GNN_MOLECULE_EDGES = (48, 64)        # unmasked edges a molecule, inclusive
+GNN_PEAK_PREDICTED_GIB = {"ogb_products": (15, 25)}
+
+
+def gnn_graph(n: int, e: int, d_feat: int, n_classes: int, seed: int):
+    """A cell's graph: ``synthetic_graph`` at ``ceil(e / n)`` edges a node,
+    its first ``e`` edges kept."""
+    import math
+
+    from repro_torch.data.pipelines import synthetic_graph
+    g = synthetic_graph(n, math.ceil(e / n), d_feat, n_classes, seed=seed)
+    g["src"], g["dst"] = g["src"][:e], g["dst"][:e]
+    return g
+
+
+def _csr_on_card(src, dst, n: int, dev):
+    """(offsets, nbrs) of an edge list on the card by ``synthetic_graph``'s
+    own rule: ``src`` ordered stably by ``dst``."""
+    import torch
+    s = torch.from_numpy(src).to(dev)
+    d = torch.from_numpy(dst).to(dev).long()
+    nbrs = s[torch.sort(d, stable=True).indices]
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(torch.bincount(d, minlength=n), 0)
+    return offsets, nbrs
+
+
+def molecule_batch(cell, seed: int) -> dict:
+    """The molecule cell's batch: per graph 48-64 unmasked edge slots of
+    64 (in random slots), endpoints uniform over its 30 nodes, a label
+    planted in feature 0 as ``synthetic_graph`` plants it."""
+    spec = cell.specs()
+    G, n, F = spec["feats"].shape
+    e = spec["src"].shape[1]
+    g = np.random.default_rng([seed, 11])
+    lo, hi = GNN_MOLECULE_EDGES
+    k = g.integers(lo, hi + 1, G)
+    mask = np.argsort(g.random((G, e)), axis=1) < k[:, None]
+    labels = g.integers(0, cell.meta["n_classes"], G)
+    feats = g.standard_normal((G, n, F)).astype(np.float32)
+    feats[:, :, 0] += labels[:, None]
+    return {"feats": feats,
+            "src": g.integers(0, n, (G, e)).astype(np.int32),
+            "dst": g.integers(0, n, (G, e)).astype(np.int32),
+            "edge_mask": mask, "labels": labels.astype(np.int32)}
+
+
+def two_hop(graph_src, graph_dst, seeds, dev):
+    """The 2-hop in-neighbourhood of ``seeds`` cut from the edge list by
+    ``dst``: (nodes U, sub-edge src and dst as positions in U, the seeds'
+    positions).  Every edge into a seed or into one of its in-neighbours
+    is kept, in edge order, so those nodes keep the full graph's degrees
+    and the seeds' full-batch logits are computed exactly."""
+    import torch
+    s0 = seeds.to(dev)
+    hop1 = torch.unique(torch.cat([s0, graph_src[torch.isin(graph_dst,
+                                                            s0)]]))
+    keep = torch.isin(graph_dst, hop1)
+    es, ed = graph_src[keep], graph_dst[keep]
+    nodes = torch.unique(torch.cat([hop1, es]))
+    pos = lambda x: torch.searchsorted(nodes, x)   # noqa: E731
+    return nodes, pos(es), pos(ed), pos(s0)
+
+
+def _gnn_card_vs_cpu(name, logits_fn, loss_fn, params, cpu_inputs) -> dict:
+    """(a) for a cell whose whole forward fits the CPU: logits, loss and
+    every parameter's gradient on the card against the same weights and
+    inputs on the CPU."""
+    import torch
+    from repro_torch.training.steps import loss_and_grads
+    from repro_torch.tree import tree_map, tree_paths
+    cpu_params = tree_map(lambda t: t.detach().cpu(), params)
+    errs = {}
+    with torch.no_grad():
+        errs["logits"] = _card_vs_cpu(logits_fn(params, None),
+                                      logits_fn(cpu_params, cpu_inputs),
+                                      f"{name} logits")
+    def lg(p, c):
+        return loss_fn(p, c), {}
+    loss, _, grads = loss_and_grads(lg, params, None)
+    cpu_loss, _, cpu_grads = loss_and_grads(lg, cpu_params, cpu_inputs)
+    errs["loss"] = _card_vs_cpu(loss[None], cpu_loss[None], f"{name} loss")
+    errs["grads"] = max(_card_vs_cpu(g, c, f"{name} grad {path}")
+                        for path, g, c in zip(tree_paths(params), grads,
+                                              cpu_grads))
+    return errs
+
+
+def gnn_cell_run(name: str, cell, cfg, seed: int, dev, graphs: dict) -> dict:
+    """One GNN cell at full shape: (a) card vs CPU, (b) a train step twice
+    from one state, bit-equal, (c) ``GNN_STEPS`` AdamW steps: losses,
+    seconds a step, edges/s, peak memory."""
+    import torch
+    from repro_torch.models import gnn
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.training.steps import make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    res: dict = {}
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(seed)
+    params = gnn.init_sage_params(cfg, gen, dev)
+    spec = cell.specs()
+    if cell.kind == "train_full":
+        n, e = spec["feats"].shape[0], spec["src"].shape[0]
+        g = gnn_graph(n, e, cfg.d_feat, cfg.n_classes, seed)
+        mask_np = np.zeros(n, bool)
+        mask_np[np.random.default_rng([seed, 5]).choice(
+            n, GNN_TRAIN_NODES[name], replace=False)] = True
+        src = torch.from_numpy(g["src"]).to(dev).long()
+        dst = torch.from_numpy(g["dst"]).to(dev).long()
+        feats = torch.from_numpy(g["feats"]).to(dev)
+        labels = torch.from_numpy(g["labels"]).to(dev)
+        mask = torch.from_numpy(mask_np).to(dev)
+        t1 = time.perf_counter()
+        graph = gnn.SageGraph(src, dst, n)
+        torch.cuda.synchronize()
+        res["graph_build_s"] = time.perf_counter() - t1
+        batch = {"feats": feats, "labels": labels, "mask": mask}
+
+        def loss_fn(p, b):
+            loss = gnn.sage_loss_full(p, b["feats"], graph, b["labels"],
+                                      b["mask"], cfg)
+            return loss, {"ce": loss}
+        edges = e
+        if name == "ogb_products":
+            seeds = torch.from_numpy(np.random.default_rng([seed, 6]).choice(
+                n, GNN_CHECK_NODES, replace=False)).to(dev)
+            nodes, ss, sd, sp = two_hop(src, dst, seeds, dev)
+            sub = gnn.SageGraph(ss.cpu(), sd.cpu(), len(nodes))
+            sub_feats = torch.from_numpy(g["feats"][nodes.cpu().numpy()])
+            with torch.no_grad():
+                got = gnn.sage_forward_full(params, feats, graph, cfg)[seeds]
+                cpu_p = tree_map(lambda t: t.cpu(), params)
+                want = gnn.sage_forward_full(cpu_p, sub_feats, sub,
+                                             cfg)[sp.cpu()]
+            res["card_vs_cpu"] = {"logits": _card_vs_cpu(
+                got, want, f"{name} logits of {GNN_CHECK_NODES} nodes"),
+                "subgraph_nodes": int(len(nodes)),
+                "subgraph_edges": sub.n_edges}
+            del got
+        else:
+            cpu_graph = gnn.SageGraph(src.cpu(), dst.cpu(), n)
+            cpu = (torch.from_numpy(g["feats"]),
+                   torch.from_numpy(g["labels"]), torch.from_numpy(mask_np))
+
+            def logits_fn(p, c):
+                return gnn.sage_forward_full(
+                    p, feats if c is None else c[0],
+                    graph if c is None else cpu_graph, cfg)
+
+            def full_loss(p, c):
+                if c is None:
+                    return loss_fn(p, batch)[0]
+                return gnn.sage_loss_full(p, c[0], cpu_graph, c[1], c[2],
+                                          cfg)
+            res["card_vs_cpu"] = _gnn_card_vs_cpu(name, logits_fn, full_loss,
+                                                  params, cpu)
+        del src, dst
+    elif cell.kind == "train_sampled":
+        n, e = spec["feats"].shape[0], spec["nbrs"].shape[0]
+        B = spec["seeds"].shape[0]
+        g = graphs.get("minibatch_lg")
+        if g is None:
+            g = graphs["minibatch_lg"] = gnn_graph(n, e, cfg.d_feat,
+                                                   cfg.n_classes, seed)
+        res["host_graph_s"] = time.perf_counter() - t0
+        offsets, nbrs = _csr_on_card(g["src"], g["dst"], n, dev)
+        feats = torch.from_numpy(g["feats"]).to(dev)
+        labels_np = g["labels"]
+
+        def draw(step):
+            seeds = np.random.default_rng([seed, 7, step]).integers(0, n, B)
+            return {"seeds": torch.from_numpy(seeds).to(dev),
+                    "labels": torch.from_numpy(labels_np[seeds]).to(dev),
+                    "seed": seed * 1000 + step}
+        batch = draw(0)
+
+        def loss_fn(p, b):
+            loss = gnn.sage_loss_sampled(p, b["seed"], feats, offsets, nbrs,
+                                         b["seeds"], b["labels"], cfg)
+            return loss, {"ce": loss}
+        fr = gnn.sample_frontiers(batch["seed"], offsets, nbrs,
+                                  batch["seeds"], cfg)
+        cpu = ([f.cpu() for f in fr], torch.from_numpy(g["feats"]),
+               batch["labels"].cpu())
+
+        def logits_fn(p, c):
+            if c is None:
+                return gnn.sage_forward_sampled(p, None, feats, None, None,
+                                                None, cfg, frontiers=fr)
+            return gnn.sage_forward_sampled(p, None, c[1], None, None, None,
+                                            cfg, frontiers=c[0])
+
+        def s_loss(p, c):
+            if c is None:
+                return gnn.sage_loss_sampled(p, None, feats, None, None,
+                                             None, batch["labels"], cfg,
+                                             frontiers=fr)
+            return gnn.sage_loss_sampled(p, None, c[1], None, None, None,
+                                         c[2], cfg, frontiers=c[0])
+        res["card_vs_cpu"] = _gnn_card_vs_cpu(name, logits_fn, s_loss,
+                                              params, cpu)
+        # sampled edges a step: B * f1 + B * f1 * f2
+        edges, width = 0, B
+        for f in cfg.fanout[:cfg.n_layers]:
+            width *= f
+            edges += width
+    else:                                               # train_batched
+        mb = molecule_batch(cell, seed)
+        G, n = mb["feats"].shape[:2]
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in mb.items()}
+        graph = gnn.batched_graph(tb["src"], tb["dst"], tb["edge_mask"], n)
+        cb = {k: torch.from_numpy(v) for k, v in mb.items()}
+        cpu_graph = gnn.batched_graph(cb["src"], cb["dst"], cb["edge_mask"],
+                                      n)
+        batch = tb
+
+        def loss_fn(p, b):
+            loss = gnn.sage_loss_batched(p, b["feats"], b["src"], b["dst"],
+                                         b["edge_mask"], b["labels"], cfg,
+                                         graph=graph)
+            return loss, {"ce": loss}
+
+        def logits_fn(p, c):
+            b, gr = (tb, graph) if c is None else (cb, cpu_graph)
+            return gnn.sage_forward_batched(p, b["feats"], b["src"],
+                                            b["dst"], b["edge_mask"], cfg,
+                                            graph=gr)
+
+        def m_loss(p, c):
+            b, gr = (tb, graph) if c is None else (cb, cpu_graph)
+            return gnn.sage_loss_batched(p, b["feats"], b["src"], b["dst"],
+                                         b["edge_mask"], b["labels"], cfg,
+                                         graph=gr)
+        res["card_vs_cpu"] = _gnn_card_vs_cpu(name, logits_fn, m_loss,
+                                              params, cb)
+        edges = int(mb["edge_mask"].sum())
+    res["setup_s"] = time.perf_counter() - t0
+
+    # (b) one step twice from one state: the same bits
+    step = make_train_step(loss_fn, lr=GNN_LR)
+    opt = adamw_init(params)
+    pa, oa, _ = step(params, opt, batch)
+    pb, ob, _ = step(params, opt, batch)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((pa, oa)), tree_leaves((pb, ob))))
+    check(same, f"{name}: a train step run twice gave different bits")
+    res["step_twice_bit_equal"] = same
+    del pa, oa, pb, ob
+
+    # (c) GNN_STEPS AdamW steps
+    _reset_peak()
+    losses, times = [], []
+    for i in range(GNN_STEPS):
+        if cell.kind == "train_sampled" and i:
+            batch = draw(i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # where a step's time goes: one more step under torch.profiler
+    profile_run(f"gnn {name} train step",
+                lambda: step(params, opt, batch))
+    check(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+    check(losses[-1] < losses[0],
+          f"{name}: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    check(peak < 80, f"{name}: peak {peak:.2f} GiB")
+    s_step = float(np.median(times[1:]))
+    res.update(losses=losses, step_s=s_step, step_s_all=times,
+               edges_per_step=edges, edges_per_s=edges / s_step,
+               peak_gib=peak)
+    if name in GNN_PEAK_PREDICTED_GIB:
+        res["peak_predicted_gib"] = GNN_PEAK_PREDICTED_GIB[name]
+    if name == "ogb_products":
+        # bytes the segment means must move a step: each layer's gathered
+        # rows read and aggregate written, forward, and the second layer's
+        # again backward (the first layer's input needs no gradient)
+        N = spec["feats"].shape[0]
+        dims = [cfg.d_feat] + [cfg.d_hidden] * cfg.n_layers
+        nbytes = sum((e + N) * 4 * d for d in dims[:cfg.n_layers])
+        nbytes += sum((e + N) * 4 * d for d in dims[1:cfg.n_layers])
+        res["bound_bytes"] = nbytes
+        res["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        res["step_over_bound"] = s_step * 1e3 / res["bound_ms"]
+    log(f"[gnn] {name}: card vs CPU {res['card_vs_cpu']}; step twice "
+        f"bit-equal; {GNN_STEPS} steps loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, {s_step * 1e3:.2f} ms a step (median), "
+        f"{res['edges_per_s']:.4g} edges/s ({edges} a step), peak "
+        f"{peak:.2f} GiB"
+        + (f" (predicted {GNN_PEAK_PREDICTED_GIB[name]} GiB)"
+           if name in GNN_PEAK_PREDICTED_GIB else "")
+        + (f"; byte bound {res['bound_ms']:.2f} ms "
+           f"({res['step_over_bound']:.2f}x)" if "bound_ms" in res else "")
+        + f"; set-up {res['setup_s']:.1f} s")
+    return res
+
+
+def phase_gnn(seed: int) -> dict:
+    """GraphSAGE's four cells at full shape (the FULL config specialised
+    per cell, ``gnn_cell_config``), trained by the port's AdamW step."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.common import gnn_cell_config
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    arch = get_arch("graphsage-reddit")
+    out: dict = {}
+    graphs: dict = {}
+    for i, cell in enumerate(arch.cells):
+        cfg = gnn_cell_config(arch.full_config, cell)
+        out[cell.shape] = gnn_cell_run(cell.shape, cell, cfg, seed + i, dev,
+                                       graphs)
+        graphs.clear()
+        _reset_peak()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[gnn] phase {out['seconds']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------- train
+TRAIN_ARCHS = ("qwen2-1.5b", "fm", "sasrec", "graphsage-reddit")
+TRAIN_STEPS = 6
+TRAIN_CKPT_EVERY = 3
+# lm_loss's gradients card vs CPU: a full-causal and a windowed smoke LM
+# at S 64 in kv blocks of 16 (the flash backward over several blocks)
+TRAIN_GRAD_ARCHS = ("qwen2-1.5b", "gemma3-12b")
+TRAIN_GRAD_LEN = 64
+
+
+def lm_grads_card_vs_cpu(name: str, dev, S: int = TRAIN_GRAD_LEN) -> float:
+    """``lm_loss`` and every parameter's gradient of ``name``'s smoke
+    config (B 2, S tokens) on the card against the CPU on the same
+    weights, drawn on a CPU generator, to ``_tolerance``.  Returns the
+    largest error."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipelines import lm_token_stream
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.steps import loss_and_grads
+    from repro_torch.tree import tree_map, tree_paths
+    cfg = get_arch(name).smoke_config
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    b = next(lm_token_stream(2, S, cfg.vocab, seed=1))
+    res = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        batch = {k: torch.from_numpy(v).to(d) for k, v in b.items()}
+        res[where] = loss_and_grads(
+            lambda p, x: tf.lm_loss(p, x["tokens"], x["targets"], cfg),
+            tree_map(lambda t: t.to(d), params), batch)
+    (loss, _, grads), (cpu_loss, _, cpu_grads) = res["card"], res["cpu"]
+    err = _card_vs_cpu(loss[None], cpu_loss[None], f"{name} lm_loss")
+    for path, g, c in zip(tree_paths(params), grads, cpu_grads):
+        err = max(err, _card_vs_cpu(g, c, f"{name} grad {path}"))
+    return err
+
+
+def phase_train() -> dict:
+    """``lm_grads_card_vs_cpu`` for ``TRAIN_GRAD_ARCHS``; then
+    ``launch.train.main`` on the card for ``TRAIN_ARCHS`` at their smoke
+    configs, ``TRAIN_STEPS`` steps with a checkpoint every
+    ``TRAIN_CKPT_EVERY``; then the crash: the last checkpoint deleted, the
+    run resumed from the one before, whose final state must equal the
+    uninterrupted run's bit for bit."""
+    import torch
+    from repro_torch.core.config import resolve_device
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    out: dict = {}
+    t_phase = time.perf_counter()
+    dev = resolve_device("cuda")
+    for name in TRAIN_GRAD_ARCHS:
+        err = lm_grads_card_vs_cpu(name, dev)
+        out[f"{name}_grad_err"] = err
+        log(f"[train] {name} smoke S {TRAIN_GRAD_LEN}: lm_loss and every "
+            f"gradient card vs CPU, max err {err:.3g}")
+    BUILD.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        for name in TRAIN_ARCHS:
+            d = os.path.join(tmp, name)
+            argv = ["--arch", name, "--steps", str(TRAIN_STEPS),
+                    "--log-every", str(TRAIN_CKPT_EVERY), "--ckpt-dir", d,
+                    "--device", "cuda"]
+            t0 = time.perf_counter()
+            pa, oa, log_a = train.main(
+                argv + ["--ckpt-every", str(TRAIN_CKPT_EVERY)])
+            shutil.rmtree(os.path.join(d, f"step_{TRAIN_STEPS:010d}"))
+            pb, ob, log_b = train.main(argv + ["--ckpt-every", "100"])
+            same = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves((pa, oa)), tree_leaves((pb, ob))))
+            check(same, f"train {name}: the resumed run's state differs "
+                  "from the uninterrupted run's")
+            final = log_a[-1]
+            check(np.isfinite(final["loss"]),
+                  f"train {name}: non-finite loss {final}")
+            out[name] = {"final": final, "resumed_final": log_b[-1],
+                         "resume_bit_equal": same,
+                         "seconds": time.perf_counter() - t0}
+            log(f"[train] {name}: final metrics {final}; resumed from step "
+                f"{TRAIN_CKPT_EVERY}: state bit-equal")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[train] phase {out['seconds']:.1f} s")
+    return out
+
+
 FILTERED_KERNELS = ("l2_rows", "adc_rows", "frontier_select", "gather_rows")
 
 
@@ -3751,8 +4184,8 @@ def main(argv=None) -> int:
     ap.add_argument("--centres", type=int, default=4096,
                     help="Gaussian centres of the main path's corpus")
     ap.add_argument("--phases",
-                    default="build,kernels,parity,recsys,lm,main,filtered,"
-                    "storage,serving")
+                    default="build,kernels,parity,recsys,lm,gnn,train,main,"
+                    "filtered,storage,serving")
     ap.add_argument("--src", default=None,
                     help="import the port from this src directory instead "
                     "(another checkout; with --phases build,launch)")
@@ -3791,6 +4224,10 @@ def main(argv=None) -> int:
                     recs[name].setdefault("by_shape", []).extend(entries)
         if "lm" in phases:
             log(f"[lm] figures {json.dumps(phase_lm(args.seed))}")
+        if "gnn" in phases:
+            log(f"[gnn] figures {json.dumps(phase_gnn(args.seed))}")
+        if "train" in phases:
+            log(f"[train] figures {json.dumps(phase_train())}")
         if "main" in phases:
             with shape_census() as census:
                 launches, s, data = phase_main(args.seed, args.n,

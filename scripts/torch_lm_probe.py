@@ -1,8 +1,9 @@
 """Probe the LMs' plain-PyTorch paths on one NVIDIA GPU.
 
-    python3 scripts/torch_lm_probe.py
+    python3 scripts/torch_lm_probe.py [probe ...]
 
-Prints the card's name and power limit, then one JSON line with:
+Prints the card's name and power limit, then one JSON line with the
+probes named (all of them by default):
 
 * ``gemm``: the rounding error of an f32 product against an f64 one (rms
   relative error and max absolute error, outputs of unit scale), on the
@@ -31,7 +32,17 @@ Prints the card's name and power limit, then one JSON line with:
   (CUDA events, mean of 20): ``torch.bmm(..., out_dtype=float32)``, which
   ``layers.mm_f32`` uses on the card, and the operands upcast to f32
   first, on one kv block of that prefill (all 32,768 query rows x 256
-  keys) and on one kv head of a decode_32k step (B 8 x 32,768 slots).
+  keys) and on one kv head of a decode_32k step (B 8 x 32,768 slots);
+* ``lse``: what the logsumexp costs the serving forward, which runs
+  ``chunked_attention`` as ``_FlashAttention`` (forming it for a
+  backward): gemma3-12b's local and global attention in bf16 at
+  prefill_32k's B 2 x S 32,768 under ``inference_mode``, against the same
+  forward without it, ms a call (CUDA events, the mean of 3 calls),
+  medians and quartiles of 15 alternating pairs, and the device's busy
+  ms a call (torch.profiler's CUDA kernel time over 3 calls of each),
+  the host's ms to issue a call (no synchronisation inside it) and the
+  caching allocator's device allocations, frees and retries over 3
+  calls.
 """
 from __future__ import annotations
 
@@ -167,6 +178,79 @@ def attention_time(dev) -> dict:
     return dict(seq=S, ms=a.elapsed_time(b), flop_bound_ms=bound)
 
 
+def lse_cost(dev) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+    cfg = get_arch("gemma3-12b").full_config
+    B, S, H, KV, dh = 2, 32768, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    G = H // KV
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(B, S, H, dh, generator=g, device=dev).bfloat16()
+    k = torch.randn(B, S, KV, dh, generator=g, device=dev).bfloat16()
+    v = torch.randn(B, S, KV, dh, generator=g, device=dev).bfloat16()
+    out = {}
+    for kind, window in (("local", cfg.window), ("global", 0)):
+        geo = dict(S=S, G=G, window=window, q_chunk=cfg.q_chunk,
+                   kv_chunk=cfg.kv_chunk,
+                   p_dtype=getattr(torch, cfg.attn_p_dtype))
+
+        def one_path():
+            return L.chunked_attention(
+                q, k, v, window=window, q_chunk=cfg.q_chunk,
+                kv_chunk=cfg.kv_chunk, p_dtype=cfg.attn_p_dtype)
+
+        def no_lse():
+            qh = q.reshape(B, S, KV, G, dh).permute(0, 2, 1, 3, 4).reshape(
+                B * KV, S, G, dh)
+            kh = k.permute(0, 2, 1, 3).reshape(B * KV, S, dh)
+            vh = v.permute(0, 2, 1, 3).reshape(B * KV, S, dh)
+            acc, _, l = L._flash_fwd(qh, kh, vh, **geo)
+            o = acc / torch.clamp(l, min=1e-30)[..., None]
+            o = o.reshape(B, KV, S, G, dh).permute(0, 2, 1, 3, 4)
+            return o.reshape(B, S, H, dh).to(q.dtype)
+
+        with torch.inference_mode():
+            same = torch.equal(one_path(), no_lse())
+            times = {"one_path": [], "no_lse": []}
+            for i in range(15):
+                pair = (("one_path", one_path), ("no_lse", no_lse))
+                for name, fn in (pair if i % 2 == 0 else pair[::-1]):
+                    times[name].append(_ms(fn, runs=3))
+            busy = {}
+            for name, fn in (("one_path", one_path), ("no_lse", no_lse)):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(3):
+                        fn()
+                    torch.cuda.synchronize()
+                busy[f"{name}_device_busy_ms"] = sum(
+                    e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                ) / 3 / 1e3
+                torch.cuda.synchronize()
+                stats0 = torch.cuda.memory_stats()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    fn()
+                busy[f"{name}_host_issue_ms"] = (
+                    time.perf_counter() - t0) / 3 * 1e3
+                torch.cuda.synchronize()
+                stats1 = torch.cuda.memory_stats()
+                for key in ("num_device_alloc", "num_device_free",
+                            "num_alloc_retries", "num_sync_all_streams"):
+                    busy[f"{name}_{key}"] = (stats1.get(key, 0)
+                                             - stats0.get(key, 0))
+        out[kind] = dict(
+            window=window, equal_outputs=same, **busy,
+            one_path_slower_pairs=sum(a > b for a, b in zip(
+                times["one_path"], times["no_lse"])),
+            **{f"{n}_ms_quartiles": statistics.quantiles(t, n=4)
+               for n, t in times.items()},
+            ms=times)
+    return out
+
+
 def _ms(fn, runs: int = 20) -> float:
     import torch
     fn()
@@ -212,11 +296,18 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(ident)
-    print(json.dumps(dict(
-        gemm=gemm_errors(dev), decode=decode_share(dev, "qwen3-14b", 1),
-        moe_decode=decode_share(dev, "qwen3-moe-30b-a3b", 4),
-        moe=moe_parts(dev), attention=attention_time(dev),
-        scores=score_forms(dev))))
+    probes = dict(
+        gemm=gemm_errors, decode=lambda d: decode_share(d, "qwen3-14b", 1),
+        moe_decode=lambda d: decode_share(d, "qwen3-moe-30b-a3b", 4),
+        moe=moe_parts, attention=attention_time, scores=score_forms,
+        lse=lse_cost)
+    names = sys.argv[1:] or list(probes)
+    unknown = [n for n in names if n not in probes]
+    if unknown:
+        print(f"torch_lm_probe: unknown probes {unknown}; choose from "
+              f"{list(probes)}", file=sys.stderr)
+        return 2
+    print(json.dumps({n: probes[n](dev) for n in names}))
     return 0
 
 

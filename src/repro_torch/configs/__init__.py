@@ -1,8 +1,7 @@
 """Architecture registry of the port: ``get_arch(name)`` /
-``list_archs()`` over the archs ported so far -- the decoder LMs (dense
-and MoE), the recsys family and the paper's own billion-point deployment
-config (``freshdiskann-1b``).  The reference's other archs raise ``KeyError``
-naming the ``ROADMAP.md`` item that ports them.
+``list_archs()`` over every arch of the reference -- the decoder LMs
+(dense and MoE), the recsys family, GraphSAGE -- and the paper's own
+billion-point deployment config (``freshdiskann-1b``).
 """
 from __future__ import annotations
 
@@ -14,6 +13,7 @@ _MODULES = {
     "gemma3-12b": "gemma3_12b",
     "mixtral-8x7b": "mixtral_8x7b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b",
+    "graphsage-reddit": "graphsage_reddit",
     "fm": "fm",
     "xdeepfm": "xdeepfm",
     "sasrec": "sasrec",
@@ -21,15 +21,8 @@ _MODULES = {
     "freshdiskann-1b": "freshdiskann_1b",
 }
 
-_UNPORTED = {
-    "graphsage-reddit": "ROADMAP.md Queue 1 item 6 (GraphSAGE)",
-}
-
 
 def get_arch(name: str):
-    if name in _UNPORTED:
-        raise KeyError(f"arch {name!r} is not ported yet: "
-                       f"{_UNPORTED[name]}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_MODULES)}")
     mod = importlib.import_module(f".{_MODULES[name]}", __package__)

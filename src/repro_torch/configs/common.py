@@ -11,8 +11,9 @@ Each ``configs/<arch>.py`` exposes ``ARCH: ArchSpec`` with:
 
 The reference's specs are ``jax.ShapeDtypeStruct``s; the port's are its
 own ``TensorSpec`` records of a shape and a ``torch.dtype``, and
-``cache_specs`` stands in for the reference's ``abstract_cache``.
-``gnn_cells`` waits for the GraphSAGE slice.
+``cache_specs`` stands in for the reference's ``abstract_cache``.  The
+sampled GNN cell's ``jax.random`` key (uint32 [2]) is a per-step ``seed``
+(int64 []) in the port, the seed of its CPU sampling generator.
 """
 from __future__ import annotations
 
@@ -105,6 +106,59 @@ def lm_cells(cfg) -> list[Cell]:
                    "sub-quadratic attention (DESIGN.md §Arch-applicability)"
                    if full_attention else "")),
     ]
+
+
+# ---------------------------------------------------------------------------
+# GNN cells (graphsage)
+# ---------------------------------------------------------------------------
+
+def gnn_cells(cfg) -> list[Cell]:
+    def full(n, e, f):
+        return lambda: {
+            "feats": S((n, f), torch.float32),
+            "src": S((e,), torch.int32), "dst": S((e,), torch.int32),
+            "labels": S((n,), torch.int32), "mask": S((n,), torch.bool),
+        }
+
+    def sampled(n, e, b):
+        return lambda: {
+            "feats": S((n, 602), torch.float32),
+            "offsets": S((n + 1,), torch.int32),
+            "nbrs": S((e,), torch.int32),
+            "seeds": S((b,), torch.int32),
+            "labels": S((b,), torch.int32),
+            "seed": S((), torch.int64),
+        }
+
+    def molecule(g, n, e, f):
+        return lambda: {
+            "feats": S((g, n, f), torch.float32),
+            "src": S((g, e), torch.int32), "dst": S((g, e), torch.int32),
+            "edge_mask": S((g, e), torch.bool),
+            "labels": S((g,), torch.int32),
+        }
+
+    return [
+        Cell("full_graph_sm", "train_full", full(2708, 10556, 1433),
+             {"d_feat": 1433, "n_classes": 7}),
+        Cell("minibatch_lg", "train_sampled",
+             sampled(232965, 114615892, 1024),
+             {"d_feat": 602, "n_classes": 41, "fanout": (15, 10)}),
+        Cell("ogb_products", "train_full", full(2449029, 61859140, 100),
+             {"d_feat": 100, "n_classes": 47}),
+        Cell("molecule", "train_batched", molecule(128, 30, 64, 32),
+             {"d_feat": 32, "n_classes": 2}),
+    ]
+
+
+def gnn_cell_config(cfg, cell: Cell):
+    """``cfg`` specialised to ``cell`` as the reference's launch layer does
+    (``launch/build.py``): its ``d_feat``, ``n_classes`` and, where the
+    cell names one, ``fanout``."""
+    meta = cell.meta
+    return dataclasses.replace(
+        cfg, d_feat=meta["d_feat"], n_classes=meta["n_classes"],
+        fanout=tuple(meta.get("fanout", cfg.fanout)))
 
 
 # ---------------------------------------------------------------------------

@@ -5,10 +5,10 @@ The JAX package's state is handed over as numpy arrays (``np.asarray`` of
 each field), so this module needs neither package's arrays at import.  Both
 directions keep every field's values and dtypes: int32 adjacency and
 scalars, bool flags, f32 vectors and centroids, uint8 codes, int64
-external-id tables, f32 recsys parameters.  LM parameters keep their
-values; bf16 ones (numpy has no bf16 of its own) cross as the
-reference's ``ml_dtypes`` arrays one way and as exact f32 arrays the
-other.
+external-id tables, f32 recsys and GraphSAGE parameters, AdamW states.
+LM parameters keep their values; bf16 ones (numpy has no bf16 of its
+own) cross as the reference's ``ml_dtypes`` arrays one way and as exact
+f32 arrays the other.
 """
 from __future__ import annotations
 
@@ -21,6 +21,8 @@ from .core.lti import LTIState
 from .core.pq import PQCodebook
 from .models import transformer as tf
 from .models.recsys import RecsysConfig, make_model
+from .optim.adamw import AdamWState
+from .tree import module_tree, tree_leaves, tree_map, tree_paths
 
 GRAPH_FIELDS = ("vectors", "adjacency", "active", "deleted", "start",
                 "n_total")
@@ -93,22 +95,7 @@ def recsys_model(tree, cfg: RecsysConfig, device="cuda"):
 def recsys_to_numpy(model) -> dict:
     """The model's parameters as the reference's dict of numpy arrays
     (``mlp``, ``cin`` and ``blocks`` as lists), values and dtypes kept."""
-    def arr(p):
-        return p.detach().cpu().numpy().copy()
-
-    if model.cfg.kind == "sasrec":
-        return {"item_emb": arr(model.item_emb),
-                "pos_emb": arr(model.pos_emb),
-                "blocks": [{n: arr(p) for n, p in b.named_parameters()}
-                           for b in model.blocks]}
-    out = {"w0": arr(model.w0), "w_lin": arr(model.w_lin),
-           "V": arr(model.V)}
-    if model.cfg.mlp:
-        out["mlp"] = [{"w": arr(lp.w), "b": arr(lp.b)} for lp in model.mlp]
-    if model.cfg.cin_layers:
-        out["cin"] = [arr(w) for w in model.cin]
-        out["cin_head"] = arr(model.cin_head)
-    return out
+    return tree_map(lambda t: t.cpu().numpy(), module_tree(model))
 
 
 def _leaf_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -153,3 +140,53 @@ def lm_to_numpy(params: dict) -> dict:
         tf.set_param(out, name, (t.float() if t.dtype == torch.bfloat16
                                  else t).numpy().copy())
     return out
+
+
+def sage_params(tree, cfg, device="cuda") -> dict:
+    """The port's GraphSAGE parameters from the reference's dict
+    (``layers[i].{w_self, w_nbr, b}`` and ``head``; leaves read with
+    ``np.asarray``), shapes checked against ``cfg``, f32.  On the card
+    unless ``device`` asks for the CPU."""
+    device = resolve_device(device)
+    dims = [cfg.d_feat] + [cfg.d_hidden] * cfg.n_layers
+    want = {"head": (cfg.d_hidden, cfg.n_classes)}
+    for i in range(cfg.n_layers):
+        want[f"layers.{i}.w_self"] = want[f"layers.{i}.w_nbr"] = (
+            dims[i], dims[i + 1])
+        want[f"layers.{i}.b"] = (dims[i + 1],)
+    if len(tree["layers"]) != cfg.n_layers:
+        raise ValueError(f"{len(tree['layers'])} layers, cfg has "
+                         f"{cfg.n_layers}")
+    out = tree_map(lambda a: torch.from_numpy(
+        np.array(a, dtype=np.float32)).to(device), tree)
+    for name, t in zip(tree_paths(out), tree_leaves(out)):
+        if tuple(t.shape) != want.get(name):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != "
+                             f"{want.get(name)}")
+    return out
+
+
+def sage_to_numpy(params: dict) -> dict:
+    """The port's GraphSAGE parameters as the reference's dict of numpy
+    arrays."""
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), params)
+
+
+def adamw_state(state, device="cuda") -> AdamWState:
+    """The port's ``AdamWState`` from one with numpy leaves (e.g. the
+    reference's, each leaf read with ``np.asarray``): step int32, m and v
+    f32 trees.  On the card unless ``device`` asks for the CPU."""
+    device = resolve_device(device)
+
+    def leaf(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    return AdamWState(
+        torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                     device=device),
+        tree_map(leaf, state.m), tree_map(leaf, state.v))
+
+
+def adamw_to_numpy(state: AdamWState) -> AdamWState:
+    """An ``AdamWState`` with numpy leaves (step a 0-d int32 array)."""
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), state)

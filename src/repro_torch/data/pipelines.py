@@ -6,10 +6,8 @@ the reference's arrays byte for byte.
 * ``vector_stream``: the ANN index's update and query stream;
 * ``click_stream``: the FM family's Criteo-like click batches;
 * ``sasrec_stream``: SASRec's item sequences and BPR negatives;
-* ``lm_token_stream``: the decoder LMs' token batches.
-
-``synthetic_graph`` waits for the GraphSAGE slice (``ROADMAP.md``,
-Queue 1).
+* ``lm_token_stream``: the decoder LMs' token batches;
+* ``synthetic_graph``: GraphSAGE's graphs (CSR, features, labels).
 """
 from __future__ import annotations
 
@@ -67,6 +65,46 @@ def vector_stream(batch: int, dim: int, n_clusters: int = 64, seed: int = 0,
         yield (centers[which]
                + r.standard_normal((batch, dim))).astype(np.float32)
         step += 1
+
+
+def _stable_order(keys: np.ndarray, n_keys: int) -> np.ndarray:
+    """``np.argsort(keys, kind="stable")`` for keys in [0, n_keys): one
+    sort of the distinct values ``key * len + position`` (an order of
+    magnitude faster than the stable argsort at 10M keys), the same
+    permutation."""
+    n = len(keys)
+    if n == 0 or n_keys * n >= 2**63:
+        return np.argsort(keys, kind="stable")
+    order = keys.astype(np.int64) * n + np.arange(n)
+    order.sort()
+    return order % n
+
+
+def synthetic_graph(n_nodes: int, avg_degree: int, d_feat: int,
+                    n_classes: int, seed: int = 0):
+    """Power-law-ish random graph in CSR + homophilous features/labels:
+    ``feats`` f32 [N, d_feat], ``labels``, ``src``, ``dst`` (edge list)
+    and ``nbrs`` (``src`` ordered stably by ``dst``) int32, ``offsets``
+    int32 [N + 1].  The in-degrees are counted with ``np.bincount`` where
+    the reference adds them one by one (``np.add.at``), and the order by
+    ``dst`` is ``_stable_order``'s: the same bytes, and seconds instead
+    of tens of them at a hundred million edges."""
+    r = _rng(seed, 0)
+    n_edges = n_nodes * avg_degree
+    src = r.integers(0, n_nodes, n_edges)
+    dst = (src + r.zipf(1.5, n_edges)) % n_nodes   # locality-biased targets
+    labels = r.integers(0, n_classes, n_nodes)
+    feats = r.standard_normal((n_nodes, d_feat)).astype(np.float32)
+    feats[:, 0] += labels                          # learnable signal
+    order = _stable_order(dst, n_nodes)
+    src_sorted = src[order].astype(np.int32)
+    offsets = np.zeros(n_nodes + 1, np.int64)
+    offsets[1:] = np.cumsum(np.bincount(dst, minlength=n_nodes))
+    return {
+        "feats": feats, "labels": labels.astype(np.int32),
+        "src": src.astype(np.int32), "dst": dst.astype(np.int32),
+        "offsets": offsets.astype(np.int32), "nbrs": src_sorted,
+    }
 
 
 def sasrec_stream(batch: int, seq_len: int, n_items: int, seed: int = 0,

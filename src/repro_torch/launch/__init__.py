@@ -1,2 +1,3 @@
-"""Launch entry points of the port: the serving driver (``serve``) and the
-freshdiskann-1b shard deployment's distributed steps (``ann_steps``)."""
+"""Launch entry points of the port: the serving driver (``serve``), the
+training driver (``train``) and the freshdiskann-1b shard deployment's
+distributed steps (``ann_steps``)."""

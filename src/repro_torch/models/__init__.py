@@ -1,8 +1,8 @@
 """Model families of the port.
 
-  layers.py      — RMSNorm, RoPE, SwiGLU, chunked (flash) attention and
-                   single-token decode attention: the decoder LMs'
-                   building blocks (forward values).
+  layers.py      — RMSNorm, RoPE, SwiGLU, chunked (flash) attention (with
+                   its FlashAttention-2 backward) and single-token decode
+                   attention: the decoder LMs' building blocks.
   moe.py         — the MoE FFN: group-local top-k capacity dispatch
                    (``MoEConfig``, ``capacity``, ``moe_ffn``).
   transformer.py — the decoder LMs, dense (qwen3-14b, qwen2-1.5b,
@@ -12,13 +12,16 @@
                    ``lm_loss``, ring-buffer ``init_cache`` and
                    ``decode_step``.
   recsys.py      — EmbeddingBag, FM / DeepFM / xDeepFM (CIN) / SASRec: the
-                   serving path (forward values), ported with the
-                   retrieval integration it feeds.
+                   serving path and the losses' gradients, ported with
+                   the retrieval integration it feeds.
+  gnn.py         — GraphSAGE: full-batch, sampled and batched forwards and
+                   losses over ``SegmentMean``, the chunked segment mean
+                   with its own backward, and the fanout sampler.
 
-The reference's other families wait for their slices (``ROADMAP.md``,
-Queue 1): GraphSAGE (``gnn.py``), and every family's gradients for the
-training slice.
+Every family's loss is differentiable (``launch/train.py`` trains them)
+but the MoE dispatch's, which waits for a later slice (``ROADMAP.md``
+Queue 1 item 7).
 """
-from . import layers, moe, recsys, transformer  # noqa: E402
+from . import gnn, layers, moe, recsys, transformer  # noqa: E402
 
-__all__ = ["layers", "moe", "recsys", "transformer"]
+__all__ = ["gnn", "layers", "moe", "recsys", "transformer"]

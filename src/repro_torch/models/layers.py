@@ -1,10 +1,11 @@
 """Transformer building blocks of the decoder LMs: the PyTorch port of the
-JAX package's ``models/layers.py``, forward values only (the flash
-attention's custom backward waits for the training slice).
+JAX package's ``models/layers.py``, with the flash attention's
+FlashAttention-2 backward (``_FlashAttention``).
 
 Pure functions over tensors; dtypes follow the activations, with f32
-inside the norms, the RoPE angles, the SwiGLU gate and the attention
-scores and softmax, at the reference's points:
+(f64 for f64 activations) inside the norms, the SwiGLU gate and the
+attention scores and softmax, and f32 RoPE angles, at the reference's
+points:
 
 * scores and the PV product are f32 from operands in the activation dtype
   (``preferred_element_type=float32`` in the reference): ``mm_f32``;
@@ -34,9 +35,15 @@ _NEG_INF = float("-inf")
 CPU_F64_BLOCK = 16 << 20
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype of the f32 steps: f32, f64 for f64 operands (so an f64
+    model is f64 throughout, as the gradient checks want)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    x32 = x.float()
+    x32 = x.to(_acc_dtype(x))
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps) * (1.0 + scale.float())
     return out.to(x.dtype)
@@ -89,7 +96,7 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     dtype = x.dtype
     g = matmul(x, w_gate.to(dtype))
     u = matmul(x, w_up.to(dtype))
-    h = F.silu(g.float()).to(dtype) * u
+    h = F.silu(g.to(_acc_dtype(g))).to(dtype) * u
     del g, u
     return matmul(h, w_down.to(dtype))
 
@@ -128,7 +135,8 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched ``a @ b`` as an f32 product: f32 output, f32 accumulation.
+    """Batched ``a @ b`` as an f32 product: f32 output, f32 accumulation
+    (f64 operands keep an f64 product, for the gradient checks).
 
     f32 operands take ``torch.bmm`` (TF32 is off on the card; the
     attention's K is a head, a kv block or a cache of probabilities
@@ -138,7 +146,7 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     upcast first: the product of two bf16 values is exact in f32, so both
     are the reference's ``preferred_element_type=float32`` product.  A
     plain bf16 ``bmm`` would round each score to bf16 (8 bits lost)."""
-    if a.dtype == torch.float32 and b.dtype == torch.float32:
+    if a.dtype == b.dtype and a.dtype in (torch.float32, torch.float64):
         return torch.bmm(a, b)
     if a.is_cuda:
         return torch.bmm(a, b, out_dtype=torch.float32)
@@ -146,7 +154,7 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Chunked (flash) attention, forward
+# Chunked (flash) attention
 # ---------------------------------------------------------------------------
 
 def _band_geometry(S: int, window: int, q_chunk: int, kv_chunk: int):
@@ -222,40 +230,16 @@ def _mask_rows(s4: torch.Tensor, r0: int, k0: int, kv_chunk: int,
         s4[:, lo:hi].masked_fill_(~ok[None, :, None, :], _NEG_INF)
 
 
-def chunked_attention(
-    q: torch.Tensor,        # [B, S, H, dh]  (RoPE already applied)
-    k: torch.Tensor,        # [B, S, KV, dh]
-    v: torch.Tensor,        # [B, S, KV, dh]
-    *,
-    window: int = 0,        # 0 = full causal; >0 = sliding window
-    q_chunk: int = 1024,
-    kv_chunk: int = 1024,
-    p_dtype="float32",      # dtype the probability blocks are held in
-) -> torch.Tensor:
-    """Flash attention forward: the [S, S] score matrix is never formed.
-    Every query chunk at once, a loop over kv blocks with a running (max,
-    denominator) per query row (see the module docstring).  Returns
-    [B, S, H, dh] in q's dtype."""
-    B, S, H, dh = q.shape
-    KV = k.shape[2]
-    G = H // KV                                   # GQA group size
-    q_chunk = min(q_chunk, S)
-    kv_chunk = min(kv_chunk, S)
-    assert S % q_chunk == 0 and S % kv_chunk == 0
-    if isinstance(p_dtype, str):
-        p_dtype = getattr(torch, p_dtype)
+def _flash_fwd(qh, kh, vh, *, S: int, G: int, window: int, q_chunk: int,
+               kv_chunk: int, p_dtype):
+    """The forward on [B*KV, S, G, dh] queries and [B*KV, S, dh] keys and
+    values: (acc [B*KV, S*G, dh] f32 unnormalised, m, l [B*KV, S*G])."""
+    BK, dh = qh.shape[0], qh.shape[-1]
     scale = dh ** -0.5
-    BK = B * KV
-    # [B, S, KV, G, dh] -> [B*KV, S, G, dh]: a run of query rows is one
-    # contiguous [rows * G, dh] matrix per (batch, kv head)
-    qh = q.reshape(B, S, KV, G, dh).permute(0, 2, 1, 3, 4).reshape(
-        BK, S, G, dh)
-    kh = k.permute(0, 2, 1, 3).reshape(BK, S, dh)
-    vh = v.permute(0, 2, 1, 3).reshape(BK, S, dh)
-    dev = q.device
-    m = torch.full((BK, S * G), _NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((BK, S * G), dtype=torch.float32, device=dev)
-    acc = torch.zeros((BK, S * G, dh), dtype=torch.float32, device=dev)
+    dev, dt = qh.device, _acc_dtype(qh)
+    m = torch.full((BK, S * G), _NEG_INF, dtype=dt, device=dev)
+    l = torch.zeros((BK, S * G), dtype=dt, device=dev)
+    acc = torch.zeros((BK, S * G, dh), dtype=dt, device=dev)
 
     for j, qa, qb in block_plan(S, window, q_chunk, kv_chunk):
         r0, r1 = qa * q_chunk, qb * q_chunk
@@ -279,13 +263,114 @@ def chunked_attention(
         p = s.to(p_dtype)
         corr = torch.where(torch.isfinite(m_old), torch.exp(m_old - m_safe),
                            torch.zeros((), device=dev))
-        l[:, rows] = l[:, rows] * corr + p.float().sum(dim=-1)
+        l[:, rows] = l[:, rows] * corr + p.to(dt).sum(dim=-1)
         pv = mm_f32(p.to(vj.dtype), vj)
         del s, p
         acc[:, rows] = acc[:, rows] * corr[..., None] + pv
         m[:, rows] = m_new
+    return acc, m, l
 
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
+
+def _flash_bwd(qh, kh, vh, out, lse, dout, *, S: int, G: int, window: int,
+               q_chunk: int, kv_chunk: int, p_dtype):
+    """FlashAttention-2 backward from the saved logsumexp, over the
+    forward's visits (``block_plan``): each visited block recomputes its
+    probabilities and adds to dq, dk and dv (f32; f64 for f64 operands).  The reference runs
+    the same recurrences in two passes (dq by query chunk, dk/dv by kv
+    block); their sums over blocks are the same terms in another order."""
+    BK, dh = qh.shape[0], qh.shape[-1]
+    scale = dh ** -0.5
+    dev, dt = qh.device, _acc_dtype(qh)
+    q2 = qh.reshape(BK, S * G, dh)
+    do = dout.to(dt)
+    delta = (do * out).sum(dim=-1)                          # [BK, S*G]
+    lse_safe = torch.where(torch.isfinite(lse), lse,
+                           torch.zeros((), device=dev))
+    do_p = do.to(p_dtype)
+    dq = torch.zeros((BK, S * G, dh), dtype=dt, device=dev)
+    dk = torch.zeros((BK, S, dh), dtype=dt, device=dev)
+    dv = torch.zeros((BK, S, dh), dtype=dt, device=dev)
+    for j, qa, qb in block_plan(S, window, q_chunk, kv_chunk):
+        r0, r1 = qa * q_chunk, qb * q_chunk
+        k0 = j * kv_chunk
+        rows = slice(r0 * G, r1 * G)
+        kj = kh[:, k0:k0 + kv_chunk]
+        vj = vh[:, k0:k0 + kv_chunk]
+        qr = q2[:, rows]
+        s = mm_f32(qr, kj.transpose(1, 2))
+        s.mul_(scale)
+        _mask_rows(s.view(BK, r1 - r0, G, kv_chunk), r0, k0, kv_chunk,
+                   window)
+        p = torch.exp(s - lse_safe[:, rows, None])
+        del s
+        dv[:, k0:k0 + kv_chunk] += mm_f32(p.to(p_dtype).transpose(1, 2),
+                                          do_p[:, rows])
+        dp = mm_f32(do_p[:, rows], vj.to(p_dtype).transpose(1, 2))
+        ds = (p * (dp - delta[:, rows, None]) * scale).to(p_dtype)
+        del p, dp
+        dq[:, rows] += mm_f32(ds, kj.to(p_dtype))
+        dk[:, k0:k0 + kv_chunk] += mm_f32(ds.transpose(1, 2),
+                                          qr.to(p_dtype))
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``chunked_attention`` with the FlashAttention-2 backward: saves q,
+    k, v, the output and the logsumexp, no score block.  Where no
+    gradient is wanted (``inference_mode``, ``no_grad``, inputs that need
+    none) ``apply`` records nothing and the saved tensors go with it."""
+
+    @staticmethod
+    def forward(ctx, qh, kh, vh, geo: dict):
+        acc, m, l = _flash_fwd(qh, kh, vh, **geo)
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
+                          torch.full((), _NEG_INF, device=l.device))
+        ctx.geo = geo
+        ctx.save_for_backward(qh, kh, vh, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qh, kh, vh, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(qh, kh, vh, out, lse, dout, **ctx.geo)
+        return (dq.reshape(qh.shape).to(qh.dtype), dk.to(kh.dtype),
+                dv.to(vh.dtype), None)
+
+
+def chunked_attention(
+    q: torch.Tensor,        # [B, S, H, dh]  (RoPE already applied)
+    k: torch.Tensor,        # [B, S, KV, dh]
+    v: torch.Tensor,        # [B, S, KV, dh]
+    *,
+    window: int = 0,        # 0 = full causal; >0 = sliding window
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+    p_dtype="float32",      # dtype the probability blocks are held in
+) -> torch.Tensor:
+    """Flash attention: the [S, S] score matrix is never formed.  Every
+    query chunk at once, a loop over kv blocks with a running (max,
+    denominator) per query row (see the module docstring).  It runs as
+    ``_FlashAttention``, whose backward recomputes each block from the
+    saved logsumexp.  Returns [B, S, H, dh] in q's dtype."""
+    B, S, H, dh = q.shape
+    KV = k.shape[2]
+    G = H // KV                                   # GQA group size
+    q_chunk = min(q_chunk, S)
+    kv_chunk = min(kv_chunk, S)
+    assert S % q_chunk == 0 and S % kv_chunk == 0
+    if isinstance(p_dtype, str):
+        p_dtype = getattr(torch, p_dtype)
+    BK = B * KV
+    # [B, S, KV, G, dh] -> [B*KV, S, G, dh]: a run of query rows is one
+    # contiguous [rows * G, dh] matrix per (batch, kv head)
+    qh = q.reshape(B, S, KV, G, dh).permute(0, 2, 1, 3, 4).reshape(
+        BK, S, G, dh)
+    kh = k.permute(0, 2, 1, 3).reshape(BK, S, dh)
+    vh = v.permute(0, 2, 1, 3).reshape(BK, S, dh)
+    geo = dict(S=S, G=G, window=window, q_chunk=q_chunk, kv_chunk=kv_chunk,
+               p_dtype=p_dtype)
+    out = _FlashAttention.apply(qh, kh, vh, geo)
     out = out.reshape(B, KV, S, G, dh).permute(0, 2, 1, 3, 4)
     return out.reshape(B, S, H, dh).to(q.dtype)
 

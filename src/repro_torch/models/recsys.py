@@ -1,6 +1,6 @@
 """Recsys model family: FM, DeepFM, xDeepFM (CIN), SASRec -- the PyTorch
-port of the JAX package's ``models/recsys.py``, serving path (forward
-values; the gradients wait for the training slice).
+port of the JAX package's ``models/recsys.py``: the serving path and the
+losses' gradients (``launch/train.py`` trains the smoke configs).
 
 ``RecsysModel`` holds the FM family's parameters and ``SASRec`` SASRec's,
 named after the reference's parameter dict (``w0``, ``w_lin``, ``V``,
@@ -14,7 +14,9 @@ factorized (dot-product) part of each model scores a million candidates
 through the FreshDiskANN index (or an exact batched dot as the baseline,
 ``retrieval_topk``).
 
-Three departures in form, none in value:
+Three departures in form, none in value (table rows are read with
+``F.embedding``, whose backward on the card sums each row's gradients in
+a fixed order):
 
 * ``embedding_bag`` sums each bag in a fixed order (rows sorted by bag,
   then a segmented sum over the sorted rows), not with ``index_add_``,
@@ -178,7 +180,7 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     seg = segments.to(dev, torch.int64)
     order = torch.sort(seg, stable=True).indices
     cnt = torch.bincount(seg, minlength=n_segments)[:n_segments]
-    rows = table[ids.to(dev, torch.int64)[order]]
+    rows = F.embedding(ids.to(dev, torch.int64)[order], table)
     out = torch.segment_reduce(rows, "sum", lengths=cnt, axis=0)
     if mode == "mean":
         out = out / torch.clamp(cnt.to(out.dtype), min=1.0)[:, None]
@@ -290,7 +292,7 @@ def recsys_forward(model: RecsysModel, ids: torch.Tensor,
                    cfg: RecsysConfig) -> torch.Tensor:
     """ids int32 [B, n_sparse] (pre-offset per field) -> logits [B]."""
     emb = field_lookup(model.V, ids, cfg)                 # [B, m, d]
-    lin = model.w_lin[ids.long()].sum(-1)                 # [B]
+    lin = F.embedding(ids.long(), model.w_lin[:, None])[..., 0].sum(-1)
     out = model.w0 + lin
     if cfg.kind in ("fm", "deepfm"):
         out = out + fm_interaction(emb)

@@ -1,7 +1,7 @@
 """Decoder-only transformer family: the PyTorch port of the JAX package's
-``models/transformer.py``, serving path (forward values) of the five LM
-archs: the dense qwen3-14b, qwen2-1.5b and gemma3-12b, and the MoE
-mixtral-8x7b and qwen3-moe-30b-a3b.
+``models/transformer.py``: the serving path of the five LM archs (the
+dense qwen3-14b, qwen2-1.5b and gemma3-12b, and the MoE mixtral-8x7b and
+qwen3-moe-30b-a3b) and ``lm_loss``'s gradients for the dense ones.
 
 The reference's layout is kept:
 
@@ -27,7 +27,8 @@ The reference's layout is kept:
   assignment, while a prefill may.
 
 The reference's ``jax.checkpoint`` + ``lax.scan`` over groups is a loop
-over groups under ``torch.inference_mode()``; its activation-sharding
+over groups (``_forward``; ``forward`` runs it under
+``torch.inference_mode()``, ``lm_loss`` under autograd); its activation-sharding
 hints (``shard_act``, ``gathered``) are identities on one device and have
 no counterpart.  ``decode_step`` updates the caches it is given in place
 (the reference donates them) and returns them: a cache handed to a step
@@ -39,6 +40,7 @@ import dataclasses
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..core.config import resolve_device
 from .layers import (chunked_attention, decode_attention, matmul, rms_norm,
@@ -297,6 +299,15 @@ def cache_widths(cfg: TransformerConfig, max_len: int) -> list:
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
             *, collect_cache: bool = False, last_only: bool = False,
             routing: list | None = None):
+    """The prefill / scoring forward under ``torch.inference_mode`` (no
+    gradient); ``_forward`` says what it returns."""
+    return _forward(params, tokens, cfg, collect_cache=collect_cache,
+                    last_only=last_only, routing=routing)
+
+
+def _forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+             *, collect_cache: bool = False, last_only: bool = False,
+             routing: list | None = None):
     """tokens [B, S] -> (logits [B, S, V] (or [B, 1, V] with last_only),
     aux_loss (f32: summed over the MoE layers, 0.0 for a dense model),
     caches|None).
@@ -312,7 +323,9 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     """
     B, S = tokens.shape
     dev = params["embed"].device
-    x = params["embed"][tokens.to(dev).long()].to(cfg.act_dtype)
+    # F.embedding: its backward on the card sums each row's gradients in
+    # a fixed order (an indexed read's backward adds them atomically)
+    x = F.embedding(tokens.to(dev).long(), params["embed"]).to(cfg.act_dtype)
     tables = rope_tables(torch.arange(S, device=dev)[None], cfg.d_head,
                          cfg.rope_theta, dev)             # positions [1, S]
     caches = [] if collect_cache else None
@@ -352,13 +365,20 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     return logits, aux_total, caches
 
 
-@torch.inference_mode()
 def lm_loss(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
             cfg: TransformerConfig, aux_weight: float = 0.01):
     """Mean next-token cross-entropy plus ``aux_weight`` x the aux loss (0
-    for a dense model): (loss, {"ce", "aux"}), forward value only."""
-    logits, aux, _ = forward(params, tokens, cfg)
-    logits = logits.float()
+    for a dense model): (loss, {"ce", "aux"}), differentiable in a dense
+    model's parameters.  A MoE model's loss is a value only: asked for a
+    gradient it raises ``NotImplementedError`` (the MoE dispatch's
+    gradients are ROADMAP item 7)."""
+    if cfg.is_moe and torch.is_grad_enabled() and any(
+            t.requires_grad for _, t in param_items(params)):
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE dispatch's gradients are not ported "
+            f"(ROADMAP item 7); lm_loss gives a MoE model's value only")
+    logits, aux, _ = _forward(params, tokens, cfg)
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         targets.to(logits.device).long()[..., None])[..., 0]

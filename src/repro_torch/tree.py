@@ -1,0 +1,160 @@
+"""Nested containers of tensors ("trees"): the training stack's parameter
+dicts, optimizer states and checkpoints.
+
+The leaves come in the JAX package's flatten order: a dict's values by
+sorted key, a list's and a tuple's in order, a NamedTuple's by field,
+``None`` holding no leaf.  So the n-th leaf of a state here is the n-th
+leaf of the same state in the reference, and checkpoints written by the
+two packages compare one file for one file.
+"""
+from __future__ import annotations
+
+import collections
+from typing import Any, Callable, List, Tuple
+
+
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
+def tree_flatten(tree) -> Tuple[List[Any], Any]:
+    """(leaves, structure): ``tree_unflatten(structure, leaves)`` rebuilds
+    the tree."""
+    leaves: list = []
+
+    def walk(node):
+        if node is None:
+            return ("none",)
+        if isinstance(node, dict):
+            keys = sorted(node)
+            return ("dict", tuple(keys), tuple(walk(node[k]) for k in keys))
+        if _is_namedtuple(node):
+            return ("namedtuple", type(node),
+                    tuple(walk(getattr(node, f)) for f in node._fields))
+        if isinstance(node, (list, tuple)):
+            kind = "list" if isinstance(node, list) else "tuple"
+            return (kind, len(node), tuple(walk(c) for c in node))
+        leaves.append(node)
+        return ("leaf",)
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(structure, leaves) -> Any:
+    it = iter(leaves)
+
+    def build(s):
+        kind = s[0]
+        if kind == "leaf":
+            return next(it)
+        if kind == "none":
+            return None
+        if kind == "dict":
+            return {k: build(c) for k, c in zip(s[1], s[2])}
+        if kind == "namedtuple":
+            return s[1](*(build(c) for c in s[2]))
+        children = [build(c) for c in s[2]]
+        return children if kind == "list" else tuple(children)
+
+    out = build(structure)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the structure holds")
+    return out
+
+
+def tree_leaves(tree) -> list:
+    return tree_flatten(tree)[0]
+
+
+def tree_map(fn: Callable, tree, *rest) -> Any:
+    """``fn`` over the leaves of ``tree`` and of the trees in ``rest``
+    (which share its structure), leaf by leaf."""
+    leaves, structure = tree_flatten(tree)
+    others = [tree_flatten(r)[0] for r in rest]
+    return tree_unflatten(structure,
+                          [fn(*args) for args in zip(leaves, *others)])
+
+
+def tree_paths(tree) -> List[str]:
+    """Each leaf's dotted path (``layers.0.w_self``), in leaf order."""
+    paths: list = []
+
+    def walk(node, prefix):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            items = [(k, node[k]) for k in sorted(node)]
+        elif _is_namedtuple(node):
+            items = [(f, getattr(node, f)) for f in node._fields]
+        elif isinstance(node, (list, tuple)):
+            items = list(enumerate(node))
+        else:
+            paths.append(prefix)
+            return
+        for k, v in items:
+            walk(v, f"{prefix}.{k}" if prefix else str(k))
+
+    walk(tree, "")
+    return paths
+
+
+def structure_to_json(structure) -> Any:
+    """A structure from ``tree_flatten`` as plain JSON values (a
+    NamedTuple by its class name and fields)."""
+    kind = structure[0]
+    if kind in ("leaf", "none"):
+        return [kind]
+    if kind == "dict":
+        return ["dict", list(structure[1]),
+                [structure_to_json(c) for c in structure[2]]]
+    if kind == "namedtuple":
+        cls = structure[1]
+        return ["namedtuple", cls.__name__, list(cls._fields),
+                [structure_to_json(c) for c in structure[2]]]
+    return [kind, structure[1], [structure_to_json(c) for c in structure[2]]]
+
+
+def structure_from_json(obj, namedtuples: dict | None = None) -> Any:
+    """The inverse of ``structure_to_json``: a NamedTuple class is taken
+    from ``namedtuples`` by name, or made anew with the saved fields."""
+    kind = obj[0]
+    if kind in ("leaf", "none"):
+        return (kind,)
+    if kind == "dict":
+        return ("dict", tuple(obj[1]),
+                tuple(structure_from_json(c, namedtuples) for c in obj[2]))
+    if kind == "namedtuple":
+        name, fields = obj[1], obj[2]
+        cls = (namedtuples or {}).get(name) or collections.namedtuple(
+            name, fields)
+        return ("namedtuple", cls,
+                tuple(structure_from_json(c, namedtuples) for c in obj[3]))
+    return (kind, obj[1],
+            tuple(structure_from_json(c, namedtuples) for c in obj[2]))
+
+
+def module_tree(model) -> dict:
+    """An ``nn.Module``'s parameters as a tree by their dotted names (a
+    list where a name part is a position): ``mlp.0.w`` becomes
+    ``tree["mlp"][0]["w"]``, the reference's parameter dict.  Detached
+    copies."""
+    tree: dict = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        node = tree
+        for part, nxt in zip(parts[:-1], parts[1:]):
+            key = int(part) if part.isdigit() else part
+            child = [] if nxt.isdigit() else {}
+            if isinstance(node, list):
+                if len(node) <= key:
+                    node.append(child)
+                node = node[key]
+            else:
+                node = node.setdefault(key, child)
+        last = parts[-1]
+        value = p.detach().clone()
+        if isinstance(node, list):
+            node.append(value)
+        else:
+            node[last] = value
+    return tree

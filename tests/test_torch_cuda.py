@@ -15,7 +15,9 @@ The LMs, dense and MoE (no kernel of their own), are held against the CPU
 here too: each layer (the MoE FFN with capacity binding included) in f32
 and bf16, one pattern group of each FULL config at full width (MoE: the
 routing too), and decode against forward at full width on two pattern
-groups (MoE: a forward that drops nothing).
+groups (MoE: a forward that drops nothing).  GraphSAGE's segment mean
+(forward and backward) and one full-batch and one sampled AdamW train
+step are held against the CPU and run twice for equal bits.
 """
 import numpy as np
 import pytest
@@ -639,3 +641,102 @@ def test_lm_decode_matches_forward_on_card(dev, name):
     cfg = dataclasses.replace(full, n_layers=2 * len(full.pattern),
                               dtype="float32")
     _chip_smoke().lm_decode_vs_forward(name, cfg, 128, 0, dev)
+
+
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "gemma3-12b"])
+def test_lm_loss_grads_card_equals_cpu(dev, name):
+    """``lm_loss`` and its gradients through the flash backward at S 64
+    in kv blocks of 16 (gemma3 with its window of 8) on the card against
+    the CPU, to ``chip_smoke._tolerance``."""
+    _chip_smoke().lm_grads_card_vs_cpu(name, dev)
+
+
+def _sage_graph_pair(dev, n=3000, e=40_000, seed=5):
+    from repro_torch.models import gnn
+    g = np.random.default_rng(seed)
+    src = g.integers(0, n, e)
+    dst = (src + g.zipf(1.5, e)) % n
+    cpu = gnn.SageGraph(torch.from_numpy(src), torch.from_numpy(dst), n)
+    card = gnn.SageGraph(_t(src, dev), _t(dst, dev), n)
+    return cpu, card
+
+
+@pytest.mark.parametrize("max_edges", [None, 5000, 1])
+def test_segment_mean_card_equals_cpu_and_repeats(dev, max_edges):
+    """``SegmentMean`` forward and backward on the card: equal to the
+    CPU's (each segment summed in edge order on both), and two runs give
+    equal bits."""
+    from repro_torch.models import gnn
+    cpu_g, card_g = _sage_graph_pair(dev)
+    g = np.random.default_rng(6)
+    h = g.standard_normal((3000, 64)).astype(np.float32)
+    gy = g.standard_normal((3000, 64)).astype(np.float32)
+
+    def run(graph, x, y):
+        x = x.clone().requires_grad_()
+        out = gnn.segment_mean(x, graph, True, max_edges)
+        out.backward(y)
+        return out.detach().cpu(), x.grad.cpu()
+
+    want = run(cpu_g, torch.from_numpy(h), torch.from_numpy(gy))
+    a = run(card_g, _t(h, dev), _t(gy, dev))
+    b = run(card_g, _t(h, dev), _t(gy, dev))
+    for x, y, w in zip(a, b, want):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x, w, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("form", ["full", "sampled"])
+def test_sage_train_step_card_equals_cpu(dev, form):
+    """One AdamW train step of the full-batch and the sampled GraphSAGE
+    on the card: its loss and gradients against the same step's on the
+    CPU (rtol 1e-4, atol 1e-6 x the leaf's largest |g|: f64 products, f32
+    sums in edge order), and the step run twice on the card gives equal
+    bits.  Parameters after the step are not compared: AdamW's first
+    step moves each by about sign(g) * lr, so a gradient element near 0
+    that differs by a rounding moves its parameter visibly."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.config import resolve_device
+    from repro_torch.data.pipelines import synthetic_graph
+    from repro_torch.models import gnn
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.training.steps import loss_and_grads, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    resolve_device(dev)                              # TF32 off
+    cfg = get_arch("graphsage-reddit").smoke_config
+    gr = synthetic_graph(600, 6, cfg.d_feat, cfg.n_classes, seed=2)
+    params = gnn.init_sage_params(cfg, torch.Generator().manual_seed(1),
+                                  "cpu")
+    out = {}
+    for where in ("cpu", "card"):
+        d = torch.device("cpu") if where == "cpu" else dev
+        t = {k: torch.from_numpy(v).to(d) for k, v in gr.items()}
+        if form == "full":
+            graph = gnn.SageGraph(t["src"], t["dst"], 600)
+            mask = torch.arange(600, device=d) % 3 == 0
+
+            def loss_fn(p, b, t=t, graph=graph, mask=mask):
+                loss = gnn.sage_loss_full(p, t["feats"], graph, t["labels"],
+                                          mask, cfg)
+                return loss, {}
+        else:
+            seeds = torch.arange(0, 600, 7, device=d)
+
+            def loss_fn(p, b, t=t, seeds=seeds):
+                loss = gnn.sage_loss_sampled(p, 3, t["feats"], t["offsets"],
+                                             t["nbrs"], seeds,
+                                             t["labels"][seeds], cfg)
+                return loss, {}
+        p = tree_map(lambda x: x.to(d), params)
+        loss, _, grads = loss_and_grads(loss_fn, p, {})
+        step = make_train_step(loss_fn, lr=3e-3)
+        out[where] = (loss, grads,
+                      [step(p, adamw_init(p), {}) for _ in range(2)])
+    (pa, oa, _), (pb, ob, _) = out["card"][2]
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves((pa, oa)),
+                                                 tree_leaves((pb, ob))))
+    torch.testing.assert_close(out["card"][0].cpu(), out["cpu"][0],
+                               rtol=1e-4, atol=1e-6)
+    for x, y in zip(out["card"][1], out["cpu"][1]):
+        torch.testing.assert_close(x.cpu(), y, rtol=1e-4,
+                                   atol=1e-6 * float(y.abs().max()))

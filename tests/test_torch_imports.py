@@ -3,7 +3,9 @@
 In a fresh interpreter where ``import jax`` and ``import repro`` fail
 (``sys.modules`` entries set to None), every module of ``repro_torch``
 imports (the serving, distributed, launch, data, models and configs
-subpackages named, the LM modules and configs among them),
+subpackages named, the LM modules and configs among them, and GraphSAGE
+and the training stack: ``models.gnn``, ``optim``, ``training``,
+``launch.train``, ``configs.graphsage_reddit``),
 ``chip_smoke.py`` and the port's two examples
 (``examples/torch_quickstart.py``, ``examples/torch_serve_ann.py``)
 and ``scripts/torch_lm_probe.py`` import as modules (without running
@@ -79,7 +81,10 @@ print(" ".join(names))
                 "configs.sasrec", "configs.freshdiskann_1b",
                 "configs.qwen3_14b", "configs.qwen2_1_5b",
                 "configs.gemma3_12b", "configs.mixtral_8x7b",
-                "configs.qwen3_moe_30b"):
+                "configs.qwen3_moe_30b", "models.gnn", "optim",
+                "optim.adamw", "training", "training.steps",
+                "training.loop", "launch.train", "checkpoint.store", "tree",
+                "configs.graphsage_reddit"):
         assert f"repro_torch.{mod}" in names
 
 
