@@ -13,7 +13,9 @@ Phases:
            and Gaussian ones (stated tolerance), and time kernel (CUDA
            events, host us per call, torch.profiler device ms), plain
            version and, where one PyTorch call computes the same function,
-           that call (``adc_rows`` at B 1024 x K 256, B 256 and K 512;
+           that call (``l2_rows`` at K 256 and K 100, its bound from the
+           distinct valid rows; ``adc_rows`` at B 1024 x K 256, B 256 and
+           K 512;
            ``frontier_select`` also on unsorted candidate lists and at the
            filtered searches' L 150 x V 241 and L 512 x V 784, past the
            256 visited ids it holds in registers; ``robust_prune_fp``
@@ -140,10 +142,11 @@ Phases:
   launch   (only when named) the launch path of the nine kernels at the
            main path's shapes on random inputs: event ms, host us per call
            and profiler device ms, beside ``torch.index_select`` and
-           ``torch.topk``.  With ``--src DIR`` the port is imported from DIR
-           (e.g. a parent tree unpacked with ``git archive``), so
-           ``--src DIR --phases build,launch`` times that tree's launch path
-           on the same card.
+           ``torch.topk``; ``l2_rows`` also at K 100 and at d 50 (with
+           its bound).  With ``--src DIR`` the port is imported from DIR
+           (e.g. a parent tree unpacked with ``git archive``), so ``--src
+           DIR --phases build,launch`` times that tree's launch path on
+           the same card.
 
 P (the phases) defaults to build,kernels,parity,recsys,lm,gnn,train,main,
 filtered,storage,serving.
@@ -551,14 +554,28 @@ def l2_rows_reading(g, table_int, table, B: int, K: int) -> dict:
     plain = time_ms(lambda: ref.l2_rows_ref(q, table, ids))
     gathered = table[ids.clamp(min=0).long()]
     lib = time_ms(lambda: torch.cdist(q[:, None, :], gathered))
-    nbytes = B * K * d * 4 + B * d * 4 + B * K * 4 * 2
+    nbytes, nflops = l2_rows_work(ids, n_table, d)
     log(f"[kernels] l2_rows B={B} K={K} d={d}: max_abs_err "
         f"{float(err.max()):.3g}  kernel {_fmt_times(t)}  plain "
         f"{plain:.4f} ms  cdist(gathered) {lib:.4f} ms  bound "
-        f"{bound_ms(nbytes, 4.0 * B * K * d)[0]:.4f} ms")
+        f"{bound_ms(nbytes, nflops)[0]:.4f} ms (every pair's row: "
+        f"{bound_ms(B * K * d * 4 + B * d * 4 + B * K * 8, 0)[0]:.4f} ms)")
     return dict(err=err.max(), times=t, plain_ms=plain, nbytes=nbytes,
-                nflops=4.0 * B * K * d, library_ms=lib,
+                nflops=nflops, library_ms=lib,
                 shape=f"B={B} K={K} d={d} N={n_table}")
+
+
+def l2_rows_work(ids, n: int, d: int) -> tuple[int, float]:
+    """The bytes ``l2_rows`` must move on ``ids`` [B, K] into a table of
+    n rows of width d (each distinct valid row, 0 <= id < n, read once, q
+    and ids read, the output written) and its operations (2d
+    multiply-adds a valid pair)."""
+    import torch
+    B, K = ids.shape
+    valid = ids[(ids >= 0) & (ids < n)]
+    rows = int(torch.unique(valid).numel())
+    return (rows * d * 4 + B * d * 4 + B * K * 4 * 2,
+            4.0 * d * int(valid.numel()))
 
 
 def adc_rows_reading(g, codes, lut_fn, B: int, K: int) -> dict:
@@ -661,6 +678,8 @@ def phase_kernels(seed: int, n_table: int) -> dict:
         r = l2_rows_reading(g, table_int, table, 1024, K)
         if K == 256:
             record("l2_rows", **r)
+        else:
+            recs["l2_rows"]["by_shape"] = [shape_entry(r)]
 
     # ---- adc_rows: B 1024 x K 256 (search, W 4), B 256 x K 256 (the
     # merges' insert chunks) and B 1024 x K 512 (serving, W 8); m 32,
@@ -811,8 +830,10 @@ def phase_launch(seed: int, n_table: int) -> None:
     """The launch path of the nine kernels at the main path's shapes, on
     random inputs (the repair kernels on a random R-64 graph with 1 %
     deleted), with no main path needed: one ``[launch]`` JSON line per
-    call with its ``launch_times``; ``adc_rows`` also at B 256 and at
-    K 512, ``delete_repair_sdc`` also on a block of 1024 consecutive slots;
+    call with its ``launch_times``; ``l2_rows`` also at K 100 and at d 50
+    (``l2_launch_inputs``, each with its bound),
+    ``adc_rows`` also at B 256 and at K 512, ``delete_repair_sdc`` also on
+    a block of 1024 consecutive slots;
     also ``torch.index_select`` at ``gather_rows``' shape and
     ``torch.topk`` at ``block_topk``'s N 20.
     Uses only calls every tree of the port shares (``robust_prune_fp``
@@ -851,8 +872,9 @@ def phase_launch(seed: int, n_table: int) -> None:
     safe = g_ids.clamp(min=0).flatten().long()
     t_d = torch.randn(1024, 20, generator=gen, device=dev)
     t_i = torch.arange(20, dtype=torch.int32, device=dev)
+    l2 = l2_launch_inputs(g, gen, table, q)
     calls = {
-        "l2_rows": lambda: ops.l2_rows(q, table, ids),
+        **{name: (lambda a=a: ops.l2_rows(*a)) for name, a in l2.items()},
         "adc_rows": lambda: ops.adc_rows(luts, codes, ids),
         "adc_rows B=256": lambda: ops.adc_rows(luts[:256], codes, ids[:256]),
         "adc_rows K=512": lambda: ops.adc_rows(luts, codes, ids512),
@@ -875,7 +897,33 @@ def phase_launch(seed: int, n_table: int) -> None:
                                          sorted=True),
     }
     for name, fn in calls.items():
-        log("[launch] " + json.dumps(dict(name=name, **launch_times(fn))))
+        extra = {}
+        if name in l2:
+            _, t, ids_ = l2[name]
+            b, by = bound_ms(*l2_rows_work(ids_, *t.shape))
+            extra = dict(bound_ms=b, bound_by=by)
+        log("[launch] " + json.dumps(dict(name=name, **launch_times(fn),
+                                          **extra)))
+
+
+def l2_launch_inputs(g, gen, table, q) -> dict:
+    """``l2_rows``' three main-path shapes, 10 % of the ids -1 as in the
+    kernels phase: B 1024 x K 256 (beam rounds) and K 100 (rerank) at d 128
+    on ``table``, B 1024 x K 256 at d 50 on a ``RECSYS_LIVE``-row table
+    (SASRec retrieval).  {name: (q, table, ids)}."""
+    import torch
+    dev = table.device
+
+    def ids_for(n, K):
+        ids = g.integers(0, n, (q.shape[0], K)).astype(np.int32)
+        ids[g.random(ids.shape) < 0.1] = -1
+        return torch.from_numpy(ids).to(dev)
+
+    t50 = torch.randn(RECSYS_LIVE, 50, generator=gen, device=dev)
+    q50 = torch.randn(q.shape[0], 50, generator=gen, device=dev)
+    return {"l2_rows": (q, table, ids_for(table.shape[0], 256)),
+            "l2_rows K=100": (q, table, ids_for(table.shape[0], 100)),
+            "l2_rows d=50": (q50, t50, ids_for(RECSYS_LIVE, 256))}
 
 
 # --------------------------------------------------------------- phase 3
@@ -1494,6 +1542,10 @@ RECSYS_CAPACITY = 524_288
 RECSYS_RO_POINTS = 4096
 RECSYS_MERGE_THRESHOLD = 16_384
 RECSYS_QUERIES = 4 * 1024
+# The d 50 table of the recsys phase's SASRec index: its live items after
+# 1 % retired and one threshold merge's inserts.
+RECSYS_LIVE = (RECSYS_INDEX - RECSYS_INDEX // 100 + RECSYS_MERGE_THRESHOLD
+               + RECSYS_RO_POINTS // 4)
 
 
 def run_ms(fn, runs: int = 20, warmup: int = 2) -> list:

@@ -44,8 +44,10 @@ def _t(x, dev):
     return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
 
-@pytest.mark.parametrize("d", [128, 24, 7, 50])
+@pytest.mark.parametrize("d", [1, 7, 24, 50, 100, 128, 130, 256])
 def test_l2_rows_exact_on_integers(dev, d):
+    """Every lane-group width (G 1 to 16) and load width (4, 8, 16
+    bytes), with the tail chunk of d % 4 != 0."""
     g = np.random.default_rng(d)
     q = _t(g.integers(-4, 5, (9, d)).astype(np.float32), dev)
     table = _t(g.integers(-4, 5, (300, d)).astype(np.float32), dev)
@@ -53,6 +55,62 @@ def test_l2_rows_exact_on_integers(dev, d):
     ids = _t(ids_np, dev)
     assert torch.equal(ops.l2_rows(q, table, ids),
                        ref.l2_rows_ref(q, table, ids))
+
+
+def _table_at(table, off_bytes):
+    """A copy of ``table`` as a contiguous view ``off_bytes`` past a
+    16-byte aligned allocation."""
+    n, d = table.shape
+    flat = torch.empty(n * d + 4, device=table.device)
+    view = flat[off_bytes // 4:off_bytes // 4 + n * d].view(n, d)
+    view.copy_(table)
+    assert view.data_ptr() % 16 == off_bytes
+    return view
+
+
+@pytest.mark.parametrize("d", [50, 128, 7])
+def test_l2_rows_route_independent(dev, d):
+    """One pair gives the same bits whatever table it is read from and
+    whatever batch it is in: Gaussian pairs read from an aligned table and
+    from its copies at 4- and 8-byte offsets (4- and 8-byte loads instead
+    of 16- or 8-byte ones), ids >= N among them, and with the query batch
+    split in two, are ``torch.equal``."""
+    g = np.random.default_rng(d + 1)
+    N = 5000
+    q = _t(g.standard_normal((64, d)).astype(np.float32), dev)
+    table = _t(g.standard_normal((N, d)).astype(np.float32), dev)
+    ids = _t(g.integers(-1, N + 2, (64, 256)).astype(np.int32), dev)
+    want = ops.l2_rows(q, table, ids)
+    assert torch.isinf(want[(ids < 0) | (ids >= N)]).all()
+    for off in (4, 8):
+        assert torch.equal(ops.l2_rows(q, _table_at(table, off), ids), want)
+    split = torch.cat([ops.l2_rows(q[:23], table, ids[:23]),
+                       ops.l2_rows(q[23:], table, ids[23:])])
+    assert torch.equal(split, want)
+    # One pair alone, and the rows fetched into a table of their own (the
+    # disk lane's rerank reads them so).
+    assert torch.equal(ops.l2_rows(q[5:6], table, ids[5:6, 17:18]),
+                       want[5:6, 17:18])
+    ok = ids[:4].clamp(0, N - 1)
+    rows = table[ok.flatten().long()].contiguous()
+    own = torch.arange(4 * 256, dtype=torch.int32, device=dev).view(4, 256)
+    assert torch.equal(ops.l2_rows(q[:4], rows, own),
+                       ops.l2_rows(q[:4], table, ok))
+
+
+def test_l2_rows_d50_within_tolerance(dev):
+    """SASRec's d 50 on Gaussian inputs against the plain version: rtol
+    1e-5 + atol 1e-3 (two summation orders of |q|^2 + |x|^2 ~ 100)."""
+    g = np.random.default_rng(50)
+    q = _t(g.standard_normal((1024, 50)).astype(np.float32), dev)
+    table = _t(g.standard_normal((20000, 50)).astype(np.float32), dev)
+    ids = _t(g.integers(-1, 20000, (1024, 256)).astype(np.int32), dev)
+    got = ops.l2_rows(q, table, ids)
+    want = ref.l2_rows_ref(q, table, ids)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got))
+    assert bool(((got[fin] - want[fin]).abs()
+                 <= 1e-5 * want[fin].abs() + 1e-3).all())
 
 
 @pytest.mark.parametrize("m,ksub", [(32, 256), (8, 16), (5, 200), (25, 256)])

@@ -12,6 +12,9 @@ exact in any order).  Gaussian fixtures: rtol 1e-5; the L2 norm identity
 ``|q|^2 - 2 q.x + |x|^2`` also gets atol 1e-4 * (|q|^2 + |x|^2) for the
 cancellation that two reduction orders round differently.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -886,6 +889,184 @@ def test_adc_rows_kernel_walk_matches_contract(B, K, m, ksub, slots, layout,
                 (t % 2, (t // 2) % 2) for t in range(len(seq))]
         assert len({len(t) for t in turns.values()}) == (1 if B % G == 0
                                                          else 2)
+
+
+def _cu_constants(name, *consts):
+    """The values of ``constexpr int`` constants in ``csrc/<name>.cu``."""
+    src = (Path(ops.__file__).parent / "csrc" / f"{name}.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {c} = (\d+);", src).group(1))
+                 for c in consts)
+
+
+# l2_rows.cu's constants: warps a block, rows a lane group loads at once,
+# 4-float chunks of a row a lane loads at once.
+_L2_MAX_WARPS, _L2_ROWS_PER_GROUP, _L2_CHUNKS_PER_LANE = _cu_constants(
+    "l2_rows", "kMaxWarps", "kRowsPerGroup", "kChunksPerLane")
+
+
+def _l2_plan(d, K):
+    """l2_rows.cu's launch: (chunks a row, lanes a row G, warps a block,
+    pairs a tile, tiles a query)."""
+    nc = -(-d // 4)
+    G = 1
+    while G < 32 and G * _L2_CHUNKS_PER_LANE < nc:
+        G *= 2
+    rows_per_warp = _L2_ROWS_PER_GROUP * 32 // G
+    warps = min(_L2_MAX_WARPS, -(-K // rows_per_warp))
+    tile = warps * rows_per_warp
+    return nc, G, warps, tile, -(-K // tile)
+
+
+def _fma32(a, b, c):
+    """One f32 fma (the f64 product of two f32s is exact; the f64 sum then
+    rounds twice, which never shows on integer inputs)."""
+    return np.float32(float(a) * float(b) + float(c))
+
+
+def _emulate_l2_rows(q, table, ids):
+    """l2_rows.cu's walk in numpy: the route from d and the table's address
+    (16-byte loads when d % 4 == 0 and it is 16-byte aligned, 8-byte when
+    d % 2 == 0 and 8-byte aligned, else 4-byte; each load checked for its
+    alignment and for staying inside its row); block g serves query g //
+    tiles, pairs (g % tiles) * tile ...; q staged zero-padded to whole
+    chunks and the tile's ids read once; warp w's group p takes rows w * 2
+    * (32 / G) + u * (32 / G) + p, u < 2; lane l of a group sums chunks l,
+    l + G, ... in order, fma by fma, floats past d read as 0; the group's
+    butterfly; |q|^2 by the same walk; ids < 0 or >= N give +inf.
+    Returns (out, route, {(b, k): [G, 2] lane sums (q.x, |x|^2) before the
+    butterfly})."""
+    B, d = q.shape
+    N, K = table.shape[0], ids.shape[1]
+    nc, G, warps, tile, tiles = _l2_plan(d, K)
+    groups = 32 // G
+    base = table.data_ptr()
+    V = (4 if d % 4 == 0 and base % 16 == 0
+         else 2 if d % 2 == 0 and base % 8 == 0 else 1)
+    tab, qn, idn = table.numpy(), q.numpy(), ids.numpy()
+    zero = np.zeros(4, np.float32)
+    out = np.full((B, K), np.nan, np.float32)
+    id_reads = np.zeros((B, K), int)
+    partials = {}
+
+    def load_chunk(row, c):
+        v = zero.copy()
+        j = 4 * c
+        for s in range(0, 4, V):
+            if j + s < d:
+                assert j + s + V <= d                      # inside the row
+                assert (base + 4 * (row * d + j + s)) % (4 * V) == 0
+                v[s:s + V] = tab[row, j + s:j + s + V]
+        return v
+
+    def lane_sums(chunk, qs):
+        sums = np.zeros((G, 2), np.float32)
+        for gl in range(G):
+            qx = xx = np.float32(0)
+            for cb in range(0, nc, G * _L2_CHUNKS_PER_LANE):
+                for i in range(_L2_CHUNKS_PER_LANE):
+                    c = cb + i * G + gl
+                    x = chunk(c)
+                    a = qs[c] if c < nc else zero
+                    for e in range(4):
+                        qx = _fma32(x[e], a[e], qx)
+                        xx = _fma32(x[e], x[e], xx)
+            sums[gl] = qx, xx
+        return sums
+
+    def group_sum(v):
+        o = G // 2
+        while o:
+            v = (v + v[np.arange(G) ^ o]).astype(np.float32)
+            o //= 2
+        assert (v == v[0]).all()                 # every lane the same bits
+        return v[0]
+
+    for blk in range(B * tiles):
+        b, k0 = blk // tiles, blk % tiles * tile
+        kn = min(tile, K - k0)
+        qs = np.zeros((nc, 4), np.float32)
+        qs.reshape(-1)[:d] = qn[b]
+        id_s = np.full(tile, -1)
+        for t in range(kn):
+            id_reads[b, k0 + t] += 1
+            i = int(idn[b, k0 + t])
+            id_s[t] = i if 0 <= i < N else -1
+        qq = group_sum(lane_sums(lambda c: qs[c] if c < nc else zero,
+                                 qs)[:, 1])
+        for w in range(warps):
+            for p in range(groups):
+                for u in range(_L2_ROWS_PER_GROUP):
+                    r = w * _L2_ROWS_PER_GROUP * groups + u * groups + p
+                    row = id_s[r]
+                    sums = lane_sums(
+                        lambda c: load_chunk(row, c) if row >= 0 else zero,
+                        qs)
+                    qx, xx = group_sum(sums[:, 0]), group_sum(sums[:, 1])
+                    if r >= kn:
+                        continue
+                    assert np.isnan(out[b, k0 + r])      # each output once
+                    partials[(b, k0 + r)] = sums
+                    out[b, k0 + r] = (np.inf if row < 0 else np.maximum(
+                        _fma32(-2.0, qx, qq) + xx, np.float32(0)))
+    assert (id_reads == 1).all() and not np.isnan(out).any()
+    return out, V, partials
+
+
+@pytest.mark.parametrize("kind,d,B,K,offsets,routes", [
+    ("integer", 1, 2, 70, (0,), (1,)),          # G 1, one lane a row
+    ("integer", 3, 3, 40, (0,), (1,)),
+    ("integer", 7, 2, 50, (0,), (1,)),          # a chunk and a partial one
+    ("integer", 50, 3, 37, (0,), (2,)),         # d 50: 8-byte loads, G 4
+    ("integer", 100, 2, 40, (0,), (4,)),
+    ("integer", 128, 1, 150, (0,), (4,)),       # B 1, K past two tiles
+    ("integer", 130, 2, 33, (0,), (2,)),        # G 16, a tile of 1
+    ("integer", 600, 1, 5, (0,), (4,)),         # two chunk batches a lane
+    ("integer", 128, 2, 40, (4, 8), (1, 2)),    # table views off 16 bytes
+    ("integer", 50, 2, 40, (4,), (1,)),
+    ("gaussian", 128, 2, 20, (0, 8, 4), (4, 2, 1)),   # one walk, 3 widths
+    ("gaussian", 50, 2, 20, (0, 4), (2, 1))])
+def test_l2_rows_kernel_walk_matches_contract(kind, d, B, K, offsets,
+                                              routes):
+    """l2_rows.cu's tiles, lane groups, load width and tail masks
+    (emulated in numpy) give the contract's distances: equal to the plain
+    version on integer inputs (ids of -1 and >= N give +inf), within the
+    Gaussian tolerance on real ones; the same pairs read from the table at
+    a 4- or 8-byte offset take the narrower loads and give every lane the
+    same partial sums, element for element, and the same outputs."""
+    g = np.random.default_rng(d * 100 + K)
+    N = 90
+    q_np = _vals(g, kind, (B, d))
+    tab_np = _vals(g, kind, (N, d))
+    ids_np = g.integers(-1, N + 3, (B, K)).astype(np.int32)
+    ids_np[0, :2] = (-1, N)
+    ids_np[-1, -1] = N + 2
+    ids = torch.from_numpy(ids_np)
+    q = torch.from_numpy(q_np)
+    want = ref.l2_rows_ref(q, torch.from_numpy(tab_np), ids.where(
+        ids < N, torch.tensor(-1, dtype=torch.int32))).numpy()
+    runs = []
+    for off, route in zip(offsets, routes):
+        flat = torch.zeros(N * d + 4)
+        table = flat[off // 4:off // 4 + N * d].view(N, d)
+        table.copy_(torch.from_numpy(tab_np))
+        assert table.data_ptr() % 16 == off
+        got, took, partials = _emulate_l2_rows(q, table, ids)
+        assert took == route
+        if kind == "integer":
+            np.testing.assert_array_equal(got, want)
+        else:
+            fin = np.isfinite(want)
+            assert (np.isfinite(got) == fin).all()
+            scale = ((q_np * q_np).sum(1)[:, None]
+                     + (tab_np * tab_np).sum(1)[np.clip(ids_np, 0, N - 1)])
+            assert (np.abs(got[fin] - want[fin])
+                    <= 1e-5 * np.abs(want[fin]) + 1e-4 * scale[fin]).all()
+        runs.append((got, partials))
+    for got, partials in runs[1:]:
+        np.testing.assert_array_equal(got, runs[0][0])
+        assert partials.keys() == runs[0][1].keys()
+        for key, sums in partials.items():
+            np.testing.assert_array_equal(sums, runs[0][1][key])
 
 
 def _topk_jax(d, ids, k):
