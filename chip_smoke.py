@@ -55,17 +55,18 @@ Phases:
            MoE (mixtral-8x7b, qwen3-moe-30b-a3b; no kernel of their own):
            (a) one pattern group at full width in f32, weights drawn on
            the card and copied to the CPU, a prefill (B 1 x S 512; gemma3
-           S 1280, past its 1,024-token window) and 8 greedy decode steps
+           S 1280, past its 1,024-token window) and 4 greedy decode steps
            from the placed caches, logits and caches held against the CPU
            (MoE: expert choices and drop masks too, top-K sets differing
            only at near ties); (b) decode against forward at full width
-           in f32 (B 1 from ``init_cache``), at full depth and S 128 (128
-           steps) for the dense archs, at 4 / 8 layers and S 256 for
+           in f32 (B 1 from ``init_cache``), at full depth and S 32 (32
+           steps) for the dense archs, at 4 / 8 layers and S 64 for
            mixtral / qwen3-moe against a forward that drops nothing; (c)
            the cells in bf16 at full width through
            ``make_lm_prefill_step`` / ``make_lm_decode_step``, at full
-           depth but mixtral's (16 of its 32 layers): prefill_32k (B 1
-           / 4 / 2 / 1 / 1 of the published 32; TTFT, tokens/s, 16
+           depth but mixtral's, qwen3-14b's and qwen3-moe's (16 of 32,
+           20 of 40, 24 of 48 layers): prefill_32k (B 1
+           / 2 / 1 / 1 / 1 of the published 32; TTFT, tokens/s, 16
            greedy tokens' ms),
            decode_32k (B 8 / 64 / 16 / 64 / 4 of the published 128,
            caches drawn for positions 0..S-18; p50 ms a step against its
@@ -88,12 +89,28 @@ Phases:
            memory under 80 GiB, ogb_products' step against its byte bound,
            and one more step under torch.profiler (device busy share, top
            kernels);
-  train    ``lm_loss`` and its gradients card vs CPU for the qwen2-1.5b
-           and gemma3-12b smoke configs at S 64 (kv blocks of 16); then
-           ``launch.train.main`` on the card for qwen2-1.5b, fm, sasrec and
-           graphsage-reddit at their smoke configs, 6 steps with a
-           checkpoint every 3, then the last checkpoint deleted and the
-           run resumed: its final state equal bit for bit;
+  train    ``lm_loss`` and its gradients card vs CPU for the qwen2-1.5b,
+           gemma3-12b, mixtral-8x7b and qwen3-moe-30b-a3b smoke configs at
+           S 64 (kv blocks of 16); (a) the same for one pattern group of
+           qwen2-1.5b and qwen3-moe-30b-a3b at full width in f32, B 1 x
+           S 512 (MoE top-K sets and drop masks equal first, the
+           smallest margin logged); (b) qwen3-moe-30b-a3b at full width
+           cut to one layer in bf16, one train step at B 2 x S 4,096 run
+           twice from one state: equal bits; (c) qwen2-1.5b's train_4k
+           cell, B 256 x S 4,096 in bf16 through ``build_cell_trainer``
+           (128 microbatches of two sequences): one AdamW step, loss and
+           gradient norm finite, the first microbatch's loss lower after
+           it, a microbatch's ``loss_and_grads`` twice equal, peak under
+           80 GiB; seconds, tokens/s, share of the FLOP bound; (d) the
+           recsys train_batch cells (fm, deepfm, xdeepfm, sasrec at full
+           width, B 65,536): loss and gradients card vs CPU on 512 rows,
+           a step twice equal, 10 steps (finite, the first batch's loss
+           lower after them), ms a step, rows/s, peak under 80 GiB; (e)
+           ``launch.train.main`` on the card for qwen2-1.5b,
+           qwen3-moe-30b-a3b, fm, sasrec and graphsage-reddit at their
+           smoke configs, 6 steps with a checkpoint every 3, then the last
+           checkpoint deleted and the run resumed: its final state equal
+           bit for bit;
   main     bootstrap_system (points labelled with the selectivity ladder
            of tests/test_filtered.py and 4 tenants) -> 1 % deletes ->
            labelled streaming inserts with RW->RO
@@ -1581,7 +1598,8 @@ def _card_vs_cpu(got, want, what: str) -> float:
     differed by 2.1e-6 on the card.  For logits (within 1) the atol is
     1e-6."""
     import torch
-    got = got.detach().cpu()
+    got = got.detach()
+    want = want.to(got.device)       # elementwise: the same bits anywhere
     check(got.shape == want.shape and bool(torch.isfinite(got).all()),
           f"{what}: shape {tuple(got.shape)} or non-finite values")
     err = (got - want).abs()
@@ -1951,10 +1969,11 @@ def phase_recsys(seed: int) -> tuple[dict, dict]:
 LM_ARCHS = ("qwen3-14b", "qwen2-1.5b", "gemma3-12b", "mixtral-8x7b",
             "qwen3-moe-30b-a3b")
 # (a) card against CPU, one pattern group in f32: the prompt lengths
-# (gemma3's 1,280 puts its 1,024-token window in effect) and greedy steps.
+# (gemma3's 1,280 puts its 1,024-token window in effect) and greedy steps
+# (cut from 8 to 4, ~13 s of the CPU's decoding, for the train phase).
 LM_PARITY_LEN = {"qwen3-14b": 512, "qwen2-1.5b": 512, "gemma3-12b": 1280,
                  "mixtral-8x7b": 512, "qwen3-moe-30b-a3b": 512}
-LM_PARITY_STEPS = 8
+LM_PARITY_STEPS = 4
 # A top-K set may differ between card and CPU only where the K-th and
 # (K+1)-th router probabilities lie this close (a near tie).
 LM_ROUTER_TIE = 1e-5
@@ -1962,19 +1981,24 @@ LM_ROUTER_TIE = 1e-5
 # depth, but the MoE archs cut to the layers whose f32 weights fit one card
 # (mixtral's 4 of 32 are 22.5 GB, qwen3-moe's 8 of 48 19.3 GB); prompt
 # lengths (= steps): the dense archs' cut from 256 to 128 to keep the whole
-# script within 900 s on the card.
-LM_DEPTH_LEN = {"qwen3-14b": 128, "qwen2-1.5b": 128,
-                "gemma3-12b": 128, "mixtral-8x7b": 256,
-                "qwen3-moe-30b-a3b": 256}
+# script within 900 s on the card, then to 32 and the MoE archs' from 256
+# to 64 (~45 s) to make room for the train phase's full-shape steps.
+LM_DEPTH_LEN = {"qwen3-14b": 32, "qwen2-1.5b": 32,
+                "gemma3-12b": 32, "mixtral-8x7b": 64,
+                "qwen3-moe-30b-a3b": 64}
 LM_DEPTH_LAYERS = {"mixtral-8x7b": 4, "qwen3-moe-30b-a3b": 8}
 # (c) the cells in bf16 at full width, at full depth but mixtral's (its
-# 32 layers are 93.4 GB; 16 are 46.96 GB).  Batches cut from the published
+# 32 layers are 93.4 GB; 16 are 46.96 GB) and, for the train phase's time,
+# qwen3-14b's 20 of 40 and qwen3-moe's 24 of 48 (their 32k prefills took
+# 22.5 and 21.0 s at full depth).  Batches cut from the published
 # 32 (prefill_32k) and 128 (decode_32k) to what one 80 GB card holds beside
-# the weights; long_500k runs uncut where the arch has it.
+# the weights (prefill_32k: qwen2-1.5b's 4 and gemma3-12b's 2 then halved,
+# ~14 s, for the train phase); long_500k runs uncut where the arch has it.
 LM_SEQ = 32_768
 LM_LONG = 524_288
-LM_CELL_LAYERS = {"mixtral-8x7b": 16}
-LM_PREFILL_BATCH = {"qwen3-14b": 1, "qwen2-1.5b": 4, "gemma3-12b": 2,
+LM_CELL_LAYERS = {"qwen3-14b": 20, "mixtral-8x7b": 16,
+                  "qwen3-moe-30b-a3b": 24}
+LM_PREFILL_BATCH = {"qwen3-14b": 1, "qwen2-1.5b": 2, "gemma3-12b": 1,
                     "mixtral-8x7b": 1, "qwen3-moe-30b-a3b": 1}
 LM_DECODE_BATCH = {"qwen3-14b": 8, "qwen2-1.5b": 64, "gemma3-12b": 16,
                    "mixtral-8x7b": 64, "qwen3-moe-30b-a3b": 4}
@@ -2004,10 +2028,19 @@ def place_caches(cfg, pre, batch: int, max_len: int, device) -> list:
 
 
 def _params_to(params: dict, device) -> dict:
+    """A copy of ``params`` on ``device``.  After copies from the card the
+    whole device is synchronised before the copy is handed on, so that
+    no copy can still be in flight when the CPU reads the weights: the
+    CPU twin of (a) twice gave a prefill that its rerun on the same
+    weights did not (the rerun agreeing with f64), cause not found."""
+    import torch
     from repro_torch.models import transformer as tf
     out: dict = {}
-    for name, t in tf.param_items(params):
+    items = tf.param_items(params)
+    for name, t in items:
         tf.set_param(out, name, t.to(device))
+    if any(t.is_cuda for _, t in items):
+        torch.cuda.synchronize()
     return out
 
 
@@ -2075,9 +2108,10 @@ def prefill_vs_f64(params: dict, cpu_params: dict, toks, cfg,
     run once more, and an f64 prefill on the CPU of the card's weights
     copied afresh (its attention products f32: good to ~1e-6 of the
     logits' scale).  Returns the max abs differences card-CPU, each
-    device against its second run and against f64, and, at the element
-    where card and CPU differ most, the CPU's value and each device's
-    error against f64."""
+    device against its second run and against f64, at the element where
+    card and CPU differ most the CPU's value and each device's error
+    against f64, and where the CPU's two runs differ (the count, and the
+    tensor and index of the first)."""
     import dataclasses
 
     import torch
@@ -2088,9 +2122,14 @@ def prefill_vs_f64(params: dict, cpu_params: dict, toks, cfg,
                                 collect_cache=True, last_only=True)
         return lg[:, -1], pre
 
+    def parts(out):
+        return [("logits", out[0])] + [(f"cache {pi} {k}", c[k])
+                                       for pi, c in enumerate(out[1])
+                                       for k in ("k", "v")]
+
     def flat(out):
-        ts = [out[0]] + [c[k] for c in out[1] for k in ("k", "v")]
-        return torch.cat([t.detach().double().cpu().flatten() for t in ts])
+        return torch.cat([t.detach().double().cpu().flatten()
+                          for _, t in parts(out)])
 
     got = flat(card or run(params, cfg))
     want = flat(cpu or run(cpu_params, cfg))
@@ -2101,6 +2140,18 @@ def prefill_vs_f64(params: dict, cpu_params: dict, toks, cfg,
         tf.set_param(p64, n, t.double() if t.is_floating_point() else t)
     ref = flat(run(p64, dataclasses.replace(cfg, dtype="float64")))
     i = int((got - want).abs().argmax())
+    moved = torch.nonzero(again[1] != want).flatten()
+    where = "nowhere"
+    if moved.numel():
+        j = int(moved[0])
+        for label, t in parts(cpu or run(cpu_params, cfg)):
+            if j < t.numel():
+                where = (f"{label} {tuple(t.shape)} at "
+                         f"{tuple(int(v) for v in np.unravel_index(j, t.shape))}"
+                         f", the last of them {int(moved[-1]) - int(moved[0])}"
+                         f" elements later")
+                break
+            j -= t.numel()
     return dict(card_cpu=float((got - want).abs().max()),
                 card_again=float((again[0] - got).abs().max()),
                 cpu_again=float((again[1] - want).abs().max()),
@@ -2108,7 +2159,8 @@ def prefill_vs_f64(params: dict, cpu_params: dict, toks, cfg,
                 cpu_f64=float((want - ref).abs().max()),
                 worst_want=float(want[i]),
                 worst_card_f64=float(got[i] - ref[i]),
-                worst_cpu_f64=float(want[i] - ref[i]))
+                worst_cpu_f64=float(want[i] - ref[i]),
+                cpu_moved=int(moved.numel()), cpu_moved_where=where)
 
 
 def _prefill_diagnosis(*args) -> str:
@@ -2124,7 +2176,9 @@ def _prefill_diagnosis(*args) -> str:
             f"{d['card_again']:.3g} (card) and {d['cpu_again']:.3g} (CPU); "
             f"against an f64 prefill the card errs {d['card_f64']:.3g} "
             f"({d['worst_card_f64']:.3g} at the worst element), the CPU "
-            f"{d['cpu_f64']:.3g} ({d['worst_cpu_f64']:.3g}); torch "
+            f"{d['cpu_f64']:.3g} ({d['worst_cpu_f64']:.3g}); the CPU's two "
+            f"runs differ at {d['cpu_moved']} elements, the first in "
+            f"{d['cpu_moved_where']}; torch "
             f"{torch.__version__}, CPU "
             f"{torch.backends.cpu.get_cpu_capability()} x "
             f"{torch.get_num_threads()} threads, allow_tf32 "
@@ -2269,10 +2323,19 @@ def lm_decode_vs_forward(name: str, cfg, S: int, seed: int, dev) -> dict:
     return out
 
 
-def _reset_peak() -> None:
+def _reset_peak(dev=None) -> float:
+    """Collect garbage, free the allocator's cache and restart its peak
+    count (on the card; nothing for a CPU ``dev``).  Returns the GiB still
+    allocated."""
+    import gc
+
     import torch
+    if dev is not None and dev.type != "cuda":
+        return 0.0
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2**30
 
 
 def _greedy(decode, params, caches, tok, pos0: int, n: int, dev):
@@ -2855,47 +2918,377 @@ def phase_gnn(seed: int) -> dict:
 
 
 # --------------------------------------------------------------- train
-TRAIN_ARCHS = ("qwen2-1.5b", "fm", "sasrec", "graphsage-reddit")
+TRAIN_ARCHS = ("qwen2-1.5b", "qwen3-moe-30b-a3b", "fm", "sasrec",
+               "graphsage-reddit")
 TRAIN_STEPS = 6
 TRAIN_CKPT_EVERY = 3
-# lm_loss's gradients card vs CPU: a full-causal and a windowed smoke LM
-# at S 64 in kv blocks of 16 (the flash backward over several blocks)
-TRAIN_GRAD_ARCHS = ("qwen2-1.5b", "gemma3-12b")
+# lm_loss's gradients card vs CPU at the smoke configs: a full-causal, a
+# windowed and the two MoE LMs at S 64 in kv blocks of 16 (the flash
+# backward over several blocks)
+TRAIN_GRAD_ARCHS = ("qwen2-1.5b", "gemma3-12b", "mixtral-8x7b",
+                    "qwen3-moe-30b-a3b")
 TRAIN_GRAD_LEN = 64
+# (a) the same at full width: one pattern group in f32, B 1 x S 512
+TRAIN_WIDE_ARCHS = ("qwen2-1.5b", "qwen3-moe-30b-a3b")
+TRAIN_WIDE_LEN = 512
+# (b) the MoE step's bits: qwen3-moe at full width cut to one layer, bf16,
+# the first TRAIN_MOE_BATCH sequences of its train_4k stream
+TRAIN_MOE_ARCH = "qwen3-moe-30b-a3b"
+TRAIN_MOE_BATCH = 2
+# (c) lm train_4k at the published B 256 x S 4,096, bf16, through
+# accumulation over microbatches of TRAIN_4K_MICRO sequences: beside the
+# 23.2 GiB of weights, f32 gradient sum and AdamW state, microbatches of
+# 1, 2, 4 peaked at 35.2, 47.2, 71.2 GiB and took 1.23, 1.51, 2.30 s
+# (scripts/torch_train_probe.py, H100 80GB HBM3 at 700 W): 2 leaves room
+# on the card's 79.2 GiB for the allocator's fragments
+TRAIN_4K_ARCH = "qwen2-1.5b"
+TRAIN_4K_MICRO = 2
+# (d) the recsys train_batch cells (B 65,536) at full width
+TRAIN_RECSYS = ("fm", "deepfm", "xdeepfm", "sasrec")
+TRAIN_RECSYS_STEPS = 10
+TRAIN_PEAK_GIB = 80.0
 
 
-def lm_grads_card_vs_cpu(name: str, dev, S: int = TRAIN_GRAD_LEN) -> float:
-    """``lm_loss`` and every parameter's gradient of ``name``'s smoke
-    config (B 2, S tokens) on the card against the CPU on the same
-    weights, drawn on a CPU generator, to ``_tolerance``.  Returns the
-    largest error."""
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_gib(dev) -> float:
+    import torch
+    return (torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda"
+            else 0.0)
+
+
+def _rows2(t):
+    """A gradient as [rows, ...] for ``_card_vs_cpu`` (a scalar as one
+    row)."""
+    return t.reshape(1) if t.dim() == 0 else t
+
+
+def moe_routes_equal(name: str, cfg, params, cpu_params, toks) -> float:
+    """The MoE routing of a forward over ``toks`` on the card (``params``)
+    and on the CPU (``cpu_params``): every token's top-K set, and which
+    of its assignments capacity dropped, equal.  A gradient check cannot
+    leave a token out the way (a)'s logits check leaves a row (its
+    experts' gradients would differ), so a set that differs fails,
+    naming the layer, the token and the CPU's margin (the K-th less the
+    (K+1)-th router probability); the input is never redrawn.  Returns
+    the smallest margin over the tokens and layers."""
+    from repro_torch.models import transformer as tf
+    routes, routes_c = [], []
+    tf.forward(params, toks.to(params["embed"].device), cfg, last_only=True,
+               routing=routes)
+    tf.forward(cpu_params, toks.cpu(), cfg, last_only=True,
+               routing=routes_c)
+    check(len(routes) == len(routes_c) == cfg.n_layers,
+          f"{name}: routed layers differ")
+    low = float("inf")
+    for li, (a, b) in enumerate(zip(routes, routes_c)):
+        ea, ia = a.experts.cpu().sort(-1)
+        eb, ib = b.experts.sort(-1)
+        ka, kb = a.kept.cpu().gather(-1, ia), b.kept.gather(-1, ib)
+        diff = ((ea != eb) | (ka != kb)).any(-1)
+        if bool(diff.any()):
+            row, pos = diff.nonzero()[0].tolist()
+            raise PhaseError(
+                f"{name} layer {li}: token ({row}, {pos}) is routed to "
+                f"{ea[row, pos].tolist()} (kept {ka[row, pos].tolist()}) on "
+                f"the card and {eb[row, pos].tolist()} (kept "
+                f"{kb[row, pos].tolist()}) on the CPU; its margin "
+                f"{float(b.margin[row, pos]):.3g}")
+        low = min(low, float(b.margin.min()))
+    return low
+
+
+def lm_grads_card_vs_cpu(name: str, dev, S: int = TRAIN_GRAD_LEN, *,
+                         wide: bool = False) -> float:
+    """``lm_loss`` and every parameter's gradient of ``name`` on the card
+    (``dev``) against the CPU on the same weights (drawn on ``dev``,
+    copied), to ``_tolerance``: the smoke config at B 2 x S, or with
+    ``wide`` one pattern group of the FULL config at full width in f32
+    at B 1 x S (the lm phase's (a)).  A MoE config first holds its
+    routing equal (``moe_routes_equal``).  Returns the largest error."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data.pipelines import lm_token_stream
     from repro_torch.models import transformer as tf
     from repro_torch.training.steps import loss_and_grads
-    from repro_torch.tree import tree_map, tree_paths
-    cfg = get_arch(name).smoke_config
-    params = tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    b = next(lm_token_stream(2, S, cfg.vocab, seed=1))
-    res = {}
-    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
-        batch = {k: torch.from_numpy(v).to(d) for k, v in b.items()}
-        res[where] = loss_and_grads(
-            lambda p, x: tf.lm_loss(p, x["tokens"], x["targets"], cfg),
-            tree_map(lambda t: t.to(d), params), batch)
-    (loss, _, grads), (cpu_loss, _, cpu_grads) = res["card"], res["cpu"]
+    from repro_torch.tree import tree_paths
+    arch = get_arch(name)
+    if wide:
+        cfg = dataclasses.replace(arch.full_config, dtype="float32",
+                                  n_layers=len(arch.full_config.pattern))
+        B = 1
+    else:
+        cfg, B = arch.smoke_config, 2
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    cpu_params = _params_to(params, "cpu")
+    b = {k: torch.from_numpy(v)
+         for k, v in next(lm_token_stream(B, S, cfg.vocab, seed=1)).items()}
+    t = {"draw": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    margin = (moe_routes_equal(name, cfg, params, cpu_params, b["tokens"])
+              if cfg.is_moe else None)
+    t["routes"] = time.perf_counter() - t0
+
+    def loss_fn(p, x):
+        return tf.lm_loss(p, x["tokens"], x["targets"], cfg)
+    t0 = time.perf_counter()
+    loss, _, grads = loss_and_grads(
+        loss_fn, params, {k: v.to(dev) for k, v in b.items()})
+    _sync(dev)
+    t["card"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_loss, _, cpu_grads = loss_and_grads(loss_fn, cpu_params, b)
+    t["cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     err = _card_vs_cpu(loss[None], cpu_loss[None], f"{name} lm_loss")
     for path, g, c in zip(tree_paths(params), grads, cpu_grads):
-        err = max(err, _card_vs_cpu(g, c, f"{name} grad {path}"))
+        err = max(err, _card_vs_cpu(_rows2(g), _rows2(c),
+                                    f"{name} grad {path}"))
+    t["compare"] = time.perf_counter() - t0
+    moe = ("" if margin is None else
+           f"; routing equal on the {B * S} tokens of {cfg.n_layers} "
+           f"layer(s) (smallest top-K margin {margin:.3g})")
+    log(f"[train] {name} {'FULL width, ' if wide else 'smoke, '}"
+        f"{cfg.n_layers} layer(s) {cfg.dtype}, B {B} x S {S}: lm_loss and "
+        f"every gradient card vs CPU, max err {err:.3g}{moe}; "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in t.items()))
+    del params, cpu_params, grads, cpu_grads
     return err
 
 
-def phase_train() -> dict:
-    """``lm_grads_card_vs_cpu`` for ``TRAIN_GRAD_ARCHS``; then
+def moe_step_bits(seed: int, dev) -> dict:
+    """(b) ``TRAIN_MOE_ARCH`` at full width cut to one layer, bf16
+    (``build_cell_trainer``): one train step over the first
+    ``TRAIN_MOE_BATCH`` sequences of its ``train_4k`` stream run twice
+    from one state; the new parameters, AdamW state and metrics equal
+    bit for bit."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.tree import tree_leaves
+    held = _reset_peak(dev)
+    params, step, stream = train.build_cell_trainer(
+        TRAIN_MOE_ARCH, "train_4k", n_layers=1, device=dev, seed=seed)
+    b = {k: torch.from_numpy(v[:TRAIN_MOE_BATCH]).to(dev)
+         for k, v in next(stream(0)).items()}
+    opt = adamw_init(params)
+    t0 = time.perf_counter()
+    first = step(params, opt, b)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    second = step(params, opt, b)
+    same = all(torch.equal(x, y) for x, y in zip(tree_leaves(first),
+                                                 tree_leaves(second)))
+    m = {k: float(v) for k, v in first[2].items()}
+    check(all(np.isfinite(v) for v in m.values()),
+          f"{TRAIN_MOE_ARCH} step: non-finite metrics {m}")
+    check(same, f"{TRAIN_MOE_ARCH} step: a second step from the same state "
+          "gives other bits")
+    S = b["tokens"].shape[1]
+    out = dict(metrics=m, step_s=secs, peak_gib=_peak_gib(dev),
+               held_gib=held, bit_equal=same)
+    log(f"[train] (b) {TRAIN_MOE_ARCH} FULL width, 1 layer, B "
+        f"{TRAIN_MOE_BATCH} x S {S}: one step twice from one state, "
+        f"params, AdamW state and metrics bit-equal; {m}; step "
+        f"{secs:.2f} s, peak {out['peak_gib']:.2f} GiB ({held:.2f} held "
+        f"before)")
+    del params, opt, first, second
+    return out
+
+
+def train_flops(cfg, B: int, S: int) -> tuple:
+    """A train step's operations over B x S tokens: 6 per parameter per
+    token (forward and backward), and the causal attention's QK^T and PV,
+    4 x H x dh a kept (query, key) pair forward, 3 x that forward and
+    backward.  Returns (dense, attention)."""
+    pairs = 0
+    for kind in cfg.pattern:
+        w = cfg.window if kind == "l" else 0
+        pairs += cfg.n_groups * (S * (S + 1) // 2 if not w or w >= S
+                                 else w * (w + 1) // 2 + (S - w) * w)
+    return (6.0 * cfg.param_count() * B * S,
+            3.0 * 4 * B * cfg.n_heads * cfg.d_head * pairs)
+
+
+def train_4k_run(seed: int, dev) -> dict:
+    """(c) ``TRAIN_4K_ARCH``'s ``train_4k`` cell at the published B 256 x S
+    4,096 in bf16 (``build_cell_trainer``, microbatches of
+    ``TRAIN_4K_MICRO`` sequences): one AdamW step; loss finite, the
+    global gradient norm finite and positive (read back from AdamW's
+    first-step second moments: ||g|| x min(1, 1 / ||g||), so the norm
+    itself where it is under the clip of 1.0); the first microbatch's
+    loss lower after the step than before it; that microbatch's
+    ``loss_and_grads`` twice, equal bits; peak memory under 80 GiB.  The
+    step's seconds, tokens/s and share of its FLOP bound
+    (``train_flops`` at the dense bf16 peak)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.training.steps import loss_and_grads
+    from repro_torch.tree import tree_leaves
+    arch = get_arch(TRAIN_4K_ARCH)
+    cell = arch.cell("train_4k")
+    B, S = cell.meta["batch"], cell.meta["seq"]
+    accum = B // TRAIN_4K_MICRO
+    held = _reset_peak(dev)
+    t0 = time.perf_counter()
+    params, step, stream = train.build_cell_trainer(
+        TRAIN_4K_ARCH, "train_4k", accum_steps=accum, device=dev, seed=seed)
+    cfg = arch.full_config
+    loss_fn = train.train_loss("lm", cfg)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(stream(0)).items()}
+    mb0 = {k: v[:TRAIN_4K_MICRO] for k, v in batch.items()}
+    with torch.no_grad():
+        before = float(loss_fn(params, mb0)[0])
+    opt = adamw_init(params)
+    t_build = time.perf_counter() - t0
+    _sync(dev)
+    t0 = time.perf_counter()
+    params, opt, metrics = step(params, opt, batch)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    peak = _peak_gib(dev)
+    m = {k: float(v) for k, v in metrics.items()}
+    v_sum = float(sum(v.double().sum() for v in tree_leaves(opt.v)))
+    clipped = float(np.sqrt(v_sum / (1 - 0.95)))        # AdamW's b2
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in tree_leaves((params, opt.m, opt.v)))
+    check(np.isfinite(m["loss"]) and finite and np.isfinite(clipped)
+          and clipped > 0, f"train_4k: loss {m['loss']}, new state finite "
+          f"{finite}, clipped gradient norm {clipped}")
+    del opt
+    with torch.no_grad():
+        after = float(loss_fn(params, mb0)[0])
+    check(after < before, f"train_4k: the first microbatch's loss "
+          f"{after} after the step, not below its {before} before")
+    _sync(dev)
+    t1 = time.perf_counter()
+    l1, _, g1 = loss_and_grads(loss_fn, params, mb0)
+    _sync(dev)
+    mb_s = time.perf_counter() - t1
+    l2, _, g2 = loss_and_grads(loss_fn, params, mb0)
+    same = torch.equal(l1, l2) and all(torch.equal(a, b)
+                                       for a, b in zip(g1, g2))
+    check(same, "train_4k: a microbatch's loss_and_grads run twice gives "
+          "other bits")
+    mb_norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in g1)))
+    check(np.isfinite(mb_norm), f"train_4k: microbatch gradient norm "
+          f"{mb_norm}")
+    peak = max(peak, _peak_gib(dev))
+    check(peak < TRAIN_PEAK_GIB, f"train_4k: peak {peak:.2f} GiB")
+    dense, attn = train_flops(cfg, B, S)
+    bound_s = (dense + attn) / BF16_FLOP_PER_S
+    out = dict(batch=B, seq=S, micro=TRAIN_4K_MICRO, accum_steps=accum,
+               metrics=m, step_s=secs, tokens_per_s=B * S / secs,
+               flop=dense + attn, attention_flop=attn, bound_s=bound_s,
+               bound_share=bound_s / secs, peak_gib=peak,
+               clipped_grad_norm=clipped, micro_grad_norm=mb_norm,
+               micro_s=mb_s, first_micro_loss=(before, after),
+               build_s=t_build, held_gib=held)
+    log(f"[train] (c) {TRAIN_4K_ARCH} train_4k B {B} x S {S} {cfg.dtype}, "
+        f"{accum} microbatches of {TRAIN_4K_MICRO} sequence(s): one step "
+        f"{secs:.2f} s, {B * S / secs:.0f} tokens/s, its FLOP bound "
+        f"{bound_s:.2f} s ({dense + attn:.4g} FLOP, attention "
+        f"{attn:.4g}, at {BF16_FLOP_PER_S:.3g} FLOP/s) = "
+        f"{100 * bound_s / secs:.1f} %; {m}; gradient norm (clipped at "
+        f"1.0) {clipped:.4g}; first microbatch's loss {before:.5f} -> "
+        f"{after:.5f}; its loss_and_grads {mb_s:.3f} s, run twice "
+        f"bit-equal, gradient norm {mb_norm:.4g}; peak {peak:.2f} GiB "
+        f"({held:.2f} held before); build {t_build:.1f} s")
+    del params, g1, g2, batch
+    return out
+
+
+def recsys_train_run(name: str, seed: int, dev) -> dict:
+    """(d) ``name``'s ``train_batch`` cell (B 65,536) at full width
+    (``build_cell_trainer``): the loss and every gradient on the card
+    against the CPU on ``check_rows``' 512 rows of the first batch (the
+    recsys bound); one step twice from one state, equal bits;
+    ``TRAIN_RECSYS_STEPS`` AdamW steps, every loss finite, the first
+    batch's loss after the last step below its loss at step 1; seconds a
+    step (median of steps 2..), rows/s, peak memory under 80 GiB."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.training.steps import loss_and_grads
+    from repro_torch.tree import tree_leaves, tree_map, tree_paths
+    cfg = get_arch(name).full_config
+    held = _reset_peak(dev)
+    params, step, stream = train.build_cell_trainer(name, "train_batch",
+                                                    device=dev, seed=seed)
+    loss_fn = train.train_loss("recsys", cfg)
+    data = stream(0)
+    host = next(data)
+    B = next(iter(host.values())).shape[0]
+    rows = check_rows(B)
+    sub = {k: torch.from_numpy(v[rows]) for k, v in host.items()}
+    loss, _, grads = loss_and_grads(
+        loss_fn, params, {k: v.to(dev) for k, v in sub.items()})
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    cpu_loss, _, cpu_grads = loss_and_grads(loss_fn, cpu_params, sub)
+    err = _card_vs_cpu(loss[None], cpu_loss[None], f"{name} train loss")
+    for path, g, c in zip(tree_paths(params), grads, cpu_grads):
+        err = max(err, _card_vs_cpu(_rows2(g), _rows2(c),
+                                    f"{name} train grad {path}"))
+    del cpu_params, cpu_grads, grads
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in host.items()}]
+    opt = adamw_init(params)
+    first = step(params, opt, batches[0])
+    second = step(params, opt, batches[0])
+    same = all(torch.equal(x, y) for x, y in zip(tree_leaves(first),
+                                                 tree_leaves(second)))
+    check(same, f"{name} train_batch: a second step from the same state "
+          "gives other bits")
+    del first, second
+    losses, secs = [], []
+    for i in range(TRAIN_RECSYS_STEPS):
+        if i:
+            batches.append({k: torch.from_numpy(v).to(dev)
+                            for k, v in next(data).items()})
+        _sync(dev)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batches[i])
+        _sync(dev)
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    with torch.no_grad():
+        again = float(loss_fn(params, batches[0])[0])
+    peak = _peak_gib(dev)
+    check(all(np.isfinite(losses)) and again < losses[0],
+          f"{name} train_batch: losses {losses}, the first batch's "
+          f"{again} after the last step")
+    check(peak < TRAIN_PEAK_GIB, f"{name} train_batch: peak {peak:.2f} GiB")
+    step_s = float(np.median(secs[1:]))
+    out = dict(batch=B, max_err=err, losses=losses, first_batch_after=again,
+               step_s=step_s, step_s_all=secs, rows_per_s=B / step_s,
+               peak_gib=peak, held_gib=held, bit_equal=same)
+    log(f"[train] (d) {name} train_batch B {B}: loss and every gradient "
+        f"card vs CPU on {len(rows)} rows, max err {err:.3g}; one step "
+        f"twice bit-equal; {TRAIN_RECSYS_STEPS} steps, loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f} (step 1's batch now "
+        f"{again:.5f}); {step_s * 1e3:.2f} ms a step (median of steps "
+        f"2-{TRAIN_RECSYS_STEPS}), {B / step_s:.0f} rows/s; peak "
+        f"{peak:.2f} GiB ({held:.2f} held before)")
+    del params, opt, batches
+    return out
+
+
+def phase_train(seed: int = 0) -> dict:
+    """``lm_grads_card_vs_cpu`` for ``TRAIN_GRAD_ARCHS`` (smoke) and
+    ``TRAIN_WIDE_ARCHS`` (a); ``moe_step_bits`` (b); ``train_4k_run``
+    (c); ``recsys_train_run`` for ``TRAIN_RECSYS`` (d); then (e)
     ``launch.train.main`` on the card for ``TRAIN_ARCHS`` at their smoke
     configs, ``TRAIN_STEPS`` steps with a checkpoint every
-    ``TRAIN_CKPT_EVERY``; then the crash: the last checkpoint deleted, the
+    ``TRAIN_CKPT_EVERY``, and the crash: the last checkpoint deleted, the
     run resumed from the one before, whose final state must equal the
     uninterrupted run's bit for bit."""
     import torch
@@ -2906,10 +3299,15 @@ def phase_train() -> dict:
     t_phase = time.perf_counter()
     dev = resolve_device("cuda")
     for name in TRAIN_GRAD_ARCHS:
-        err = lm_grads_card_vs_cpu(name, dev)
-        out[f"{name}_grad_err"] = err
-        log(f"[train] {name} smoke S {TRAIN_GRAD_LEN}: lm_loss and every "
-            f"gradient card vs CPU, max err {err:.3g}")
+        out[f"{name}_grad_err"] = lm_grads_card_vs_cpu(name, dev)
+    for name in TRAIN_WIDE_ARCHS:
+        out[f"{name}_wide_grad_err"] = lm_grads_card_vs_cpu(
+            name, dev, TRAIN_WIDE_LEN, wide=True)
+    out["moe_step"] = moe_step_bits(seed, dev)
+    out["train_4k"] = train_4k_run(seed, dev)
+    for name in TRAIN_RECSYS:
+        out[f"{name}_train_batch"] = recsys_train_run(name, seed, dev)
+    _reset_peak(dev)
     BUILD.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
         for name in TRAIN_ARCHS:
@@ -2932,8 +3330,8 @@ def phase_train() -> dict:
             out[name] = {"final": final, "resumed_final": log_b[-1],
                          "resume_bit_equal": same,
                          "seconds": time.perf_counter() - t0}
-            log(f"[train] {name}: final metrics {final}; resumed from step "
-                f"{TRAIN_CKPT_EVERY}: state bit-equal")
+            log(f"[train] (e) {name}: final metrics {final}; resumed from "
+                f"step {TRAIN_CKPT_EVERY}: state bit-equal")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[train] phase {out['seconds']:.1f} s")
     return out
@@ -4279,7 +4677,7 @@ def main(argv=None) -> int:
         if "gnn" in phases:
             log(f"[gnn] figures {json.dumps(phase_gnn(args.seed))}")
         if "train" in phases:
-            log(f"[train] figures {json.dumps(phase_train())}")
+            log(f"[train] figures {json.dumps(phase_train(args.seed))}")
         if "main" in phases:
             with shape_census() as census:
                 launches, s, data = phase_main(args.seed, args.n,

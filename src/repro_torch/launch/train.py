@@ -7,13 +7,17 @@ AdamW through the fault-tolerant loop (checkpoint/restart via
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
         --steps 50 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt [--device cpu]
 
-Families: ``lm`` (the dense decoder LMs; a MoE arch raises
-``NotImplementedError`` at its first step), ``recsys`` (FM, DeepFM,
-xDeepFM, SASRec) and ``gnn`` (GraphSAGE, sampled, on a 512-node synthetic
-graph).  It runs on the card unless ``--device cpu`` asks for the CPU.
-Weights are drawn from torch generators seeded with 0 (on the card for an
-LM, on the CPU otherwise); the gnn stream's per-step ``jax.random`` key
-is the step number as the seed of the sampler's CPU generator.
+Families: ``lm`` (the decoder LMs, dense and MoE), ``recsys`` (FM,
+DeepFM, xDeepFM, SASRec) and ``gnn`` (GraphSAGE, sampled, on a 512-node
+synthetic graph).  It runs on the card unless ``--device cpu`` asks for
+the CPU.  Weights are drawn from torch generators seeded with 0 (on the
+card for an LM, on the CPU otherwise); the gnn stream's per-step
+``jax.random`` key is the step number as the seed of the sampler's CPU
+generator.
+
+``build_cell_trainer`` builds the full configs' trainers at their
+``train`` cells (lm ``train_4k``, recsys ``train_batch``), which
+``chip_smoke.py``'s train phase steps on the card.
 """
 from __future__ import annotations
 
@@ -58,48 +62,70 @@ def module_loss(model: nn.Module, fn):
     return loss_fn
 
 
-def build_smoke_trainer(arch_name: str, batch: int, seq: int, lr: float,
-                        accum: int = 1, device="cuda"):
-    """(params, train_step, stream) of ``arch_name``'s smoke config."""
-    device = resolve_device(device)
-    arch = get_arch(arch_name)
-    cfg = arch.smoke_config
-    cpu_gen = torch.Generator().manual_seed(0)
-
-    if arch.family == "lm":
+def train_loss(family: str, cfg):
+    """loss_fn(params tree, batch) -> (loss, metrics) of an ``lm`` or
+    ``recsys`` config, the reference's training losses: ``lm_loss`` (ce,
+    aux), ``recsys_loss`` ("logloss"), ``sasrec_loss`` ("bpr").  It runs
+    on the device of the tensors it is given (a recsys model's module
+    lives on the meta device and only names the parameters)."""
+    if family == "lm":
         from ..models import transformer as tf
-        cfg = dataclasses.replace(cfg, q_chunk=min(cfg.q_chunk, seq),
-                                  kv_chunk=min(cfg.kv_chunk, seq))
-        gen = torch.Generator(device=device).manual_seed(0)
-        params = tf.init_params(cfg, gen, device)
 
         def loss_fn(p, b):
             return tf.lm_loss(p, b["tokens"], b["targets"], cfg)
+        return loss_fn
+    if family != "recsys":
+        raise ValueError(family)
+    from ..models import recsys as rec
+    with torch.device("meta"):
+        model = rec.make_model(cfg)
+    if cfg.kind == "sasrec":
+        def fn(m, b):
+            loss = rec.sasrec_loss(m, b["seq"], b["pos"], b["neg"], cfg)
+            return loss, {"bpr": loss}
+    else:
+        def fn(m, b):
+            loss = rec.recsys_loss(m, b["ids"], b["labels"], cfg)
+            return loss, {"logloss": loss}
+    return module_loss(model, fn)
+
+
+def build_trainer(family: str, cfg, batch: int, seq: int, *,
+                  lr: float = 3e-4, accum_steps: int = 1, device="cuda",
+                  seed: int = 0):
+    """(params, train_step, stream) of ``cfg``, a config of ``family``
+    (``lm``, ``recsys`` or ``gnn``): weights drawn from ``seed`` (an LM's
+    on a generator on ``device``, the others' on a CPU generator),
+    ``make_train_step`` at ``lr`` and the reference's weight decay 0.1
+    and clip 1.0, and ``stream(start_step)``, the family's synthetic
+    batches of ``batch`` rows (an LM's of ``seq`` tokens; the gnn
+    family's seeds on a 512-node synthetic graph)."""
+    device = resolve_device(device)
+    cpu_gen = torch.Generator().manual_seed(seed)
+
+    if family == "lm":
+        from ..models import transformer as tf
+        cfg = dataclasses.replace(cfg, q_chunk=min(cfg.q_chunk, seq),
+                                  kv_chunk=min(cfg.kv_chunk, seq))
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = tf.init_params(cfg, gen, device)
+        loss_fn = train_loss(family, cfg)
 
         def stream(s):
             return lm_token_stream(batch, seq, cfg.vocab, start_step=s)
-    elif arch.family == "recsys":
+    elif family == "recsys":
         from ..models import recsys as rec
-        model = rec.init_recsys_params(cpu_gen, cfg, device)
-        params = module_tree(model)
+        params = module_tree(rec.init_recsys_params(cpu_gen, cfg, device))
+        loss_fn = train_loss(family, cfg)
         if cfg.kind == "sasrec":
-            def fn(m, b):
-                loss = rec.sasrec_loss(m, b["seq"], b["pos"], b["neg"], cfg)
-                return loss, {"bpr": loss}
-
             def stream(s):
                 return sasrec_stream(batch, cfg.seq_len, cfg.n_items,
                                      start_step=s)
         else:
-            def fn(m, b):
-                loss = rec.recsys_loss(m, b["ids"], b["labels"], cfg)
-                return loss, {"logloss": loss}
-
             def stream(s):
                 return click_stream(batch, cfg.n_sparse, cfg.rows_per_field,
                                     start_step=s)
-        loss_fn = module_loss(model, fn)
-    elif arch.family == "gnn":
+    elif family == "gnn":
         from ..models import gnn
         params = gnn.init_sage_params(cfg, cpu_gen, device)
         g = synthetic_graph(512, 8, cfg.d_feat, cfg.n_classes)
@@ -120,10 +146,45 @@ def build_smoke_trainer(arch_name: str, batch: int, seq: int, lr: float,
                        "labels": g["labels"][seeds], "seed": step}
                 step += 1
     else:
-        raise ValueError(arch.family)
+        raise ValueError(family)
 
-    step = make_train_step(loss_fn, lr=lr, accum_steps=accum)
+    step = make_train_step(loss_fn, lr=lr, accum_steps=accum_steps)
     return params, step, stream
+
+
+def build_smoke_trainer(arch_name: str, batch: int, seq: int, lr: float,
+                        accum: int = 1, device="cuda"):
+    """(params, train_step, stream) of ``arch_name``'s smoke config."""
+    arch = get_arch(arch_name)
+    return build_trainer(arch.family, arch.smoke_config, batch, seq, lr=lr,
+                         accum_steps=accum, device=device)
+
+
+def build_cell_trainer(arch_name: str, shape: str, *, accum_steps: int = 1,
+                       n_layers: int | None = None, device="cuda",
+                       seed: int = 0):
+    """(params, train_step, stream) of ``arch_name``'s FULL config at its
+    cell ``shape`` of kind ``train`` (lm ``train_4k``: B 256 x S 4,096;
+    recsys ``train_batch``: B 65,536): the ``train`` branches of the
+    reference's ``launch/build.py`` (``_build_lm``, ``_build_recsys``)
+    without their shardings, at ``make_train_step``'s defaults (lr 3e-4,
+    weight decay 0.1, clip 1.0).  ``accum_steps`` splits the batch into
+    microbatches (the reference takes 2 above 5e9 parameters, for its
+    mesh; one card takes as many as its memory needs); ``n_layers`` cuts
+    an LM's depth.  Weights are drawn from ``seed``."""
+    arch = get_arch(arch_name)
+    cell = arch.cell(shape)
+    if arch.family not in ("lm", "recsys") or cell.kind != "train":
+        raise ValueError(f"{arch_name} {shape}: not an lm or recsys train "
+                         f"cell")
+    cfg = arch.full_config
+    if n_layers is not None:
+        if arch.family != "lm":
+            raise ValueError(f"{arch_name}: n_layers cuts an LM's depth")
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return build_trainer(arch.family, cfg, cell.meta["batch"],
+                         cell.meta.get("seq", 0), accum_steps=accum_steps,
+                         device=device, seed=seed)
 
 
 def main(argv=None):

@@ -18,9 +18,8 @@
                    losses over ``SegmentMean``, the chunked segment mean
                    with its own backward, and the fanout sampler.
 
-Every family's loss is differentiable (``launch/train.py`` trains them)
-but the MoE dispatch's, which waits for a later slice (``ROADMAP.md``
-Queue 1 item 7).
+Every family's loss is differentiable, the MoE dispatch's included
+(``launch/train.py`` trains them).
 """
 from . import gnn, layers, moe, recsys, transformer  # noqa: E402
 

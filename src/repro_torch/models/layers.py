@@ -123,15 +123,18 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     x [E, M, K]).  On the CPU the f64 copy of ``w`` is made
     ``CPU_F64_BLOCK`` bytes of columns at a time: a whole one (8 GB for
     gemma3's head, 3.7 GB for a mixtral expert stack) would be allocated,
-    page by page, on every call."""
+    page by page, on every call.  Under autograd the blocks' gradients
+    are joined once (``split``'s backward)."""
     if x.dtype != torch.float32:
         return x @ w
     xd = x.double()
     if x.is_cuda:
         return (xd @ w.double()).float()
     cols = max(1, CPU_F64_BLOCK // (8 * w[..., 0].numel()))
-    return torch.cat([(xd @ w[..., i:i + cols].double()).float()
-                      for i in range(0, w.shape[-1], cols)], dim=-1)
+    # ``split``, not a slice a block: under autograd a slice's backward
+    # writes its block into zeros the size of ``w``, once a block
+    return torch.cat([(xd @ wb.double()).float()
+                      for wb in w.split(cols, dim=-1)], dim=-1)
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Mixture-of-Experts FFN with group-local capacity dispatch: the PyTorch
-port of the JAX package's ``models/moe.py``, forward values.
+port of the JAX package's ``models/moe.py``, forward and gradients.
 
 The reference's function is kept step for step:
 
@@ -25,6 +25,19 @@ prefill) and, at a decode step, reading every expert's weights though
 the step's tokens select few of them.  A slot no assignment fills holds
 an arbitrary token row: its output is never gathered back, so it needs
 no zeroing (the reference's zeros give zeros there, also never read).
+
+Under autograd the function is the reference's too:
+
+* the router's gradient flows through the top-K probabilities (the
+  values of the stable sort, as ``jax.lax.top_k``'s) and through ``me``
+  of the aux loss; the expert counts ``ce`` take none, on either side;
+* an empty slot's output is never gathered, so its cotangent is exactly
+  zero, and so are its shares of the expert weights' and of x's
+  gradients: the reference's zeroed rows give the same sums;
+* both gathers (x into the dispatch buffer, the buffer back to the
+  assignments) are ``F.embedding`` reads, whose backward on the card
+  sums each row's cotangents in a fixed order: a step repeated from one
+  state gives the same bits.
 """
 from __future__ import annotations
 
@@ -109,6 +122,7 @@ def route(params: dict, x: torch.Tensor, cfg: MoEConfig, n_s: int) -> tuple:
     ce = (torch.bincount(top_e.reshape(-1), minlength=E).double()
           / (B * S * K)).to(torch.float32)
     aux = E * torch.sum(me * ce)
+    ranked_p = ranked_p.detach()
     margin = (ranked_p[..., K - 1] - ranked_p[..., K] if K < E
               else torch.full(ranked_p.shape[:-1], float("inf"),
                               device=x.device))
@@ -144,7 +158,7 @@ def expert_ffn(params: dict, x: torch.Tensor, slots: torch.Tensor,
     batched product a weight, the gate's silu in f32 -> [E * M, D]."""
     D = x.shape[-1]
     dt = x.dtype
-    xb = x[slots[:-1]].view(E, -1, D)
+    xb = F.embedding(slots[:-1], x).view(E, -1, D)
     g = matmul(xb, params["w_gate"].to(dt))
     u = matmul(xb, params["w_up"].to(dt))
     del xb
@@ -163,7 +177,8 @@ def combine(yb: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
     dt = yb.dtype
     tok_dst = torch.empty_like(dst).scatter_(-1, order, dst)
     kept = tok_dst < yb.shape[0]
-    picked = yb[tok_dst.clamp(max=yb.shape[0] - 1)]          # [G, L, D]
+    picked = F.embedding(tok_dst.clamp(max=yb.shape[0] - 1),
+                         yb)                                 # [G, L, D]
     w = torch.where(kept, top_w.reshape(G, L), 0.0).to(dt)
     picked = torch.where(kept[..., None], picked, 0).to(dt)
     return (picked * w[..., None]).view(G, L // K, K, D).sum(dim=2), kept

@@ -32,7 +32,8 @@ a fixed order):
   ``CIN_CHUNK_BYTES`` of outer products (``cin_chunk_rows``): at
   xDeepFM's full width a ``serve_bulk`` batch's first two layers would
   hold 15.9 and 81.8 GB at once.  Each row's result depends on that row
-  alone.
+  alone.  Under autograd a chunk's products are recomputed in the
+  backward rather than kept.
 
 The reference marks the retrieval score matrix's layout with
 ``distributed.ctx.shard_act`` (batch x model); the port computes on one
@@ -46,6 +47,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import resolve_device
 
@@ -282,9 +284,27 @@ def _cin_rows(cin, cin_head, x0: torch.Tensor) -> torch.Tensor:
 
 def _cin_apply(cin, cin_head, emb: torch.Tensor) -> torch.Tensor:
     """Compressed Interaction Network (xDeepFM §3): x0 [B, m, d] -> [B],
-    in row chunks of ``cin_chunk_rows``."""
+    in row chunks of ``cin_chunk_rows``.
+
+    Under autograd each chunk runs under ``torch.utils.checkpoint``: its
+    outer products are formed again in the backward, one chunk at a
+    time, instead of being kept for every chunk (at xDeepFM's full width
+    a ``train_batch`` of 65,536 rows would keep 44.8 GB of them).  The
+    recomputation runs the same operations, so the values and gradients
+    are the same bits."""
     rows = cin_chunk_rows(cin, emb.shape)
-    return torch.cat([_cin_rows(cin, cin_head, emb[lo:lo + rows])
+    if torch.is_grad_enabled():
+        # the weights as tensors now: the recomputation runs after
+        # ``functional_call`` has put the module's own parameters back
+        ws = list(cin)
+
+        def run(x0):
+            return checkpoint(_cin_rows, ws, cin_head, x0,
+                              use_reentrant=False, preserve_rng_state=False)
+    else:
+        def run(x0):
+            return _cin_rows(cin, cin_head, x0)
+    return torch.cat([run(emb[lo:lo + rows])
                       for lo in range(0, emb.shape[0], rows)])
 
 

@@ -1,7 +1,7 @@
 """Decoder-only transformer family: the PyTorch port of the JAX package's
 ``models/transformer.py``: the serving path of the five LM archs (the
 dense qwen3-14b, qwen2-1.5b and gemma3-12b, and the MoE mixtral-8x7b and
-qwen3-moe-30b-a3b) and ``lm_loss``'s gradients for the dense ones.
+qwen3-moe-30b-a3b) and ``lm_loss``'s gradients for all five.
 
 The reference's layout is kept:
 
@@ -28,7 +28,9 @@ The reference's layout is kept:
 
 The reference's ``jax.checkpoint`` + ``lax.scan`` over groups is a loop
 over groups (``_forward``; ``forward`` runs it under
-``torch.inference_mode()``, ``lm_loss`` under autograd); its activation-sharding
+``torch.inference_mode()``, ``lm_loss`` under autograd, each layer under
+``torch.utils.checkpoint``: a layer keeps its input for the backward and
+recomputes the rest, as ``jax.checkpoint`` does); its activation-sharding
 hints (``shard_act``, ``gathered``) are identities on one device and have
 no counterpart.  ``decode_step`` updates the caches it is given in place
 (the reference donates them) and returns them: a cache handed to a step
@@ -41,6 +43,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import resolve_device
 from .layers import (chunked_attention, decode_attention, matmul, rms_norm,
@@ -249,17 +252,34 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         *x.shape[:-1], H, dh)
 
 
-def _qkv(bp: dict, gi: int, x: torch.Tensor, cfg: TransformerConfig,
-         tables: tuple):
+def _layer_params(bp: dict, gi: int) -> dict:
+    """Layer ``gi``'s weights of a pattern position's stacks (the MoE's
+    under ``moe``)."""
+    return {n: ({k: v[gi] for k, v in t.items()} if isinstance(t, dict)
+                else t[gi]) for n, t in bp.items()}
+
+
+def _unstack(bp: dict, n_groups: int) -> list:
+    """Every layer's weights of a pattern position, one ``unbind`` a
+    stack: under autograd a stack's gradient is then put together once,
+    not summed from one zero-padded full-size gradient a layer (what
+    indexing a stack a layer gives)."""
+    parts = {n: ({k: v.unbind(0) for k, v in t.items()}
+                 if isinstance(t, dict) else t.unbind(0))
+             for n, t in bp.items()}
+    return [_layer_params(parts, gi) for gi in range(n_groups)]
+
+
+def _qkv(lp: dict, x: torch.Tensor, cfg: TransformerConfig, tables: tuple):
     """q, k (RoPE applied with ``tables``, ``layers.rope_tables``) and v
-    of one layer."""
-    h = rms_norm(x, bp["ln1"][gi], cfg.norm_eps)
-    q, k, v = (_proj(h, bp[w][gi]) for w in ("wq", "wk", "wv"))
+    of the layer whose weights are ``lp``."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = (_proj(h, lp[w]) for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
-        q, k, v = q + bp["bq"][gi], k + bp["bk"][gi], v + bp["bv"][gi]
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     if cfg.qk_norm:
-        q = rms_norm(q, bp["qnorm"][gi], cfg.norm_eps)
-        k = rms_norm(k, bp["knorm"][gi], cfg.norm_eps)
+        q = rms_norm(q, lp["qnorm"], cfg.norm_eps)
+        k = rms_norm(k, lp["knorm"], cfg.norm_eps)
     return rope_apply(q, *tables), rope_apply(k, *tables), v
 
 
@@ -270,17 +290,28 @@ def _out_proj(x: torch.Tensor, o: torch.Tensor, wo: torch.Tensor):
                       wo.reshape(H * dh, D).to(o.dtype))
 
 
-def _ffn(bp: dict, gi: int, x: torch.Tensor, cfg: TransformerConfig,
+def _ffn(lp: dict, x: torch.Tensor, cfg: TransformerConfig,
          routing: list | None):
-    """x + the FFN of layer ``gi`` of a pattern position, and its aux loss
+    """x + the FFN of the layer whose weights are ``lp``, and its aux loss
     (None for a dense FFN)."""
-    h = rms_norm(x, bp["ln2"][gi], cfg.norm_eps)
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.is_moe:
-        y, aux = moe_ffn({n: t[gi] for n, t in bp["moe"].items()}, h,
-                         cfg.moe_cfg(x.shape[1]), routing)
+        y, aux = moe_ffn(lp["moe"], h, cfg.moe_cfg(x.shape[1]), routing)
         return x + y, aux
-    return x + swiglu(h, bp["w_gate"][gi], bp["w_up"][gi],
-                      bp["w_down"][gi]), None
+    return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), None
+
+
+def _layer(lp: dict, x: torch.Tensor, cfg: TransformerConfig,
+           tables: tuple, window: int, routing: list | None):
+    """The layer whose weights are ``lp``: (x, aux, k, v)."""
+    q, k, v = _qkv(lp, x, cfg, tables)
+    o = chunked_attention(q, k, v, window=window, q_chunk=cfg.q_chunk,
+                          kv_chunk=cfg.kv_chunk, p_dtype=cfg.attn_p_dtype)
+    del q
+    x = _out_proj(x, o, lp["wo"])
+    del o
+    x, aux = _ffn(lp, x, cfg, routing)
+    return x, aux, k, v
 
 
 def _head(params: dict, x: torch.Tensor, cfg: TransformerConfig):
@@ -339,20 +370,21 @@ def _forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
             shape = (cfg.n_groups, B, W, cfg.n_kv_heads, cfg.d_head)
             kc = torch.empty(shape, dtype=cfg.act_dtype, device=dev)
             vc = torch.empty_like(kc)
-        for gi in range(cfg.n_groups):
-            q, k, v = _qkv(bp, gi, x, cfg, tables)
-            o = chunked_attention(q, k, v, window=window,
-                                  q_chunk=cfg.q_chunk,
-                                  kv_chunk=cfg.kv_chunk,
-                                  p_dtype=cfg.attn_p_dtype)
-            del q
-            x = _out_proj(x, o, bp["wo"][gi])
-            del o
+        for gi, lp in enumerate(_unstack(bp, cfg.n_groups)):
+            if (torch.is_grad_enabled() and not collect_cache
+                    and routing is None):
+                # the reference's jax.checkpoint of a group's body: only
+                # the layer's input is kept, the rest recomputed in the
+                # backward by the same operations (the same bits)
+                x, aux, k, v = checkpoint(
+                    _layer, lp, x, cfg, tables, window, routing,
+                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, aux, k, v = _layer(lp, x, cfg, tables, window, routing)
             if collect_cache:
                 kc[gi] = k[:, S - W:]
                 vc[gi] = v[:, S - W:]
             del k, v
-            x, aux = _ffn(bp, gi, x, cfg, routing)
             if aux is not None:
                 aux_total = aux_total + aux
         if collect_cache:
@@ -368,15 +400,8 @@ def _forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
 def lm_loss(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
             cfg: TransformerConfig, aux_weight: float = 0.01):
     """Mean next-token cross-entropy plus ``aux_weight`` x the aux loss (0
-    for a dense model): (loss, {"ce", "aux"}), differentiable in a dense
-    model's parameters.  A MoE model's loss is a value only: asked for a
-    gradient it raises ``NotImplementedError`` (the MoE dispatch's
-    gradients are ROADMAP item 7)."""
-    if cfg.is_moe and torch.is_grad_enabled() and any(
-            t.requires_grad for _, t in param_items(params)):
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE dispatch's gradients are not ported "
-            f"(ROADMAP item 7); lm_loss gives a MoE model's value only")
+    for a dense model): (loss, {"ce", "aux"}), differentiable in every
+    parameter, a MoE model's router and experts included."""
     logits, aux, _ = _forward(params, tokens, cfg)
     logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     lse = torch.logsumexp(logits, dim=-1)
@@ -429,12 +454,13 @@ def decode_step(params: dict, caches: list, tokens: torch.Tensor, pos,
         slot = pos % cache["k"].shape[2]
         cache["pos"][slot] = pos
         for gi in range(cfg.n_groups):
-            q, k, v = _qkv(bp, gi, x, cfg, tables)
+            lp = _layer_params(bp, gi)
+            q, k, v = _qkv(lp, x, cfg, tables)
             kc, vc = cache["k"][gi], cache["v"][gi]
             kc[:, slot] = k[:, 0]
             vc[:, slot] = v[:, 0]
             o = decode_attention(q, kc, vc, cache["pos"], pos, window=window)
-            x = _out_proj(x, o, bp["wo"][gi])
-            x, _ = _ffn(bp, gi, x, cfg, routing)
+            x = _out_proj(x, o, lp["wo"])
+            x, _ = _ffn(lp, x, cfg, routing)
 
     return _head(params, x, cfg)[:, 0], caches

@@ -60,7 +60,10 @@ def make_train_step(loss_fn: Callable, *, lr: float = 3e-4,
     metrics).  With ``accum_steps > 1`` the batch's leading axis is split
     into microbatches run one after another; their gradients are summed
     in f32 and divided by ``accum_steps``, and the loss and metrics are
-    their means."""
+    their means.  The sum is added in place, and each microbatch's graph
+    and gradients are freed before the next starts: beside the
+    parameters and AdamW's state, a step holds one f32 gradient tree and
+    one microbatch's activations and gradients."""
 
     def step(params, opt_state: AdamWState, batch):
         if accum_steps == 1:
@@ -71,11 +74,15 @@ def make_train_step(loss_fn: Callable, *, lr: float = 3e-4,
             for i in range(accum_steps):
                 loss, metrics, g = loss_and_grads(
                     loss_fn, params, _micro(batch, i, accum_steps))
-                acc = ([x.float() for x in g] if acc is None
-                       else [a + x for a, x in zip(acc, g)])
+                if acc is None:
+                    acc = [x.float() for x in g]
+                else:
+                    for a, x in zip(acc, g):
+                        a.add_(x)
+                del g
                 losses.append(loss)
                 metricses.append(metrics)
-            grads = [a / accum_steps for a in acc]
+            grads = [a.div_(accum_steps) for a in acc]
             loss = torch.stack(losses).mean()
             metrics = {k: torch.stack([m[k] for m in metricses]).mean()
                        for k in metricses[0]}

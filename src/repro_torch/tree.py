@@ -17,46 +17,51 @@ def _is_namedtuple(node) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
 
 
+def _flatten(node, leaves: list):
+    if node is None:
+        return ("none",)
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ("dict", tuple(keys),
+                tuple(_flatten(node[k], leaves) for k in keys))
+    if _is_namedtuple(node):
+        return ("namedtuple", type(node),
+                tuple(_flatten(getattr(node, f), leaves)
+                      for f in node._fields))
+    if isinstance(node, (list, tuple)):
+        kind = "list" if isinstance(node, list) else "tuple"
+        return (kind, len(node), tuple(_flatten(c, leaves) for c in node))
+    leaves.append(node)
+    return ("leaf",)
+
+
 def tree_flatten(tree) -> Tuple[List[Any], Any]:
     """(leaves, structure): ``tree_unflatten(structure, leaves)`` rebuilds
-    the tree."""
+    the tree.  The walks are module functions, not closures: a closure
+    that calls itself is a reference cycle, which would hold the leaves
+    (a step's gradients, AdamW's old moments) until the cyclic garbage
+    collector ran."""
     leaves: list = []
+    return leaves, _flatten(tree, leaves)
 
-    def walk(node):
-        if node is None:
-            return ("none",)
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", tuple(keys), tuple(walk(node[k]) for k in keys))
-        if _is_namedtuple(node):
-            return ("namedtuple", type(node),
-                    tuple(walk(getattr(node, f)) for f in node._fields))
-        if isinstance(node, (list, tuple)):
-            kind = "list" if isinstance(node, list) else "tuple"
-            return (kind, len(node), tuple(walk(c) for c in node))
-        leaves.append(node)
-        return ("leaf",)
 
-    return leaves, walk(tree)
+def _build(s, it):
+    kind = s[0]
+    if kind == "leaf":
+        return next(it)
+    if kind == "none":
+        return None
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(s[1], s[2])}
+    if kind == "namedtuple":
+        return s[1](*(_build(c, it) for c in s[2]))
+    children = [_build(c, it) for c in s[2]]
+    return children if kind == "list" else tuple(children)
 
 
 def tree_unflatten(structure, leaves) -> Any:
     it = iter(leaves)
-
-    def build(s):
-        kind = s[0]
-        if kind == "leaf":
-            return next(it)
-        if kind == "none":
-            return None
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(s[1], s[2])}
-        if kind == "namedtuple":
-            return s[1](*(build(c) for c in s[2]))
-        children = [build(c) for c in s[2]]
-        return children if kind == "list" else tuple(children)
-
-    out = build(structure)
+    out = _build(structure, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the structure holds")
     return out
@@ -75,26 +80,26 @@ def tree_map(fn: Callable, tree, *rest) -> Any:
                           [fn(*args) for args in zip(leaves, *others)])
 
 
+def _paths(node, prefix: str, paths: list) -> None:
+    if node is None:
+        return
+    if isinstance(node, dict):
+        items = [(k, node[k]) for k in sorted(node)]
+    elif _is_namedtuple(node):
+        items = [(f, getattr(node, f)) for f in node._fields]
+    elif isinstance(node, (list, tuple)):
+        items = list(enumerate(node))
+    else:
+        paths.append(prefix)
+        return
+    for k, v in items:
+        _paths(v, f"{prefix}.{k}" if prefix else str(k), paths)
+
+
 def tree_paths(tree) -> List[str]:
     """Each leaf's dotted path (``layers.0.w_self``), in leaf order."""
     paths: list = []
-
-    def walk(node, prefix):
-        if node is None:
-            return
-        if isinstance(node, dict):
-            items = [(k, node[k]) for k in sorted(node)]
-        elif _is_namedtuple(node):
-            items = [(f, getattr(node, f)) for f in node._fields]
-        elif isinstance(node, (list, tuple)):
-            items = list(enumerate(node))
-        else:
-            paths.append(prefix)
-            return
-        for k, v in items:
-            walk(v, f"{prefix}.{k}" if prefix else str(k))
-
-    walk(tree, "")
+    _paths(tree, "", paths)
     return paths
 
 

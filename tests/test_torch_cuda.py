@@ -701,10 +701,12 @@ def test_lm_decode_matches_forward_on_card(dev, name):
     _chip_smoke().lm_decode_vs_forward(name, cfg, 128, 0, dev)
 
 
-@pytest.mark.parametrize("name", ["qwen2-1.5b", "gemma3-12b"])
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "gemma3-12b",
+                                  "mixtral-8x7b", "qwen3-moe-30b-a3b"])
 def test_lm_loss_grads_card_equals_cpu(dev, name):
     """``lm_loss`` and its gradients through the flash backward at S 64
-    in kv blocks of 16 (gemma3 with its window of 8) on the card against
+    in kv blocks of 16 (gemma3 with its window of 8; the MoE archs
+    through the dispatch, their routing equal first) on the card against
     the CPU, to ``chip_smoke._tolerance``."""
     _chip_smoke().lm_grads_card_vs_cpu(name, dev)
 

@@ -1,7 +1,8 @@
 """Gradients in the port against the reference, on the CPU: the flash
 attention's FlashAttention-2 backward, the dense LMs' ``lm_loss`` and the
 recsys losses that ``launch.train`` steps on (GraphSAGE's are in
-``test_torch_gnn.py``); a MoE LM's gradients raise.
+``test_torch_gnn.py``), and the MoE dispatch's: ``moe_ffn`` alone and the
+MoE LMs' ``lm_loss``.
 
 Tolerances:
 
@@ -30,6 +31,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402
 from repro.data import pipelines as jpipe  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
 from repro.models import recsys as jrec  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 
@@ -37,9 +39,9 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import recsys as trec  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
-from repro_torch.optim import adamw as tadamw  # noqa: E402
 from repro_torch.training import steps as tsteps  # noqa: E402
 from repro_torch.tree import module_tree, tree_map, tree_paths  # noqa: E402
 
@@ -236,6 +238,110 @@ def test_recsys_loss_grads_match_reference(kind):
     _grads_close(grads, jax.tree.leaves(jg))
 
 
+@pytest.mark.parametrize("w_shape", [(16, 40), (3, 16, 40)])
+def test_matmul_column_blocks_gradients(monkeypatch, w_shape):
+    """``layers.matmul``'s CPU column blocks under autograd (a head [K, N]
+    and an expert stack [E, K, N], 7 columns a block): the gradients of x
+    and w those of one f64 product rounded once, to an f32 rounding."""
+    g = np.random.default_rng(3)
+    x = torch.from_numpy(g.standard_normal(
+        (w_shape[0] if len(w_shape) == 3 else 2, 5, 16)).astype(np.float32))
+    w = torch.from_numpy(g.standard_normal(w_shape).astype(np.float32))
+    cot = torch.from_numpy(g.standard_normal(
+        x.shape[:-1] + (40,)).astype(np.float32))
+    monkeypatch.setattr(tlayers, "CPU_F64_BLOCK",
+                        8 * 7 * int(np.prod(w_shape[:-1])))
+
+    def grads(fn):
+        ins = [x.clone().requires_grad_(), w.clone().requires_grad_()]
+        return torch.autograd.grad(fn(*ins), ins, cot)
+    got = grads(tlayers.matmul)
+    want = grads(lambda a, b: (a.double() @ b.double()).float())
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=2.0 ** -23, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma3-12b",
+                                  "qwen3-moe-30b-a3b"])
+def test_lm_layer_recompute_gives_equal_bits(monkeypatch, arch):
+    """``lm_loss`` runs each layer under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint`` of a group's body): the loss and every
+    gradient equal, bit for bit, those of the layers run without the
+    recompute (``checkpoint`` replaced by a plain call), and the forward
+    keeps for the backward under a third of the bytes it keeps
+    without."""
+    cfg = tconfigs.get_arch(arch).smoke_config
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    b = {k: torch.from_numpy(v) for k, v in next(
+        jpipe.lm_token_stream(2, 64, cfg.vocab, seed=1)).items()}
+
+    def run():
+        held = []
+
+        def pack(t):
+            held.append(t.numel() * t.element_size())
+            return t
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out = tsteps.loss_and_grads(
+                lambda p, x: ttf.lm_loss(p, x["tokens"], x["targets"], cfg),
+                params, b)
+        return out, sum(held)
+    (loss, m, grads), kept = run()
+    monkeypatch.setattr(ttf, "checkpoint",
+                        lambda fn, *a, **kw: fn(*a))
+    (loss0, m0, grads0), kept0 = run()
+    assert torch.equal(loss, loss0) and all(
+        torch.equal(m[k], m0[k]) for k in m)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads0))
+    assert 3 * kept < kept0
+
+
+def test_cin_recompute_gives_equal_bits(monkeypatch):
+    """xDeepFM's CIN under autograd recomputes each chunk's outer products
+    in the backward (``torch.utils.checkpoint``): with ``CIN_CHUNK_BYTES``
+    forced down to 3 rows a chunk (11 chunks of 32 rows), the CIN term
+    and the gradients of the CIN weights, its head and the embeddings
+    equal, bit for bit, those of the same chunks run without the
+    recompute; and the forward keeps for the backward under a tenth of
+    the bytes of the products, which the plain chunks keep whole."""
+    cfg = tconfigs.get_arch("xdeepfm").smoke_config
+    model = trec.init_recsys_params(torch.Generator().manual_seed(0), cfg,
+                                    "cpu")
+    m, d = cfg.n_sparse, cfg.embed_dim
+    monkeypatch.setattr(trec, "CIN_CHUNK_BYTES",
+                        3 * 4 * d * max(cfg.cin_layers) * m)
+    b = next(jpipe.click_stream(32, m, cfg.rows_per_field, seed=3))
+    emb = trec.field_lookup(model.V.detach(), torch.from_numpy(b["ids"]),
+                            cfg).requires_grad_()
+    ws = [w.detach().requires_grad_() for w in model.cin]
+    head = model.cin_head.detach().requires_grad_()
+    rows = trec.cin_chunk_rows(ws, emb.shape)
+    assert rows == 3
+    cot = torch.from_numpy(np.random.default_rng(4).standard_normal(32)
+                           .astype(np.float32))
+
+    def saved_bytes(fn):
+        held = []
+
+        def pack(t):
+            held.append(t.numel() * t.element_size())
+            return t
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out = fn()
+        return out, sum(held)
+    got, kept = saved_bytes(lambda: trec._cin_apply(ws, head, emb))
+    want, kept_plain = saved_bytes(lambda: torch.cat([
+        trec._cin_rows(ws, head, emb[lo:lo + rows])
+        for lo in range(0, 32, rows)]))
+    assert torch.equal(got, want)
+    inputs = ws + [head, emb]
+    for a, b in zip(torch.autograd.grad(got, inputs, cot),
+                    torch.autograd.grad(want, inputs, cot)):
+        assert torch.equal(a, b)
+    z_bytes = 32 * 4 * d * m * (m + sum(cfg.cin_layers[:-1]))
+    assert kept_plain >= z_bytes > 10 * kept
+
+
 def test_chip_smoke_lm_grads_check_runs_on_the_cpu():
     """``chip_smoke.lm_grads_card_vs_cpu`` with the CPU on both sides: the
     same bits, so an error of 0."""
@@ -246,15 +352,93 @@ def test_chip_smoke_lm_grads_check_runs_on_the_cpu():
     assert mod.lm_grads_card_vs_cpu("gemma3-12b", torch.device("cpu")) == 0
 
 
+MOE_AUX_WEIGHT = 0.5       # large enough that the aux loss's share counts
+
+
+@pytest.mark.parametrize("E,K,ng,cf,B,S,skew", [
+    (8, 2, 4, 4.0, 2, 32, False),      # nothing dropped
+    (8, 2, 4, 1.0, 2, 32, False),      # capacity 3: drops
+    (4, 4, 2, 1.25, 2, 16, False),     # K == E
+    (16, 2, 4, 1.25, 2, 16, False),    # 8 assignments a group, 16 experts
+    (8, 2, 4, 1.0, 2, 48, True),       # skewed to experts 0, 1: many drops
+    (16, 4, 3, 1.0, 3, 24, False),     # 3 groups of 8
+])
+def test_moe_ffn_grads_match_reference(E, K, ng, cf, B, S, skew):
+    """``moe_ffn``'s gradients in x and in its four parameters (router,
+    w_gate, w_up, w_down) against ``jax.value_and_grad`` of the
+    reference's, for sum(out * cotangent) + 0.5 x aux: the router's
+    through the top-K weights and the aux loss's ``me``, the dropped
+    assignments' zero weights, and the slots no assignment fills (the
+    port's hold a token row, the reference's zeros): every case leaves
+    slots empty, and every case but K == E whole (group, expert) slot
+    ranges."""
+    D, F = 32, 40
+    jc = jmoe.MoEConfig(E, K, D, F, cf, ng)
+    tc = tmoe.MoEConfig(E, K, D, F, cf, ng)
+    ref = {k: np.array(v) for k, v in jmoe.init_moe_params(
+        jax.random.PRNGKey(E + K + S), jc, jnp.float32).items()}
+    g = np.random.default_rng(S + ng)
+    x = g.standard_normal((B, S, D)).astype(np.float32)
+    if skew:
+        ref["router"][0, :2] = (2.0, 1.5)
+        x[..., 0] = 2.0
+    cot = g.standard_normal((B, S, D)).astype(np.float32)
+
+    def jl(p, xx):
+        out, aux = jmoe.moe_ffn(p, xx, jc)
+        return jnp.sum(out * cot) + MOE_AUX_WEIGHT * aux
+    jloss, (jgp, jgx) = jax.jit(jax.value_and_grad(jl, argnums=(0, 1)))(
+        ref, jnp.asarray(x))
+    tp = {k: torch.from_numpy(v.copy()) for k, v in ref.items()}
+    routes = []
+
+    def tl(p, b):
+        out, aux = tmoe.moe_ffn(p["moe"], p["x"], tc, routes)
+        return (out * b).sum() + MOE_AUX_WEIGHT * aux, {}
+    loss, _, grads = tsteps.loss_and_grads(
+        tl, {"moe": tp, "x": torch.from_numpy(x)}, torch.from_numpy(cot))
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    _grads_close(grads, jax.tree.leaves({"moe": jgp, "x": jgx}))
+    r = routes[0]
+    n_s = tmoe.group_count(ng, S)
+    filled = torch.zeros(B * n_s, E, dtype=torch.long)
+    filled.scatter_add_(1, r.experts.reshape(B * n_s, -1),
+                        r.kept.reshape(B * n_s, -1).long())
+    assert bool((filled < tmoe.capacity(tc, S // n_s)).any())
+    assert bool((filled == 0).any()) == (K < E)   # whole ranges empty
+    dropped = int((~r.kept).sum())
+    assert dropped > 0 if cf <= 1.0 else cf < 4.0 or dropped == 0
+    if skew:
+        assert dropped > B * S * K // 3
+
+
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-30b-a3b"])
-def test_moe_lm_gradients_raise(arch):
-    """A MoE LM's gradients are not ported: a train step raises and names
-    the ROADMAP item; the loss's value still comes."""
-    params, step, stream = ttrain.build_smoke_trainer(arch, 2, 16, 1e-3,
-                                                      device="cpu")
-    batch = tree_map(torch.from_numpy, next(stream(0)))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        step(params, tadamw.adamw_init(params), batch)
-    cfg = tconfigs.get_arch(arch).smoke_config
-    loss, _ = ttf.lm_loss(params, batch["tokens"], batch["targets"], cfg)
-    assert torch.isfinite(loss)
+def test_moe_lm_loss_grads_match_reference(arch):
+    """A MoE LM's ``lm_loss`` (cross-entropy + 0.01 x aux) and every
+    gradient, the routers' and the experts' included, against
+    ``jax.value_and_grad`` of the reference's, leaf by leaf, at the
+    smoke config (cf 4.0) over B 2 x S 48, and at cf 1.0, where the
+    dispatch drops assignments."""
+    jcfg = jconfigs.get_arch(arch).smoke_config
+    tcfg = tconfigs.get_arch(arch).smoke_config
+    jp = _redrawn_lm_params(jcfg)
+    toks = np.random.default_rng(6).integers(1, jcfg.vocab, (2, 48)).astype(
+        np.int32)
+    tg = np.roll(toks, -1, axis=1)
+    for cf in (jcfg.moe_cf, 1.0):
+        jc = dataclasses.replace(jcfg, moe_cf=cf)
+        tc = dataclasses.replace(tcfg, moe_cf=cf)
+        (jloss, jm), jg = jax.jit(jax.value_and_grad(
+            lambda p: jtf.lm_loss(p, jnp.asarray(toks), jnp.asarray(tg), jc),
+            has_aux=True))(jp)
+        tp = convert.lm_params(jp, tc, "cpu")
+        loss, m, grads = tsteps.loss_and_grads(
+            lambda p, b: ttf.lm_loss(p, b["tokens"], b["targets"], tc), tp,
+            {"tokens": torch.from_numpy(toks),
+             "targets": torch.from_numpy(tg)})
+        np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+        np.testing.assert_allclose(float(m["aux"]), float(jm["aux"]),
+                                   rtol=1e-5)
+        assert float(m["aux"]) > 0
+        assert tree_paths(tp) == tree_paths(jg)
+        _grads_close(grads, jax.tree.leaves(jg))

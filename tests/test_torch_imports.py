@@ -6,10 +6,10 @@ imports (the serving, distributed, launch, data, models and configs
 subpackages named, the LM modules and configs among them, and GraphSAGE
 and the training stack: ``models.gnn``, ``optim``, ``training``,
 ``launch.train``, ``configs.graphsage_reddit``),
-``chip_smoke.py`` and the port's two examples
-(``examples/torch_quickstart.py``, ``examples/torch_serve_ann.py``)
-and ``scripts/torch_lm_probe.py`` import as modules (without running
-``main``),
+``chip_smoke.py``, the port's four examples
+(``examples/torch_quickstart.py``, ``examples/torch_serve_ann.py``,
+``examples/torch_train_lm.py``, ``examples/torch_sasrec_retrieval.py``)
+and the probe scripts import as modules (without running ``main``),
 and a snapshot written by the reference -- whose pickles name the
 reference's classes -- loads into the port and serves the reference's
 results.
@@ -57,7 +57,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for n in names:
     importlib.import_module(n)
 for path in ("chip_smoke.py", "examples/torch_quickstart.py",
-             "examples/torch_serve_ann.py", "scripts/torch_lm_probe.py",
+             "examples/torch_serve_ann.py", "examples/torch_train_lm.py",
+             "examples/torch_sasrec_retrieval.py",
+             "scripts/torch_lm_probe.py", "scripts/torch_train_probe.py",
              "scripts/torch_lm_parity_probe.py"):
     spec = importlib.util.spec_from_file_location("m", path)
     mod = importlib.util.module_from_spec(spec)

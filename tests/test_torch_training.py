@@ -7,8 +7,9 @@ one rounding moves it by 2 lr; parameters after many steps are not
 compared element for element):
 
 * AdamW on identical numpy gradients: rtol 1e-6 (atol 1e-9);
-* ``make_train_step`` against the reference's over 5 steps: losses
-  within 1e-4 relative;
+* ``make_train_step`` against the reference's over 5 steps (3 for the
+  MoE LMs and the cell trainers, at the smoke configs): losses within
+  1e-4 relative;
 * ``accum_steps=2`` against 1: the reference test's rtol 5e-3, atol
   5e-5 on the parameters;
 * resume after a crash: bit for bit;
@@ -54,6 +55,36 @@ from repro_torch.tree import (module_tree, tree_flatten,  # noqa: E402
 
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
+
+
+@pytest.mark.parametrize("arch", ["fm", "qwen2-1.5b"])
+def test_train_step_leaves_no_cycle_holding_tensors(arch):
+    """A train step (and ``tree_paths``) leaves no reference cycle that
+    holds a tensor: with the cyclic garbage collector off, what it would
+    collect after the step holds none.  (The tree walks were closures
+    that called themselves, each a cycle holding its leaves: a step's
+    gradients and AdamW's old moments stayed allocated until the
+    collector ran.)"""
+    import gc
+    params, step, stream = ttrain.build_smoke_trainer(arch, 4, 16, 1e-3,
+                                                      accum=2, device="cpu")
+    opt = tadamw.adamw_init(params)
+    batch = tree_map(torch.from_numpy, next(stream(0)))
+    step(params, opt, batch)      # first calls import lazily, once
+    gc.collect()
+    gc.disable()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        step(params, opt, batch)
+        tree_paths(params)
+        gc.collect()
+        held = [tuple(o.shape) for o in gc.garbage
+                if isinstance(o, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+    assert held == []
 
 
 def test_tree_order_is_the_references():
@@ -226,6 +257,123 @@ def test_train_step_matches_reference_over_five_steps(form):
     assert int(to.step) == 5
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-30b-a3b"])
+def test_moe_train_step_matches_reference_over_three_steps(arch):
+    """Three AdamW steps of a MoE smoke LM (the MoE dispatch's gradients,
+    the aux loss at weight 0.01) against the reference's
+    ``make_train_step``: each step's loss, ce and aux within 1e-4
+    relative."""
+    jcfg = jconfigs.get_arch(arch).smoke_config
+    tcfg = tconfigs.get_arch(arch).smoke_config
+    jp = jtf.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = convert.lm_params(_np_tree(jp), tcfg, "cpu")
+    jstep = jax.jit(jsteps.make_train_step(
+        lambda p, b: jtf.lm_loss(p, b["tokens"], b["targets"], jcfg),
+        lr=1e-3))
+    tstep = tsteps.make_lm_train_step(tcfg, lr=1e-3)
+    jo, to = jadamw.adamw_init(jp), tadamw.adamw_init(tp)
+    stream = jpipe.lm_token_stream(4, 16, jcfg.vocab)
+    for _ in range(3):
+        b = next(stream)
+        jp, jo, jm = jstep(jp, jo, b)
+        tp, to, tm = tstep(tp, to, tree_map(torch.from_numpy, b))
+        assert tm.keys() == jm.keys()
+        for k in tm:
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]),
+                                       rtol=1e-4, err_msg=k)
+    assert float(tm["aux"]) > 0
+
+
+def _smoke_cells(monkeypatch, arch):
+    """``launch.train.get_arch`` giving ``arch`` with its smoke config in
+    place of the FULL one (the cells keep the published shapes)."""
+    spec = tconfigs.get_arch(arch)
+    monkeypatch.setattr(ttrain, "get_arch", lambda name: dataclasses.replace(
+        spec, full_config=spec.smoke_config))
+    return spec
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "qwen3-moe-30b-a3b"])
+def test_cell_trainer_lm_matches_reference_accumulated(monkeypatch, arch):
+    """``build_cell_trainer(arch, "train_4k", accum_steps=4)`` at the smoke
+    config: its stream yields the cell's B 256 x S 4,096 batches, and its
+    step, over 3 batches of 8 x 16 split into 4 microbatches, gives the
+    losses and metrics of the reference's ``make_train_step`` at its
+    defaults (lr 3e-4, weight decay 0.1, clip 1.0) with ``accum_steps``
+    4, within 1e-4 relative; ``n_layers`` cuts the depth."""
+    spec = _smoke_cells(monkeypatch, arch)
+    jcfg = jconfigs.get_arch(arch).smoke_config
+    params, tstep, stream = ttrain.build_cell_trainer(
+        arch, "train_4k", accum_steps=4, device="cpu")
+    b0 = next(stream(0))
+    want = spec.cell("train_4k").specs()
+    assert {k: v.shape for k, v in b0.items()} == {
+        k: want[k].shape for k in want}
+    assert tree_paths(params) == tree_paths(convert.lm_params(
+        _np_tree(jtf.init_params(jax.random.PRNGKey(0), jcfg)),
+        spec.smoke_config, "cpu"))
+    cut, _, _ = ttrain.build_cell_trainer(arch, "train_4k", n_layers=1,
+                                          device="cpu")
+    assert cut["blocks"][0]["wq"].shape[0] == 1
+    jp = jtf.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = convert.lm_params(_np_tree(jp), spec.smoke_config, "cpu")
+    jstep = jax.jit(jsteps.make_train_step(
+        lambda p, b: jtf.lm_loss(p, b["tokens"], b["targets"], jcfg),
+        accum_steps=4))
+    jo, to = jadamw.adamw_init(jp), tadamw.adamw_init(tp)
+    data = jpipe.lm_token_stream(8, 16, jcfg.vocab, seed=3)
+    for _ in range(3):
+        b = next(data)
+        jp, jo, jm = jstep(jp, jo, b)
+        tp, to, tm = tstep(tp, to, tree_map(torch.from_numpy, b))
+        assert tm.keys() == jm.keys()
+        for k in tm:
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]),
+                                       rtol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("kind", ["fm", "deepfm", "xdeepfm", "sasrec"])
+def test_cell_trainer_recsys_matches_reference(monkeypatch, kind):
+    """``build_cell_trainer(kind, "train_batch")`` at the smoke config: its
+    stream yields the cell's batches of 65,536 rows, and its step, over 3
+    batches of 32 rows, gives the losses of the reference's
+    ``make_train_step`` at its defaults, within 1e-4 relative."""
+    from repro.models import recsys as jrec
+    spec = _smoke_cells(monkeypatch, kind)
+    jcfg = jconfigs.get_arch(kind).smoke_config
+    params, tstep, stream = ttrain.build_cell_trainer(kind, "train_batch",
+                                                      device="cpu")
+    b0 = next(stream(0))
+    want = spec.cell("train_batch").specs()       # the FULL config's widths
+    assert b0.keys() == want.keys() and all(
+        v.shape[0] == want[k].shape[0] == 65_536 for k, v in b0.items())
+    jp = jrec.init_recsys_params(jax.random.PRNGKey(0), jcfg)
+    tp = module_tree(convert.recsys_model(_np_tree(jp), spec.smoke_config,
+                                          "cpu"))
+    assert tree_paths(tp) == tree_paths(params)
+    if kind == "sasrec":
+        def jl(p, b):
+            loss = jrec.sasrec_loss(p, b["seq"], b["pos"], b["neg"], jcfg)
+            return loss, {"bpr": loss}
+        data = jpipe.sasrec_stream(32, jcfg.seq_len, jcfg.n_items, seed=4)
+    else:
+        def jl(p, b):
+            loss = jrec.recsys_loss(p, b["ids"], b["labels"], jcfg)
+            return loss, {"logloss": loss}
+        data = jpipe.click_stream(32, jcfg.n_sparse, jcfg.rows_per_field,
+                                  seed=4)
+    jstep = jax.jit(jsteps.make_train_step(jl))
+    jo, to = jadamw.adamw_init(jp), tadamw.adamw_init(tp)
+    for _ in range(3):
+        b = next(data)
+        jp, jo, jm = jstep(jp, jo, b)
+        tp, to, tm = tstep(tp, to, tree_map(torch.from_numpy, b))
+        assert tm.keys() == jm.keys()
+        for k in tm:
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]),
+                                       rtol=1e-4, err_msg=k)
+
+
 def test_grad_accumulation_equivalence():
     """accum_steps=2 against 1 on the same global batch (the lm smoke
     config), and the reference's accumulated step."""
@@ -334,8 +482,9 @@ def test_checkpoint_keeps_bf16_and_scalars(tmp_path):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "fm", "deepfm", "xdeepfm",
-                                  "sasrec", "graphsage-reddit"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "qwen3-moe-30b-a3b", "fm",
+                                  "deepfm", "xdeepfm", "sasrec",
+                                  "graphsage-reddit"])
 def test_launch_train_main_on_cpu(tmp_path, arch):
     """``main`` with ``--device cpu`` for every family: finite losses and
     the loss's own metric; resumed from its step-2 checkpoint, the same
