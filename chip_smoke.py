@@ -176,6 +176,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -3282,6 +3283,559 @@ def recsys_train_run(name: str, seed: int, dev) -> dict:
     return out
 
 
+# (f) the model-sharding slice: qwen2-1.5b, one qwen3-moe layer and fm over
+# a 2 (data) x 2 (model) mesh of four shards on cuda:0, each held against
+# the unsharded step of the same state on the same batch
+SHARD_MODEL = 2                      # the mesh's model axis; data = 4 / 2
+SHARD_POSITIONS = 4
+SHARD_LM_BATCH = 8                   # (f1): train_4k's shape at B 8
+SHARD_MOE_BATCH = 2                  # (f2): one sequence a data shard
+SHARD_TWIN_ELEMENTS = 1 << 22        # (f4): the CPU twin's prefix a block
+
+
+def _bf16_ulps(a, b) -> int:
+    """The largest distance in bf16 steps between two bf16 tensors (their
+    bit patterns put in one order over both signs)."""
+    import torch
+
+    def order(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((order(a) - order(b)).abs().max())
+
+
+def _host_tree(tree):
+    """A tree's tensors copied to the host (the card synchronised after)."""
+    import torch
+    from repro_torch.tree import tree_map
+    out = tree_map(lambda t: t.detach().to("cpu"), tree)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out
+
+
+SUBNORMAL = 2.0 ** -140               # 2^9 steps of f32's subnormal range
+ADAMW_KW = dict(lr=3e-4, weight_decay=0.1, grad_clip=1.0)   # the cells'
+
+
+@contextlib.contextmanager
+def adamw_seen(seen: list):
+    """Within the block, each AdamW update ``training.steps``' train step
+    makes appends (its gradient tree, its keyword arguments) to ``seen``:
+    the gradients the step itself computed, for the comparison (the step
+    is not changed and runs no extra pass)."""
+    from repro_torch.training import steps
+    real = steps.adamw_update
+
+    def spy(params, grads, state, **kw):
+        seen.append((grads, kw))
+        return real(params, grads, state, **kw)
+    steps.adamw_update = spy
+    try:
+        yield
+    finally:
+        steps.adamw_update = real
+
+
+def _first_step_ratio(m, v, b1: float, b2: float, eps: float):
+    """AdamW's m^ / (sqrt(v^) + eps) after its first step."""
+    return (m / (1 - b1)) / ((v / (1 - b2)).sqrt() + eps)
+
+
+def _replicas_equal(what: str, x) -> None:
+    """Every copy of each slice of a ``Sharded`` leaf equal, bit for bit,
+    to the copy its owner holds (``to_full`` reads only the owners)."""
+    import torch
+    if not hasattr(x, "blocks"):
+        return
+    first: dict = {}
+    for pos, blk in zip(x.mesh.positions(), x.blocks):
+        key = x.slice_key(pos)
+        if key not in first:
+            first[key] = (pos, blk)
+            continue
+        check(torch.equal(blk, first[key][1].to(blk.device)),
+              f"{what}: the copy at {pos} differs from its owner's at "
+              f"{first[key][0]}")
+
+
+def hold_first_step(name: str, paths: list, got: dict, ref: dict, init,
+                    dev, *, lr: float, grad_clip: float, b1: float = 0.9,
+                    b2: float = 0.95, eps: float = 1e-8) -> dict:
+    """A sharded first AdamW step (``got``: metrics, gradients, new
+    parameters and moments, leaves ``Sharded`` or not) held against the
+    unsharded one (``ref``, the same trees on the host) from the same
+    parameters ``init`` (host).  Raises ``PhaseError`` at the first
+    element out of its bound:
+
+    * every copy of a replicated block equal to its owner's;
+    * metrics and every gradient to ``_tolerance`` (the recsys bound);
+    * m and v, from zero moments, to the bound their realised gradient
+      difference dg implies: ``(1-b1) sc |dg| (1 + 1e-4) + 1e-4 |m|`` and
+      ``(1-b2) sc^2 (2 |g| |dg| + dg^2) (1 + 3e-4) + 3e-4 v``, with g,
+      m, v and the clip scale sc the unsharded step's (1e-4 is the clip
+      scales' relative difference allowed: each side adds a few hundred
+      f32 partial sums of squares in its own order, whose worst case is
+      ~2e-5; twice that for v, which goes with sc^2), each plus
+      ``SUBNORMAL`` (below f32's normal range rounding is absolute);
+    * an f32 parameter to ``_tolerance``; a bf16 one within one bf16 step
+      at the larger of its old and two new magnitudes (both round an f32
+      value; an update that cancels the old value keeps the old one's f32
+      rounding), plus lr times the widest move of AdamW's ratio
+      m^ / (sqrt(v^) + eps) from the unsharded one over the unsharded
+      moments moved by their bounds (at most 2: each ratio of a first
+      step lies in (-1, 1)).  Only where the unsharded gradient lies
+      within |dg| of zero does that allowance reach lr; elsewhere it is
+      ~0.
+
+    Returns the largest error of each kind and of each relative to its
+    bound, the largest bf16 distance in steps and how many elements moved
+    more than one step."""
+    import torch
+    from repro_torch.distributed.sharding import is_sharded, to_full
+    from repro_torch.tree import tree_leaves
+    err = {"loss": 0.0}
+    for k, v in got["metrics"].items():
+        err["loss"] = max(err["loss"], _card_vs_cpu(
+            v[None], ref["metrics"][k][None], f"{name} sharded {k}"))
+    g_ref = [g.to(dev).double() for g in tree_leaves(ref["grads"])]
+    gnorm = float(torch.sqrt(sum(torch.sum(g * g) for g in g_ref)))
+    sc = min(1.0, grad_clip / max(gnorm, 1e-12))
+    del g_ref
+    leaves = [tree_leaves(got[k], is_leaf=is_sharded)
+              for k in ("grads", "params", "m", "v")]
+    refs = [tree_leaves(ref[k]) for k in ("grads", "params", "m", "v")]
+    err.update(grad=0.0, m=0.0, v=0.0, param=0.0, m_of_bound=0.0,
+               v_of_bound=0.0)
+    steps_raw, beyond = 0, 0
+
+    def held(kind, path, diff, bound, want):
+        k = int((diff - bound).argmax())
+        check(bool((diff <= bound).all()), f"{name} sharded {kind} {path}: "
+              f"err {float(diff.flatten()[k]):.4g} over its bound "
+              f"{float(bound.flatten()[k]):.4g} (unsharded "
+              f"{float(want.flatten()[k]):.4g})")
+        err[kind] = max(err[kind], float(diff.max()))
+        if kind in ("m", "v"):
+            share = (diff / bound.clamp(min=1e-300)).max()
+            err[f"{kind}_of_bound"] = max(err[f"{kind}_of_bound"],
+                                          float(share))
+
+    for path, gs, ps, ms, vs, gu, pu, mu, vu, p0 in zip(
+            paths, *leaves, *refs, tree_leaves(init)):
+        for kind, x in (("grad", gs), ("param", ps), ("m", ms), ("v", vs)):
+            _replicas_equal(f"{name} sharded {kind} {path}", x)
+        gs = to_full(gs, dev)
+        err["grad"] = max(err["grad"], _card_vs_cpu(
+            _rows2(gs), _rows2(gu), f"{name} sharded grad {path}"))
+        gu = gu.to(dev).double()
+        dg = (gs.double() - gu).abs()
+        del gs
+        mu, vu = mu.to(dev).double(), vu.to(dev).double()
+        tm = (1 - b1) * sc * dg * (1 + 1e-4) + 1e-4 * mu.abs() + SUBNORMAL
+        tv = ((1 - b2) * sc * sc * (2 * gu.abs() * dg + dg * dg) * (1 + 3e-4)
+              + 3e-4 * vu + SUBNORMAL)
+        del gu, dg
+        held("m", path, (to_full(ms, dev).double() - mu).abs(), tm, mu)
+        held("v", path, (to_full(vs, dev).double() - vu).abs(), tv, vu)
+        full, w = to_full(ps, dev), pu.to(dev)
+        if full.dtype != torch.bfloat16:
+            err["param"] = max(err["param"], _card_vs_cpu(
+                _rows2(full), _rows2(w), f"{name} sharded param {path}"))
+            continue
+        adam = functools.partial(_first_step_ratio, b1=b1, b2=b2, eps=eps)
+        r0 = adam(mu, vu)
+        m_lo, m_hi = mu - tm, mu + tm
+        v_lo, v_hi = (vu - tv).clamp(min=0), vu + tv
+        del tm, tv, mu, vu
+        r_hi = torch.where(m_hi > 0, adam(m_hi, v_lo), adam(m_hi, v_hi))
+        r_lo = torch.where(m_lo < 0, adam(m_lo, v_lo), adam(m_lo, v_hi))
+        del m_lo, m_hi, v_lo, v_hi, adam
+        move = torch.maximum(r_hi - r0, r0 - r_lo).clamp(0, 2)
+        del r_hi, r_lo, r0
+        big = torch.maximum(torch.maximum(full.float().abs(),
+                                          w.float().abs()),
+                            p0.to(dev).float().abs())
+        ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big)[1] - 8)
+        diff = (full.float() - w.float()).abs()
+        held("param", path, diff.double(), ulp.double() + lr * move, w)
+        steps_raw = max(steps_raw, _bf16_ulps(full, w))
+        beyond += int((diff > ulp).sum())
+        del full, w, big, ulp, diff, move
+    return dict(max_err=err, max_bf16_steps=steps_raw,
+                bf16_beyond_one_step=beyond, grad_norm=gnorm, clip_scale=sc)
+
+
+def _held_line(r: dict) -> str:
+    e = r["max_err"]
+    return (f"max err loss {e['loss']:.3g}, grads {e['grad']:.3g}, m "
+            f"{e['m']:.3g} ({e['m_of_bound']:.3g} of its bound), v "
+            f"{e['v']:.3g} ({e['v_of_bound']:.3g}), params {e['param']:.3g}"
+            f" (bf16: {r['max_bf16_steps']} step(s) at most, "
+            f"{r['bf16_beyond_one_step']} beyond one); global norm "
+            f"{r['grad_norm']:.5g}, clip scale {r['clip_scale']:.3g}")
+
+
+def sharded_vs_plain(name: str, family: str, loss_fn, holder: list, batch,
+                     accum: int, mesh, dev, *, contributions=None,
+                     routes=None) -> dict:
+    """One train step of the state in ``holder`` (a one-element list: the
+    parameters are dropped from it, so the unsharded twin's memory is
+    freed before the sharded step) on ``batch``: ``make_train_step`` with
+    ``ADAMW_KW`` and ``accum`` microbatches, unsharded and over ``mesh``
+    (the family's rule), each timed from the call to the card's last
+    write.  The twin runs first and keeps its metrics, gradients (as its
+    AdamW was handed them, ``adamw_seen``), new parameters and moments on
+    the host.  Both AdamW calls must get ``ADAMW_KW``; the sharded step is
+    held to the twin by ``hold_first_step``.  ``routes(sharded_params)``
+    runs first (a MoE's routing check); ``contributions(parts, per)`` gets
+    the data shards' summed gradients (``shard_contributions``, an untimed
+    pass of its own before the step).  Returns the step seconds, peaks and
+    the largest errors."""
+    import torch
+    from repro_torch.distributed.sharding import place_tree
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.training import steps
+    from repro_torch.tree import tree_paths
+    params = holder.pop()
+    init = _host_tree(params)
+    held = _reset_peak(dev)
+    seen: list = []
+    t0 = time.perf_counter()
+    with adamw_seen(seen):
+        new_p, new_o, metrics = steps.make_train_step(
+            loss_fn, accum_steps=accum, **ADAMW_KW)(
+                params, adamw_init(params), batch)
+    _sync(dev)
+    plain_s = time.perf_counter() - t0
+    plain_peak = _peak_gib(dev)
+    check(len(seen) == 1 and seen[0][1] == ADAMW_KW,
+          f"{name}: the unsharded step's AdamW got {[k for _, k in seen]}")
+    ref = _host_tree({"metrics": metrics, "grads": seen[0][0],
+                      "params": new_p, "m": new_o.m, "v": new_o.v})
+    paths = tree_paths(new_p)
+    del params, new_p, new_o, metrics
+    seen.clear()
+    sp = place_tree(init, train.param_shardings(family, mesh, init))
+    if routes is not None:
+        routes(sp)
+    extra = {}
+    if contributions is not None:
+        parts = list(steps.shard_contributions(loss_fn, sp, batch, mesh,
+                                               accum, [], []))
+        extra = contributions(parts, steps.shard_microbatches(mesh, accum))
+        del parts
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    with adamw_seen(seen):
+        new_sp, new_so, metrics = steps.make_train_step(
+            loss_fn, mesh=mesh, accum_steps=accum, **ADAMW_KW)(
+                sp, adamw_init(sp), batch)
+    _sync(dev)
+    sharded_s = time.perf_counter() - t0
+    peak = _peak_gib(dev)
+    check(peak < TRAIN_PEAK_GIB, f"{name} sharded step: peak {peak:.2f} GiB")
+    check(len(seen) == 1 and seen[0][1] == ADAMW_KW,
+          f"{name}: the sharded step's AdamW got {[k for _, k in seen]}")
+    got = {"metrics": metrics, "grads": seen[0][0], "params": new_sp,
+           "m": new_so.m, "v": new_so.v}
+    seen.clear()
+    out = hold_first_step(name, paths, got, ref, init, dev,
+                          lr=ADAMW_KW["lr"],
+                          grad_clip=ADAMW_KW["grad_clip"])
+    del got, init, ref
+    out.update(plain_s=plain_s, sharded_s=sharded_s,
+               plain_peak_gib=plain_peak, peak_gib=peak, held_gib=held,
+               loss=float(metrics["loss"]), **extra)
+    out["state"] = {"params": new_sp, "opt": new_so}
+    return out
+
+
+def compress_checks(parts: list, per: int, dev) -> dict:
+    """(f4) ``bf16_all_reduce`` and ``int8_all_gather_reduce`` on the card
+    over the data shards' f32 gradient contributions (each shard's sum /
+    its microbatches), leaf by leaf, against their exact f64 mean: every
+    int8 element within one quantization step (the larger shard's
+    ``max|g| / 127``); the bf16 mean equal bit for bit to its CPU twin,
+    the same call on the first ``SHARD_TWIN_ELEMENTS`` elements of each
+    block (the call is elementwise; the whole of 2.2e9 elements a shard
+    took 21.6 s of host time, most of it the CPU's bf16 passes)."""
+    import torch
+    from repro_torch.optim.compress import (bf16_all_reduce,
+                                            int8_all_gather_reduce)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    bf16_err = int8_err = int8_share = t_twin = t_copy = 0.0
+    n = n_twin = 0
+    for leaves in zip(*parts):
+        c = [x / per for x in leaves]
+        exact = sum(x.double() for x in c) / len(c)
+        bf = bf16_all_reduce([[x] for x in c])[0]
+        t1 = time.perf_counter()
+        host = [x.flatten()[:SHARD_TWIN_ELEMENTS].cpu() for x in c]
+        t_copy += time.perf_counter() - t1
+        twin = bf16_all_reduce([[x] for x in host])[0]
+        check(torch.equal(bf.flatten()[:SHARD_TWIN_ELEMENTS].cpu(), twin),
+              "bf16_all_reduce: the card's mean differs from its CPU twin")
+        n_twin += twin.numel()
+        t_twin += time.perf_counter() - t1
+        del host
+        q = int8_all_gather_reduce([[x] for x in c], gen)[0]
+        step = max(float(x.abs().max()) for x in c) / 127
+        e8 = float((q.double() - exact).abs().max())
+        check(e8 <= step, f"int8_all_gather_reduce: err {e8} over one "
+              f"quantization step {step}")
+        bf16_err = max(bf16_err, float((bf.double() - exact).abs().max()))
+        int8_err = max(int8_err, e8)
+        if step:
+            int8_share = max(int8_share, e8 / step)
+        n += c[0].numel()
+        del c, exact, bf, twin, q
+    out = dict(elements=n, bf16_max_err=bf16_err, int8_max_err=int8_err,
+               int8_max_err_in_steps=int8_share, cpu_twin_s=t_twin,
+               cpu_copy_s=t_copy, cpu_twin_elements=n_twin,
+               seconds=time.perf_counter() - t0)
+    log(f"[train] (f4) bf16_all_reduce and int8_all_gather_reduce over 2 "
+        f"data shards' gradients ({n} elements a shard): bf16 equal to its "
+        f"CPU twin on {n_twin} of them, max err vs the exact mean "
+        f"{bf16_err:.3g}; int8 max err "
+        f"{int8_err:.3g} ({int8_share:.3f} of a step); {out['seconds']:.1f} s "
+        f"({t_twin:.1f} s of it the CPU twin, {t_copy:.1f} s its copies, "
+        f"{torch.get_num_threads()} threads)")
+    return out
+
+
+def shard_routes(name: str, cfg, params_plain_host, toks, mesh, dev):
+    """routes(sharded params) for ``sharded_vs_plain``: each data shard's
+    sequences routed through the sharded parameters (gathered at the
+    shard's grid position) and through the plain ones: every token's
+    top-K set and drop mask equal, else the token and its margin."""
+    import torch
+    from repro_torch.distributed.ctx import activation_sharding
+    from repro_torch.distributed.sharding import (data_positions,
+                                                  is_sharded)
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+
+    def run(sp):
+        plain = tree_map(lambda t: t.to(dev), params_plain_host)
+        low = float("inf")
+        rows = toks.shape[0] // len(data_positions(mesh))
+        for s, pos in enumerate(data_positions(mesh)):
+            part = toks[s * rows:(s + 1) * rows].to(dev)
+            here = tree_map(lambda x: x.at(pos), sp, is_leaf=is_sharded)
+            got, want = [], []
+            with activation_sharding(mesh):
+                tf.forward(here, part, cfg, last_only=True, routing=got)
+            tf.forward(plain, part, cfg, last_only=True, routing=want)
+            for li, (a, b) in enumerate(zip(got, want)):
+                diff = ((a.experts != b.experts) | (a.kept != b.kept)).any(-1)
+                if bool(diff.any()):
+                    row, p = diff.nonzero()[0].tolist()
+                    raise PhaseError(
+                        f"{name} sharded layer {li}: token ({s * rows + row},"
+                        f" {p}) routed to {a.experts[row, p].tolist()} (kept "
+                        f"{a.kept[row, p].tolist()}), unsharded "
+                        f"{b.experts[row, p].tolist()} (kept "
+                        f"{b.kept[row, p].tolist()}); margin "
+                        f"{float(b.margin[row, p]):.3g}")
+                low = min(low, float(b.margin.min()))
+            check(len(got) == len(want) == cfg.n_layers,
+                  f"{name}: routed layers differ")
+        del plain
+        torch.cuda.empty_cache()
+        log(f"[train] (f2) {name}: top-K sets and drop masks equal sharded "
+            f"and unsharded (smallest margin {low:.3g})")
+    return run
+
+
+def save_sharded_state(holder: list, dev, d: str) -> dict:
+    """(f5), first half: the sharded state in ``holder`` (a one-element
+    list, emptied) handed to an ``AsyncCheckpointer`` writing under
+    ``d``, as the training loop saves (the host copy now, the files on a
+    background thread while the caller goes on); the full values kept on
+    the card to compare the restores with."""
+    from repro_torch.checkpoint.store import AsyncCheckpointer
+    from repro_torch.distributed.sharding import (is_sharded, shardings_of,
+                                                  to_full)
+    from repro_torch.tree import tree_map
+    state = holder.pop()
+    root = os.path.dirname(d)
+    log(f"[train] (f5) {shutil.disk_usage(root).free / 2**30:.1f} GiB free "
+        f"under {root}")
+    out = dict(shardings=shardings_of(state), ckpt=AsyncCheckpointer(d),
+               want=tree_map(lambda x: to_full(x, dev), state,
+                             is_leaf=is_sharded), dir=d)
+    t0 = time.perf_counter()
+    out["ckpt"].save(1, state)
+    out["host_copy_s"] = time.perf_counter() - t0
+    return out
+
+
+def restore_checks(saved: dict, mesh, dev) -> dict:
+    """(f5), second half: wait for ``save_sharded_state``'s write, then
+    ``restore_checkpoint(shardings=)`` onto a 1 x 1 mesh of ``dev`` and
+    onto ``mesh``: every leaf bit-equal to the saved one (compared on the
+    card), each placed by its spec on the new mesh.  Seconds by part."""
+    import torch
+    from repro_torch.checkpoint.store import restore_checkpoint
+    from repro_torch.distributed.sharding import (NamedSharding, host_mesh,
+                                                  is_sharded, to_full)
+    from repro_torch.tree import tree_leaves, tree_map
+    t = {"host_copy": saved["host_copy_s"]}
+    t0 = time.perf_counter()
+    saved["ckpt"].wait()
+    t["write_wait"] = time.perf_counter() - t0
+    d = saved["dir"]
+    sub = os.path.join(d, "step_0000000001")
+    n_bytes = sum(os.path.getsize(os.path.join(sub, f))
+                  for f in os.listdir(sub))
+    want = tree_leaves(saved["want"])
+    for label, target in (("1x1", host_mesh(devices=[dev])), ("2x2", mesh)):
+        sh = tree_map(lambda x: NamedSharding(target, x.spec)
+                      if isinstance(x, NamedSharding) else x,
+                      saved["shardings"],
+                      is_leaf=lambda x: isinstance(x, NamedSharding))
+        t0 = time.perf_counter()
+        got, step = restore_checkpoint(d, shardings=sh)
+        _sync(dev)
+        t[f"{label}_restore"] = time.perf_counter() - t0
+        leaves = tree_leaves(got, is_leaf=is_sharded)
+        specs = tree_leaves(sh, is_leaf=lambda x: isinstance(
+            x, NamedSharding))
+        same = step == 1 and len(leaves) == len(want) and all(
+            (not isinstance(sp, NamedSharding) or (a.mesh is target
+                                                   and a.spec == sp.spec))
+            and torch.equal(to_full(a, dev), b)
+            for a, b, sp in zip(leaves, want, specs))
+        check(same, f"(f5) restore onto the {label} mesh: leaves differ")
+        del got, leaves
+    shutil.rmtree(d)
+    saved.clear()
+    log(f"[train] (f5) (f1)'s sharded state ({n_bytes / 2**30:.2f} GiB of "
+        f"leaf files) saved by AsyncCheckpointer behind (f2) and (f3), "
+        f"restored onto 1 x 1 and 2 x 2 meshes bit-equal; "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in t.items()))
+    return dict(bytes=n_bytes, seconds=t)
+
+
+def sharded_train_run(seed: int, dev, tmp: str) -> dict:
+    """(f): (f1) ``TRAIN_4K_ARCH`` at full width and depth, B
+    ``SHARD_LM_BATCH`` x S 4,096 of its ``train_4k`` stream, microbatches
+    of ``TRAIN_4K_MICRO``; (f2) ``TRAIN_MOE_ARCH`` cut to one layer at
+    full width, B ``SHARD_MOE_BATCH`` x S 4,096 (one sequence a data
+    shard), microbatches of 1; (f3) fm ``train_batch`` at B 65,536: each
+    ``sharded_vs_plain`` over ``host_mesh(model=2, devices=[cuda:0] *
+    4)``.  (f4) ``compress_checks`` on (f1)'s contributions.  (f5)
+    (f1)'s new state saved (``save_sharded_state``, written while (f2)
+    and (f3) run), restored onto a 1 x 1 mesh on the card and onto the 2
+    x 2 mesh, bit-equal (``restore_checks``); ``launch.train.main``'s
+    crash and resume of (e) for qwen2-1.5b's smoke config over the 2 x 2
+    mesh, bit-equal."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import host_mesh
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    t_all = time.perf_counter()
+    mesh = host_mesh(model=SHARD_MODEL, devices=[dev] * SHARD_POSITIONS)
+    out: dict = {}
+    # (f1)
+    t0 = time.perf_counter()
+    cfg = get_arch(TRAIN_4K_ARCH).full_config
+    params, _, stream = train.build_cell_trainer(TRAIN_4K_ARCH, "train_4k",
+                                                 device=dev, seed=seed)
+    batch = {k: torch.from_numpy(v[:SHARD_LM_BATCH]).to(dev)
+             for k, v in next(stream(0)).items()}
+    accum = SHARD_LM_BATCH // TRAIN_4K_MICRO
+    f4: dict = {}
+
+    def contrib(parts, per):
+        f4.update(compress_checks(parts, per, dev))
+        return {}
+    r = sharded_vs_plain(TRAIN_4K_ARCH, "lm", train.train_loss("lm", cfg),
+                         [params], batch, accum, mesh, dev,
+                         contributions=contrib)
+    del params
+    state = [r.pop("state")]
+    r["seconds"] = time.perf_counter() - t0
+    out["f1"] = r
+    out["f4"] = f4
+    log(f"[train] (f1) {TRAIN_4K_ARCH} FULL, B {SHARD_LM_BATCH} x S "
+        f"{batch['tokens'].shape[1]}, {accum} microbatches of "
+        f"{TRAIN_4K_MICRO} (2 a data shard) over data 2 x model 2 on "
+        f"{dev}: loss {r['loss']:.5f}; {_held_line(r)}; step "
+        f"{r['plain_s']:.2f} s unsharded, {r['sharded_s']:.2f} s sharded; "
+        f"peak {r['plain_peak_gib']:.2f} / {r['peak_gib']:.2f} GiB")
+    del batch
+    # (f5) (f1)'s state written behind (f2) and (f3), restored after them
+    saved = save_sharded_state(state, dev, os.path.join(tmp, "f5"))
+    # (f5) launch.train's crash and resume over the mesh
+    t0 = time.perf_counter()
+    d = os.path.join(tmp, "f5_main")
+    argv = ["--arch", TRAIN_4K_ARCH, "--steps", str(TRAIN_STEPS),
+            "--log-every", str(TRAIN_CKPT_EVERY), "--ckpt-dir", d,
+            "--device", "cuda"]
+    pa, oa, log_a = train.main(argv + ["--ckpt-every",
+                                       str(TRAIN_CKPT_EVERY)], mesh=mesh)
+    shutil.rmtree(os.path.join(d, f"step_{TRAIN_STEPS:010d}"))
+    pb, ob, log_b = train.main(argv + ["--ckpt-every", "100"], mesh=mesh)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((pa, oa)), tree_leaves((pb, ob))))
+    check(same and np.isfinite(log_a[-1]["loss"]),
+          f"(f5) {TRAIN_4K_ARCH} smoke over the 2 x 2 mesh: the resumed "
+          "run's state differs from the uninterrupted run's")
+    out["f5_resume_s"] = time.perf_counter() - t0
+    log(f"[train] (f5) launch.train {TRAIN_4K_ARCH} smoke over 2 x 2 "
+        f"crashed and resumed bit-equal ({out['f5_resume_s']:.1f} s)")
+    del pa, oa, pb, ob
+    # (f2)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(TRAIN_MOE_ARCH).full_config,
+                              n_layers=1)
+    params, _, stream = train.build_cell_trainer(
+        TRAIN_MOE_ARCH, "train_4k", n_layers=1, device=dev, seed=seed)
+    batch = {k: torch.from_numpy(v[:SHARD_MOE_BATCH]).to(dev)
+             for k, v in next(stream(0)).items()}
+    routes = shard_routes(TRAIN_MOE_ARCH, cfg, _host_tree(params),
+                          batch["tokens"], mesh, dev)
+    r = sharded_vs_plain(TRAIN_MOE_ARCH, "lm", train.train_loss("lm", cfg),
+                         [params], batch, SHARD_MOE_BATCH, mesh, dev,
+                         routes=routes)
+    del params, batch
+    r.pop("state")
+    r["seconds"] = time.perf_counter() - t0
+    out["f2"] = r
+    log(f"[train] (f2) {TRAIN_MOE_ARCH} FULL width, 1 layer, B "
+        f"{SHARD_MOE_BATCH} x S 4096 over data 2 x model 2: loss "
+        f"{r['loss']:.5f}; {_held_line(r)}; step {r['plain_s']:.2f} s "
+        f"unsharded, {r['sharded_s']:.2f} s sharded; peak "
+        f"{r['plain_peak_gib']:.2f} / {r['peak_gib']:.2f} GiB")
+    # (f3)
+    t0 = time.perf_counter()
+    cfg = get_arch("fm").full_config
+    params, _, stream = train.build_cell_trainer("fm", "train_batch",
+                                                 device=dev, seed=seed)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in next(stream(0)).items()}
+    r = sharded_vs_plain("fm", "recsys", train.train_loss("recsys", cfg),
+                         [params], batch, 1, mesh, dev)
+    del params, batch
+    r.pop("state")
+    r["seconds"] = time.perf_counter() - t0
+    out["f3"] = r
+    log(f"[train] (f3) fm train_batch B 65536, V and w_lin rows over "
+        f"(data, model): loss {r['loss']:.5f}; {_held_line(r)}; "
+        f"step {r['plain_s'] * 1e3:.1f} ms unsharded, "
+        f"{r['sharded_s'] * 1e3:.1f} ms sharded; peak "
+        f"{r['plain_peak_gib']:.2f} / {r['peak_gib']:.2f} GiB")
+    out["f5"] = restore_checks(saved, mesh, dev)
+    out["seconds"] = time.perf_counter() - t_all
+    log(f"[train] (f) {out['seconds']:.1f} s")
+    return out
+
+
 def phase_train(seed: int = 0) -> dict:
     """``lm_grads_card_vs_cpu`` for ``TRAIN_GRAD_ARCHS`` (smoke) and
     ``TRAIN_WIDE_ARCHS`` (a); ``moe_step_bits`` (b); ``train_4k_run``
@@ -3290,7 +3844,7 @@ def phase_train(seed: int = 0) -> dict:
     configs, ``TRAIN_STEPS`` steps with a checkpoint every
     ``TRAIN_CKPT_EVERY``, and the crash: the last checkpoint deleted, the
     run resumed from the one before, whose final state must equal the
-    uninterrupted run's bit for bit."""
+    uninterrupted run's bit for bit; then (f), ``sharded_train_run``."""
     import torch
     from repro_torch.core.config import resolve_device
     from repro_torch.launch import train
@@ -3332,6 +3886,7 @@ def phase_train(seed: int = 0) -> dict:
                          "seconds": time.perf_counter() - t0}
             log(f"[train] (e) {name}: final metrics {final}; resumed from "
                 f"step {TRAIN_CKPT_EVERY}: state bit-equal")
+        out["sharded"] = sharded_train_run(seed, dev, tmp)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[train] phase {out['seconds']:.1f} s")
     return out

@@ -9,7 +9,12 @@ checkpoint.  Leaves come in the reference's flatten order
 two packages are equal one for one.  The reference's manifest pickles a
 JAX treedef; the port's is JSON (the structure, the leaf count, the step
 and each leaf's torch dtype).  A bf16 leaf (numpy has none) is saved as
-its exact f32 values and restored to bf16.
+its exact f32 values and restored to bf16.  A sharded leaf
+(``distributed.sharding.Sharded``) is written as its full array, so the
+files do not depend on the mesh; ``restore_checkpoint(shardings=)``
+places each restored leaf by its ``NamedSharding`` on the current mesh
+(or on a device), which reshards across device counts as the reference's
+restore does.
 
 ``AsyncCheckpointer`` copies the tree to the host, then writes it on a
 background thread, so training steps overlap the write.  ``commit_dir``
@@ -27,6 +32,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..distributed.sharding import is_sharded, place_tree, to_full
 from ..tree import (structure_from_json, structure_to_json, tree_flatten,
                     tree_map, tree_unflatten)
 
@@ -64,6 +70,8 @@ class _Host:
 def _host(leaf) -> _Host:
     if isinstance(leaf, _Host):
         return leaf
+    if is_sharded(leaf):            # put together where its blocks lie
+        leaf = to_full(leaf, leaf.blocks[0].device)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         name = str(t.dtype).removeprefix("torch.")
@@ -82,7 +90,7 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any) -> str:
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    leaves, structure = tree_flatten(tree)
+    leaves, structure = tree_flatten(tree, is_leaf=is_sharded)
     dtypes = []
     for i, leaf in enumerate(leaves):
         h = _host(leaf)
@@ -104,13 +112,17 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None,
-                       device="cuda") -> tuple[Any, int]:
+                       device="cuda", shardings: Any = None
+                       ) -> tuple[Any, int]:
     """Load (tree, step): each leaf a tensor of its saved dtype on
     ``device`` (the card unless the caller asks for the CPU); an
-    ``AdamWState`` comes back as the port's class."""
+    ``AdamWState`` comes back as the port's class.  With ``shardings`` (a
+    tree of the checkpoint's structure holding a ``NamedSharding`` or a
+    device at each leaf, e.g. ``sharding.shardings_of(state)``) each leaf
+    is placed by it instead: a ``Sharded`` leaf on the current mesh."""
     from ..core.config import resolve_device
     from ..optim.adamw import AdamWState
-    device = resolve_device(device)
+    device = resolve_device(device) if shardings is None else None
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -124,10 +136,13 @@ def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None,
         t = torch.from_numpy(arr)
         if hasattr(torch, name) and t.dtype != getattr(torch, name):
             t = t.to(getattr(torch, name))
-        leaves.append(t.to(device))
+        leaves.append(t if device is None else t.to(device))
     structure = structure_from_json(manifest["tree"],
                                     {"AdamWState": AdamWState})
-    return tree_unflatten(structure, leaves), step
+    tree = tree_unflatten(structure, leaves)
+    if shardings is not None:
+        tree = place_tree(tree, shardings)
+    return tree, step
 
 
 class AsyncCheckpointer:
@@ -141,7 +156,8 @@ class AsyncCheckpointer:
 
     def save(self, step: int, tree: Any) -> None:
         self.wait()
-        host = tree_map(_host, tree)      # snapshot before the next step
+        # snapshot before the next step
+        host = tree_map(_host, tree, is_leaf=is_sharded)
 
         def work():
             save_checkpoint(self.ckpt_dir, step, host)

@@ -15,6 +15,15 @@ card for an LM, on the CPU otherwise); the gnn stream's per-step
 ``jax.random`` key is the step number as the seed of the sampler's CPU
 generator.
 
+``main`` builds ``host_mesh()`` on ``--device`` (every card as data
+rows; one card is a 1 x 1 mesh), shards the parameters by the family's
+rule (``param_shardings``: ``fsdp_rule`` for an LM, the big tables
+row-sharded for recsys, generic for gnn), runs the mesh's data-parallel
+step (it enters ``activation_sharding(mesh)`` itself) and restores a
+checkpoint onto the same shardings, as the reference's ``main`` wraps its
+step in ``activation_sharding(mesh)``.  ``main(argv, mesh=...)`` takes
+another mesh, e.g. ``host_mesh(model=2, devices=[cuda:0] * 4)``.
+
 ``build_cell_trainer`` builds the full configs' trainers at their
 ``train`` cells (lm ``train_4k``, recsys ``train_batch``), which
 ``chip_smoke.py``'s train phase steps on the card.
@@ -32,10 +41,17 @@ from ..configs import get_arch
 from ..core.config import resolve_device
 from ..data.pipelines import (click_stream, lm_token_stream, sasrec_stream,
                               synthetic_graph)
+from ..distributed.ctx import whole
+from ..distributed.sharding import (generic_param_shardings, host_mesh,
+                                    is_sharded, lm_param_shardings,
+                                    place_tree, shardings_of)
 from ..optim.adamw import adamw_init
 from ..training.loop import run_training
 from ..training.steps import make_train_step
-from ..tree import module_tree, tree_leaves, tree_paths
+from ..tree import module_tree, tree_leaves, tree_map, tree_paths
+
+# The recsys tables the reference row-shards (``launch/build.py``).
+RECSYS_TABLES = ("V", "w_lin", "item_emb")
 
 
 class _Loss(nn.Module):
@@ -51,12 +67,14 @@ class _Loss(nn.Module):
 
 def module_loss(model: nn.Module, fn):
     """loss_fn(params tree, batch) running ``fn(model, batch)`` with the
-    tree's tensors in place of the model's parameters."""
+    tree's tensors in place of the model's parameters (a sharded leaf
+    gathered whole where it computes, ``distributed.ctx.whole``)."""
     wrapped = _Loss(model, fn)
 
     def loss_fn(p, b):
-        named = {f"model.{k}": v
-                 for k, v in zip(tree_paths(p), tree_leaves(p))}
+        named = {f"model.{k}": whole(v)
+                 for k, v in zip(tree_paths(p, is_leaf=is_sharded),
+                                 tree_leaves(p, is_leaf=is_sharded))}
         return torch.func.functional_call(wrapped, named, (b,))
 
     return loss_fn
@@ -90,16 +108,26 @@ def train_loss(family: str, cfg):
     return module_loss(model, fn)
 
 
+def param_shardings(family: str, mesh, params):
+    """The family's rule a leaf of ``params``: ``lm_param_shardings`` for
+    an LM, ``generic_param_shardings`` with ``RECSYS_TABLES`` for recsys,
+    without tables for gnn."""
+    if family == "lm":
+        return lm_param_shardings(mesh, params)
+    tables = RECSYS_TABLES if family == "recsys" else ()
+    return generic_param_shardings(mesh, params, table_names=tables)
+
+
 def build_trainer(family: str, cfg, batch: int, seq: int, *,
                   lr: float = 3e-4, accum_steps: int = 1, device="cuda",
-                  seed: int = 0):
+                  seed: int = 0, mesh=None):
     """(params, train_step, stream) of ``cfg``, a config of ``family``
     (``lm``, ``recsys`` or ``gnn``): weights drawn from ``seed`` (an LM's
     on a generator on ``device``, the others' on a CPU generator),
     ``make_train_step`` at ``lr`` and the reference's weight decay 0.1
-    and clip 1.0, and ``stream(start_step)``, the family's synthetic
-    batches of ``batch`` rows (an LM's of ``seq`` tokens; the gnn
-    family's seeds on a 512-node synthetic graph)."""
+    and clip 1.0 (over ``mesh`` when given), and ``stream(start_step)``,
+    the family's synthetic batches of ``batch`` rows (an LM's of ``seq``
+    tokens; the gnn family's seeds on a 512-node synthetic graph)."""
     device = resolve_device(device)
     cpu_gen = torch.Generator().manual_seed(seed)
 
@@ -133,6 +161,7 @@ def build_trainer(family: str, cfg, batch: int, seq: int, *,
                                 for k in ("feats", "offsets", "nbrs"))
 
         def loss_fn(p, b):
+            p = tree_map(whole, p, is_leaf=is_sharded)
             loss = gnn.sage_loss_sampled(p, b["seed"], feats, offsets, nbrs,
                                          b["seeds"], b["labels"], cfg)
             return loss, {"ce": loss}
@@ -148,16 +177,17 @@ def build_trainer(family: str, cfg, batch: int, seq: int, *,
     else:
         raise ValueError(family)
 
-    step = make_train_step(loss_fn, lr=lr, accum_steps=accum_steps)
+    step = make_train_step(loss_fn, lr=lr, accum_steps=accum_steps,
+                           mesh=mesh)
     return params, step, stream
 
 
 def build_smoke_trainer(arch_name: str, batch: int, seq: int, lr: float,
-                        accum: int = 1, device="cuda"):
+                        accum: int = 1, device="cuda", mesh=None):
     """(params, train_step, stream) of ``arch_name``'s smoke config."""
     arch = get_arch(arch_name)
     return build_trainer(arch.family, arch.smoke_config, batch, seq, lr=lr,
-                         accum_steps=accum, device=device)
+                         accum_steps=accum, device=device, mesh=mesh)
 
 
 def build_cell_trainer(arch_name: str, shape: str, *, accum_steps: int = 1,
@@ -187,8 +217,10 @@ def build_cell_trainer(arch_name: str, shape: str, *, accum_steps: int = 1,
                          device=device, seed=seed)
 
 
-def main(argv=None):
-    """Train; returns (params, opt_state, metrics log)."""
+def main(argv=None, *, mesh=None):
+    """Train over ``mesh`` (default ``host_mesh()`` on ``--device``);
+    returns (params, opt_state, metrics log), the parameters and moments
+    ``Sharded`` leaves."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=50)
@@ -203,13 +235,19 @@ def main(argv=None):
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
+    if mesh is None:
+        mesh = host_mesh(device=resolve_device(args.device))
     params, step, stream = build_smoke_trainer(
-        args.arch, args.batch, args.seq, args.lr, args.accum, args.device)
+        args.arch, args.batch, args.seq, args.lr, args.accum, mesh.lead,
+        mesh=mesh)
+    params = place_tree(params, param_shardings(get_arch(args.arch).family,
+                                                mesh, params))
     opt = adamw_init(params)
     params, opt, log = run_training(
-        args.device, step, params, opt, stream, n_steps=args.steps,
+        mesh, step, params, opt, stream, n_steps=args.steps,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-        log_every=args.log_every)
+        param_shardings=shardings_of(params),
+        opt_shardings=shardings_of(opt), log_every=args.log_every)
     print(f"[train] done: final metrics {log[-1] if log else {}}")
     return params, opt, log
 

@@ -28,6 +28,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..distributed.ctx import activation_sharding, current_mesh, shard_act
+
 _NEG_INF = float("-inf")
 # Bytes of f64 weight columns ``matmul`` holds at once on the CPU: under
 # glibc's largest mmap threshold (32 MiB), so the block's memory is reused
@@ -275,12 +277,14 @@ def _flash_fwd(qh, kh, vh, *, S: int, G: int, window: int, q_chunk: int,
 
 
 def _flash_bwd(qh, kh, vh, out, lse, dout, *, S: int, G: int, window: int,
-               q_chunk: int, kv_chunk: int, p_dtype):
+               q_chunk: int, kv_chunk: int, p_dtype, B: int):
     """FlashAttention-2 backward from the saved logsumexp, over the
     forward's visits (``block_plan``): each visited block recomputes its
     probabilities and adds to dq, dk and dv (f32; f64 for f64 operands).  The reference runs
     the same recurrences in two passes (dq by query chunk, dk/dv by kv
-    block); their sums over blocks are the same terms in another order."""
+    block); their sums over blocks are the same terms in another order.
+    ``B`` is the batch size, for the reference's hints (``_bwd_hints``),
+    emitted under the forward's activation-sharding context."""
     BK, dh = qh.shape[0], qh.shape[-1]
     scale = dh ** -0.5
     dev, dt = qh.device, _acc_dtype(qh)
@@ -289,6 +293,8 @@ def _flash_bwd(qh, kh, vh, out, lse, dout, *, S: int, G: int, window: int,
     delta = (do * out).sum(dim=-1)                          # [BK, S*G]
     lse_safe = torch.where(torch.isfinite(lse), lse,
                            torch.zeros((), device=dev))
+    _bwd_hints(B, qh, kh, vh, do, delta, lse_safe, S // q_chunk,
+               S // kv_chunk)
     do_p = do.to(p_dtype)
     dq = torch.zeros((BK, S * G, dh), dtype=dt, device=dev)
     dk = torch.zeros((BK, S, dh), dtype=dt, device=dev)
@@ -321,24 +327,63 @@ class _FlashAttention(torch.autograd.Function):
     """``chunked_attention`` with the FlashAttention-2 backward: saves q,
     k, v, the output and the logsumexp, no score block.  Where no
     gradient is wanted (``inference_mode``, ``no_grad``, inputs that need
-    none) ``apply`` records nothing and the saved tensors go with it."""
+    none) ``apply`` records nothing and the saved tensors go with it.
+    The forward's activation-sharding mesh is kept with them: on the card
+    the backward runs in autograd's device thread, which does not see the
+    context, and it emits its hints against the same mesh."""
 
     @staticmethod
-    def forward(ctx, qh, kh, vh, geo: dict):
+    def forward(ctx, qh, kh, vh, geo: dict, B: int):
         acc, m, l = _flash_fwd(qh, kh, vh, **geo)
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
                           torch.full((), _NEG_INF, device=l.device))
         ctx.geo = geo
+        ctx.B = B
+        ctx.mesh = current_mesh()
         ctx.save_for_backward(qh, kh, vh, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         qh, kh, vh, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_bwd(qh, kh, vh, out, lse, dout, **ctx.geo)
+        with activation_sharding(ctx.mesh):
+            dq, dk, dv = _flash_bwd(qh, kh, vh, out, lse, dout, B=ctx.B,
+                                    **ctx.geo)
         return (dq.reshape(qh.shape).to(qh.dtype), dk.to(kh.dtype),
-                dv.to(vh.dtype), None)
+                dv.to(vh.dtype), None, None)
+
+
+def _heads_first(t: torch.Tensor, B: int) -> torch.Tensor:
+    """A [B*KV, S, ...] tensor of the port's layout viewed as the
+    reference's [B, S, KV, ...] (no copy)."""
+    t = t.view(B, t.shape[0] // B, *t.shape[1:])
+    return t.transpose(1, 2)
+
+
+def _bwd_hints(B: int, qh, kh, vh, do, delta, lse, n_q: int,
+               n_kv: int) -> None:
+    """The reference backward's hints, in its order, on views of the
+    port's tensors in the reference's layouts: the query chunks and their
+    cotangent, k and v, the flat q, dout, delta and lse, and the kv
+    blocks."""
+    q5 = _heads_first(qh, B)                             # [B, S, KV, G, dh]
+    do5 = _heads_first(do.reshape(qh.shape), B)
+    k4, v4 = _heads_first(kh, B), _heads_first(vh, B)   # [B, S, KV, dh]
+    tail = (None,) * 4
+    shard_act(q5.unflatten(1, (n_q, -1)), "batch", "model", *tail)
+    shard_act(do5.unflatten(1, (n_q, -1)), "batch", "model", *tail)
+    shard_act(k4, "batch", None, None, None)
+    shard_act(v4, "batch", None, None, None)
+    shard_act(q5, "batch", None, None, None, None)
+    shard_act(do5, "batch", None, None, None, None)
+    for t in (delta, lse):                               # [B, S, KV, G]
+        shard_act(_heads_first(t.view(qh.shape[:-1]), B), "batch", None,
+                  None, None)
+    shard_act(k4.unflatten(1, (n_kv, -1)), "batch", "model", None, None,
+              None)
+    shard_act(v4.unflatten(1, (n_kv, -1)), "batch", "model", None, None,
+              None)
 
 
 def chunked_attention(
@@ -373,7 +418,11 @@ def chunked_attention(
     vh = v.permute(0, 2, 1, 3).reshape(BK, S, dh)
     geo = dict(S=S, G=G, window=window, q_chunk=q_chunk, kv_chunk=kv_chunk,
                p_dtype=p_dtype)
-    out = _FlashAttention.apply(qh, kh, vh, geo)
+    shard_act(qh.view(B, KV, S // q_chunk, q_chunk, G, dh).permute(
+        0, 2, 3, 1, 4, 5), "batch", "model", None, None, None, None)
+    shard_act(k, "batch", None, None, None)
+    shard_act(v, "batch", None, None, None)
+    out = _FlashAttention.apply(qh, kh, vh, geo, B)
     out = out.reshape(B, KV, S, G, dh).permute(0, 2, 1, 3, 4)
     return out.reshape(B, S, H, dh).to(q.dtype)
 

@@ -38,6 +38,13 @@ Under autograd the function is the reference's too:
   assignments) are ``F.embedding`` reads, whose backward on the card
   sums each row's cotangents in a fixed order: a step repeated from one
   state gives the same bits.
+
+The reference's activation-sharding hints stand at its sites
+(``distributed.ctx``): ``shard_act`` on the grouped input, the dispatch
+buffer, the expert outputs, the picked outputs and the combined output,
+each hinted in the reference's [B, n_s, ...] layout (a view of the port's
+expert-major buffer where the layouts differ), and ``gathered`` on the
+router and the three expert stacks.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from ..distributed.ctx import gathered, shard_act
 from .layers import matmul
 
 
@@ -110,8 +118,10 @@ def route(params: dict, x: torch.Tensor, cfg: MoEConfig, n_s: int) -> tuple:
     largest probability less the (K+1)-th, +inf with K == E)."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    logits = matmul(x.reshape(B, n_s, S // n_s, D).to(cfg.router_dtype),
-                    params["router"].to(cfg.router_dtype))
+    x4 = shard_act(x.reshape(B, n_s, S // n_s, D), "batch", "model", None,
+                   None)
+    router = gathered(params["router"]).to(cfg.router_dtype)
+    logits = matmul(x4.to(cfg.router_dtype), router)
     probs = torch.softmax(logits, dim=-1)
     del logits
     ranked_p, ranked_e = torch.sort(probs, dim=-1, descending=True,
@@ -151,27 +161,47 @@ def dispatch(top_e: torch.Tensor, cfg: MoEConfig, C: int) -> tuple:
     return dst, order, slots
 
 
+def _ref_layout(buf: torch.Tensor, E: int, groups: tuple) -> torch.Tensor:
+    """The expert-major buffer [E, B * n_s * C, D] viewed in the
+    reference's [B, n_s, E, C, D] layout (no copy), for its hints."""
+    B, n_s = groups
+    return buf.view(E, B, n_s, -1, buf.shape[-1]).permute(1, 2, 0, 3, 4)
+
+
 def expert_ffn(params: dict, x: torch.Tensor, slots: torch.Tensor,
-               E: int) -> torch.Tensor:
+               E: int, groups: tuple | None = None) -> torch.Tensor:
     """The experts' SwiGLU over the dispatch buffer: x [T, D] gathered by
     ``slots`` (``dispatch``'s, its trash slot cut) into [E, M, D], one
-    batched product a weight, the gate's silu in f32 -> [E * M, D]."""
+    batched product a weight, the gate's silu in f32 -> [E * M, D].
+    ``groups`` (B, n_s) hints the buffers in the reference's layout."""
     D = x.shape[-1]
     dt = x.dtype
     xb = F.embedding(slots[:-1], x).view(E, -1, D)
-    g = matmul(xb, params["w_gate"].to(dt))
-    u = matmul(xb, params["w_up"].to(dt))
+    if groups is not None:
+        shard_act(_ref_layout(xb, E, groups), "batch", "model", None, None,
+                  None)
+    w_gate, w_up, w_down = (gathered(params[n]).to(dt)
+                            for n in ("w_gate", "w_up", "w_down"))
+    g = matmul(xb, w_gate)
+    u = matmul(xb, w_up)
     del xb
     h = F.silu(g.float()).to(dt) * u
     del g, u
-    return matmul(h, params["w_down"].to(dt)).view(-1, D)
+    yb = matmul(h, w_down)
+    if groups is not None:
+        shard_act(_ref_layout(yb, E, groups), "batch", "model", None, None,
+                  None)
+    return yb.view(-1, D)
 
 
 def combine(yb: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
-            top_w: torch.Tensor, K: int) -> tuple:
+            top_w: torch.Tensor, K: int, groups: tuple | None = None
+            ) -> tuple:
     """Each assignment's expert output gathered back through the inverse
     permutation of ``order``, weighted and summed over the K in yb's
-    dtype: ([G, Sg, D], kept [G, Sg * K] in token order)."""
+    dtype: ([G, Sg, D], kept [G, Sg * K] in token order).  ``groups``
+    (B, n_s) with B * n_s == G hints the picked and combined outputs in
+    the reference's [B, n_s, ...] layout."""
     G, L = dst.shape
     D = yb.shape[-1]
     dt = yb.dtype
@@ -179,9 +209,15 @@ def combine(yb: torch.Tensor, dst: torch.Tensor, order: torch.Tensor,
     kept = tok_dst < yb.shape[0]
     picked = F.embedding(tok_dst.clamp(max=yb.shape[0] - 1),
                          yb)                                 # [G, L, D]
+    if groups is not None:
+        shard_act(picked.view(*groups, L, D), "batch", "model", None, None)
     w = torch.where(kept, top_w.reshape(G, L), 0.0).to(dt)
     picked = torch.where(kept[..., None], picked, 0).to(dt)
-    return (picked * w[..., None]).view(G, L // K, K, D).sum(dim=2), kept
+    out = (picked * w[..., None]).view(G, L // K, K, D).sum(dim=2)
+    if groups is not None:
+        shard_act(out.view(*groups, L // K, D), "batch", "model", None,
+                  None)
+    return out, kept
 
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig,
@@ -198,8 +234,8 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig,
     C = capacity(cfg, S // n_s)
     top_e, top_w, aux, margin = route(params, x, cfg, n_s)
     dst, order, slots = dispatch(top_e.reshape(B * n_s, -1), cfg, C)
-    yb = expert_ffn(params, x.reshape(B * S, D), slots, E)
-    out, kept = combine(yb, dst, order, top_w, K)
+    yb = expert_ffn(params, x.reshape(B * S, D), slots, E, (B, n_s))
+    out, kept = combine(yb, dst, order, top_w, K, (B, n_s))
     if routing is not None:
         routing.append(Routing(experts=top_e.reshape(B, S, K),
                                kept=kept.view(B, S, K),

@@ -35,9 +35,10 @@ a fixed order):
   alone.  Under autograd a chunk's products are recomputed in the
   backward rather than kept.
 
-The reference marks the retrieval score matrix's layout with
-``distributed.ctx.shard_act`` (batch x model); the port computes on one
-device, and that layout hint has no counterpart here.
+The reference's layout hints on the retrieval scores stand at its sites
+(``distributed.ctx.shard_act``: the score matrix batch x model, and its
+blocks of the two-stage top-k where that branch applies); they change no
+value.
 """
 from __future__ import annotations
 
@@ -395,8 +396,10 @@ def retrieval_scores(query_vecs: torch.Tensor,
                      item_table: torch.Tensor) -> torch.Tensor:
     """Exact candidate scoring: [B, d] x [C, d] -> [B, C] inner products.
     The ANN path replaces this with a FreshDiskANN search over
-    ``item_table``; this is the brute-force baseline."""
-    return query_vecs @ item_table.T
+    ``item_table``; this is the brute-force baseline.  Hinted batch x
+    model."""
+    from ..distributed.ctx import shard_act
+    return shard_act(query_vecs @ item_table.T, "batch", "model")
 
 
 def _top_k(x: torch.Tensor, k: int):
@@ -407,8 +410,16 @@ def _top_k(x: torch.Tensor, k: int):
 
 
 def retrieval_topk(query_vecs: torch.Tensor, item_table: torch.Tensor,
-                   k: int):
+                   k: int, n_blocks: int = 16):
     """The k best-scoring candidates of each query, equal scores lowest
     index first: the reference's ids and scores in either of its
-    branches.  Returns (scores [B, k], ids [B, k] int64)."""
-    return _top_k(retrieval_scores(query_vecs, item_table), k)
+    branches.  Returns (scores [B, k], ids [B, k] int64).  Where the
+    reference takes its two-stage branch (C a multiple of ``n_blocks`` of
+    at least k a block) its block hint is emitted."""
+    from ..distributed.ctx import shard_act
+    scores = retrieval_scores(query_vecs, item_table)
+    B, C = scores.shape
+    if C % n_blocks == 0 and C // n_blocks >= k:
+        shard_act(scores.view(B, n_blocks, C // n_blocks), "batch", "model",
+                  None)
+    return _top_k(scores, k)

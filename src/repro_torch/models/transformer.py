@@ -30,11 +30,16 @@ The reference's ``jax.checkpoint`` + ``lax.scan`` over groups is a loop
 over groups (``_forward``; ``forward`` runs it under
 ``torch.inference_mode()``, ``lm_loss`` under autograd, each layer under
 ``torch.utils.checkpoint``: a layer keeps its input for the backward and
-recomputes the rest, as ``jax.checkpoint`` does); its activation-sharding
-hints (``shard_act``, ``gathered``) are identities on one device and have
-no counterpart.  ``decode_step`` updates the caches it is given in place
-(the reference donates them) and returns them: a cache handed to a step
-is consumed by it.
+recomputes the rest, as ``jax.checkpoint`` does).  The reference's
+activation-sharding hints stand at its sites (``distributed.ctx``):
+``shard_act`` on the residual stream, the KV caches and the logits, and
+``gathered`` on every projection weight, so a layer's ZeRO-3 weights
+(``Sharded`` leaves) are put together inside the layer and gathered
+again in its recompute, the blocks staying autograd's leaves; a norm,
+bias, the embedding and the head are read with ``whole``.  On plain
+tensors all three are identities.  ``decode_step`` updates the caches it
+is given in place (the reference donates them) and returns them: a cache
+handed to a step is consumed by it.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..core.config import resolve_device
+from ..distributed.ctx import gathered, shard_act, whole
 from .layers import (chunked_attention, decode_attention, matmul, rms_norm,
                      rope_apply, rope_tables, swiglu)
 from .moe import MoEConfig, group_count, moe_ffn, moe_layout
@@ -273,18 +279,20 @@ def _unstack(bp: dict, n_groups: int) -> list:
 def _qkv(lp: dict, x: torch.Tensor, cfg: TransformerConfig, tables: tuple):
     """q, k (RoPE applied with ``tables``, ``layers.rope_tables``) and v
     of the layer whose weights are ``lp``."""
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q, k, v = (_proj(h, lp[w]) for w in ("wq", "wk", "wv"))
+    h = rms_norm(x, whole(lp["ln1"]), cfg.norm_eps)
+    q, k, v = (_proj(h, gathered(lp[w])) for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
-        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        q, k, v = (q + whole(lp["bq"]), k + whole(lp["bk"]),
+                   v + whole(lp["bv"]))
     if cfg.qk_norm:
-        q = rms_norm(q, lp["qnorm"], cfg.norm_eps)
-        k = rms_norm(k, lp["knorm"], cfg.norm_eps)
+        q = rms_norm(q, whole(lp["qnorm"]), cfg.norm_eps)
+        k = rms_norm(k, whole(lp["knorm"]), cfg.norm_eps)
     return rope_apply(q, *tables), rope_apply(k, *tables), v
 
 
 def _out_proj(x: torch.Tensor, o: torch.Tensor, wo: torch.Tensor):
     """x + ``einsum("bshk,hkd->bsd")``: o [B, S, H, dh] @ wo [H, dh, D]."""
+    wo = gathered(wo)
     H, dh, D = wo.shape
     return x + matmul(o.reshape(*o.shape[:-2], H * dh),
                       wo.reshape(H * dh, D).to(o.dtype))
@@ -294,11 +302,12 @@ def _ffn(lp: dict, x: torch.Tensor, cfg: TransformerConfig,
          routing: list | None):
     """x + the FFN of the layer whose weights are ``lp``, and its aux loss
     (None for a dense FFN)."""
-    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    h = rms_norm(x, whole(lp["ln2"]), cfg.norm_eps)
     if cfg.is_moe:
         y, aux = moe_ffn(lp["moe"], h, cfg.moe_cfg(x.shape[1]), routing)
         return x + y, aux
-    return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), None
+    return x + swiglu(h, gathered(lp["w_gate"]), gathered(lp["w_up"]),
+                      gathered(lp["w_down"])), None
 
 
 def _layer(lp: dict, x: torch.Tensor, cfg: TransformerConfig,
@@ -310,13 +319,21 @@ def _layer(lp: dict, x: torch.Tensor, cfg: TransformerConfig,
     del q
     x = _out_proj(x, o, lp["wo"])
     del o
+    x = shard_act(x, "batch", "model", None)
     x, aux = _ffn(lp, x, cfg, routing)
+    x = shard_act(x, "batch", "model", None)
     return x, aux, k, v
 
 
-def _head(params: dict, x: torch.Tensor, cfg: TransformerConfig):
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return matmul(x, params["lm_head"].to(x.dtype))
+def _head(params: dict, x: torch.Tensor, cfg: TransformerConfig, *,
+          prefill: bool = True):
+    """Logits of x through the final norm and the head (a prefill's x
+    hinted batch-only before the head, as the reference's)."""
+    x = rms_norm(x, whole(params["final_norm"]), cfg.norm_eps)
+    if prefill:
+        x = shard_act(x, "batch", None, None)
+    logits = matmul(x, whole(params["lm_head"]).to(x.dtype))
+    return shard_act(logits, "batch", None, "model")
 
 
 def cache_widths(cfg: TransformerConfig, max_len: int) -> list:
@@ -353,10 +370,13 @@ def _forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
       absolute positions.
     """
     B, S = tokens.shape
-    dev = params["embed"].device
+    embed = whole(params["embed"])
+    dev = embed.device
     # F.embedding: its backward on the card sums each row's gradients in
     # a fixed order (an indexed read's backward adds them atomically)
-    x = F.embedding(tokens.to(dev).long(), params["embed"]).to(cfg.act_dtype)
+    x = F.embedding(tokens.to(dev).long(), embed).to(cfg.act_dtype)
+    del embed
+    x = shard_act(x, "batch", "model", None)      # sequence parallelism
     tables = rope_tables(torch.arange(S, device=dev)[None], cfg.d_head,
                          cfg.rope_theta, dev)             # positions [1, S]
     caches = [] if collect_cache else None
@@ -382,8 +402,10 @@ def _forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
             else:
                 x, aux, k, v = _layer(lp, x, cfg, tables, window, routing)
             if collect_cache:
-                kc[gi] = k[:, S - W:]
-                vc[gi] = v[:, S - W:]
+                kc[gi] = shard_act(k[:, S - W:], "batch", "model", None,
+                                   None)
+                vc[gi] = shard_act(v[:, S - W:], "batch", "model", None,
+                                   None)
             del k, v
             if aux is not None:
                 aux_total = aux_total + aux
@@ -442,8 +464,10 @@ def decode_step(params: dict, caches: list, tokens: torch.Tensor, pos,
     layer routes the step's tokens as one group each (never dropping);
     ``routing``, a list, receives each one's ``moe.Routing``."""
     pos = int(pos)
-    dev = params["embed"].device
-    x = params["embed"][tokens.to(dev).long()][:, None, :].to(cfg.act_dtype)
+    embed = whole(params["embed"])
+    dev = embed.device
+    x = embed[tokens.to(dev).long()][:, None, :].to(cfg.act_dtype)
+    del embed
     tables = rope_tables(torch.full((1, 1), pos, device=dev), cfg.d_head,
                          cfg.rope_theta, dev)
 
@@ -463,4 +487,4 @@ def decode_step(params: dict, caches: list, tokens: torch.Tensor, pos,
             x = _out_proj(x, o, lp["wo"])
             x, _ = _ffn(lp, x, cfg, routing)
 
-    return _head(params, x, cfg)[:, 0], caches
+    return _head(params, x, cfg, prefill=False)[:, 0], caches

@@ -13,6 +13,17 @@ reference's order of f32 operations:
 
 State is ``AdamWState(step int32 [], m, v)``, m and v f32 trees shaped as
 the parameters.
+
+Sharded parameters (``distributed.sharding.Sharded``, ZeRO-3 blocks on a
+mesh) get sharded moments: the optimizer state mirrors the parameters'
+shardings, as the reference's does.  Every block is updated on its own
+device.  The global norm counts each slice once (its owner block: the
+replicas hold the same gradient, ``training.steps.reduce_replicas``): a
+partial sum of squares a device, in leaf order, then the partials added
+on the step counter's device in the order the devices first appear; the
+clip scale and the bias corrections go back to each device.  On one
+device that is the unsharded sum, term for term, so an unsharded tree
+takes the same path.
 """
 from __future__ import annotations
 
@@ -20,6 +31,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..distributed.sharding import Sharded, is_sharded
 from ..tree import tree_flatten, tree_map, tree_unflatten
 
 
@@ -29,13 +41,53 @@ class AdamWState(NamedTuple):
     v: Any
 
 
+def _zeros_f32(p):
+    if isinstance(p, Sharded):
+        return p.with_blocks([_zeros_f32(b) for b in p.blocks])
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def adamw_init(params) -> AdamWState:
-    leaves = tree_flatten(params)[0]
-    dev = leaves[0].device if leaves else torch.device("cpu")
-    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
-    return AdamWState(torch.zeros((), dtype=torch.int32, device=dev), zeros,
-                      tree_map(torch.zeros_like, zeros))
+    """Zero moments shaped (and sharded) as ``params``, step 0 on the
+    device of the first leaf (a sharded tree's mesh's lead device)."""
+    leaves = tree_flatten(params, is_leaf=is_sharded)[0]
+    if not leaves:
+        dev = torch.device("cpu")
+    elif isinstance(leaves[0], Sharded):
+        dev = leaves[0].mesh.lead
+    else:
+        dev = leaves[0].device
+    m = tree_map(_zeros_f32, params, is_leaf=is_sharded)
+    return AdamWState(torch.zeros((), dtype=torch.int32, device=dev), m,
+                      tree_map(_zeros_f32, params, is_leaf=is_sharded))
+
+
+def _blocks(x) -> list:
+    return x.blocks if isinstance(x, Sharded) else [x]
+
+
+def _owners(g) -> list:
+    """The blocks of a gradient leaf the global norm counts: each slice's
+    owner (all of a tensor)."""
+    if not isinstance(g, Sharded):
+        return [g]
+    return [b for b, pos in zip(g.blocks, g.mesh.positions())
+            if g.owner(pos)]
+
+
+def _global_norm(g_leaves: list, lead) -> torch.Tensor:
+    """The f32 global norm over the owner blocks (see the module
+    docstring): a partial sum of squares a device, in leaf order, then the
+    partials added on ``lead`` in the order the devices first appear."""
+    partial: dict = {}
+    for g in g_leaves:
+        for b in _owners(g):
+            partial[b.device] = (partial.get(b.device, 0)
+                                 + torch.sum(torch.square(b.float())))
+    gnorm = 0
+    for part in partial.values():
+        gnorm = gnorm + part.to(lead)
+    return torch.sqrt(gnorm)
 
 
 @torch.no_grad()
@@ -44,14 +96,11 @@ def adamw_update(params, grads, state: AdamWState, *,
                  eps: float = 1e-8, weight_decay: float = 0.1,
                  grad_clip: float = 1.0):
     """Returns (new_params, new_state); the inputs are not written."""
-    p_leaves, structure = tree_flatten(params)
-    g_leaves = tree_flatten(grads)[0]
-    m_leaves = tree_flatten(state.m)[0]
-    v_leaves = tree_flatten(state.v)[0]
-    gnorm = 0
-    for g in g_leaves:
-        gnorm = gnorm + torch.sum(torch.square(g.float()))
-    gnorm = torch.sqrt(gnorm)
+    p_leaves, structure = tree_flatten(params, is_leaf=is_sharded)
+    g_leaves = tree_flatten(grads, is_leaf=is_sharded)[0]
+    m_leaves, m_struct = tree_flatten(state.m, is_leaf=is_sharded)
+    v_leaves = tree_flatten(state.v, is_leaf=is_sharded)[0]
+    gnorm = _global_norm(g_leaves, state.step.device)
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     step = state.step + 1
     stepf = step.float()
@@ -60,18 +109,30 @@ def adamw_update(params, grads, state: AdamWState, *,
     c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                       device=stepf.device), stepf)
 
-    new_p, new_m, new_v = [], [], []
-    for p, g, m, v in zip(p_leaves, g_leaves, m_leaves, v_leaves):
-        g = g.float() * scale
+    consts: dict = {}                     # device -> (scale, c1, c2)
+
+    def upd(p, g, m, v):
+        dev = p.device
+        if dev not in consts:
+            consts[dev] = tuple(x.to(dev) for x in (scale, c1, c2))
+        sc, k1, k2 = consts[dev]
+        g = g.float() * sc
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * g * g
-        mh, vh = m / c1, v / c2
+        mh, vh = m / k1, v / k2
         pf = p.float()
         q = pf - lr * (mh / (torch.sqrt(vh) + eps) + weight_decay * pf)
-        new_p.append(q.to(p.dtype))
-        new_m.append(m)
-        new_v.append(v)
-    m_struct = tree_flatten(state.m)[1]
+        return q.to(p.dtype), m, v
+
+    new_p, new_m, new_v = [], [], []
+    for p, g, m, v in zip(p_leaves, g_leaves, m_leaves, v_leaves):
+        out = [upd(*x) for x in zip(_blocks(p), _blocks(g), _blocks(m),
+                                    _blocks(v))]
+        for acc, parts, like in ((new_p, [o[0] for o in out], p),
+                                 (new_m, [o[1] for o in out], m),
+                                 (new_v, [o[2] for o in out], v)):
+            acc.append(like.with_blocks(parts) if isinstance(like, Sharded)
+                       else parts[0])
     return (tree_unflatten(structure, new_p),
             AdamWState(step, tree_unflatten(m_struct, new_m),
                        tree_unflatten(m_struct, new_v)))

@@ -2,9 +2,13 @@
 ``training/loop.py``.
 
 Composes a train step, a deterministic data stream (resume = step
-counter), the ``AsyncCheckpointer`` and crash recovery (the latest
-checkpoint restored onto ``device``).  The reference places each batch
-on its mesh; the port runs on one device, named by ``device``.
+counter), the ``AsyncCheckpointer`` and crash recovery.  Given a ``Mesh``
+(``distributed.sharding``), each batch is placed over the mesh's batch
+axes (``place_batch``: blocks of ``P(ba)``, as the reference places
+them), and the latest checkpoint is restored by ``param_shardings`` and
+``opt_shardings`` when both are given (elastic resharding against the
+current mesh), else onto the mesh's lead device.  Given a device, the
+loop runs there, batches and restore included.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import torch
 from ..checkpoint.store import (AsyncCheckpointer, latest_step,
                                 restore_checkpoint)
 from ..core.config import resolve_device
+from ..distributed.sharding import Mesh, place_batch
 
 
 def _to_device(x, device):
@@ -28,7 +33,7 @@ def _to_device(x, device):
 
 
 def run_training(
-    device,
+    mesh,                            # a Mesh, or one device
     train_step: Callable,            # (params, opt, batch) -> ...
     params: Any,
     opt_state: Any,
@@ -37,25 +42,39 @@ def run_training(
     n_steps: int,
     ckpt_dir: Optional[str] = None,
     ckpt_every: int = 100,
+    param_shardings: Any = None,
+    opt_shardings: Any = None,
     log_every: int = 10,
     log_fn: Callable[[str], None] = print,
 ) -> tuple[Any, Any, list]:
     """Returns (params, opt_state, metrics_log).  Batches' numpy arrays
-    and tensors go to ``device`` (the card unless the caller asks for the
-    CPU); other values (a per-step seed) pass as they are."""
-    device = resolve_device(device)
+    and tensors are placed over ``mesh``'s batch axes, or go to the one
+    device given (the card unless the caller asks for the CPU); other
+    values (a per-step seed) pass as they are."""
+    if isinstance(mesh, Mesh):
+        device = resolve_device(mesh.lead)
+        where = f"{mesh.size} grid positions"
+    else:
+        device, mesh = resolve_device(mesh), None
+        where = str(device)
     start = 0
     if ckpt_dir and latest_step(ckpt_dir) is not None:
-        tree, start = restore_checkpoint(ckpt_dir, device=device)
+        shardings = None
+        if param_shardings is not None and opt_shardings is not None:
+            shardings = {"params": param_shardings, "opt": opt_shardings}
+        tree, start = restore_checkpoint(ckpt_dir, device=device,
+                                         shardings=shardings)
         params, opt_state = tree["params"], tree["opt"]
-        log_fn(f"[loop] restored checkpoint at step {start} onto {device}")
+        log_fn(f"[loop] restored checkpoint at step {start} onto {where}")
 
     ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
     stream = data_stream_fn(start)
     log = []
     t0 = time.perf_counter()
     for step in range(start, n_steps):
-        batch = {k: _to_device(v, device) for k, v in next(stream).items()}
+        host = next(stream)
+        batch = (place_batch(mesh, host) if mesh is not None else
+                 {k: _to_device(v, device) for k, v in host.items()})
         params, opt_state, metrics = train_step(params, opt_state, batch)
         if (step + 1) % log_every == 0 or step + 1 == n_steps:
             m = {k: float(v) for k, v in metrics.items()}

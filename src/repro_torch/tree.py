@@ -6,6 +6,12 @@ sorted key, a list's and a tuple's in order, a NamedTuple's by field,
 ``None`` holding no leaf.  So the n-th leaf of a state here is the n-th
 leaf of the same state in the reference, and checkpoints written by the
 two packages compare one file for one file.
+
+A class registered with ``register_node`` is a node too, its children
+the leaves its flatten function gives (a sharded tensor's blocks:
+``distributed.sharding.Sharded``).  Each walk takes ``is_leaf``: a node
+for which it holds is kept whole as one leaf (the checkpointer saves a
+sharded tensor as its full array).
 """
 from __future__ import annotations
 
@@ -17,32 +23,53 @@ def _is_namedtuple(node) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
 
 
-def _flatten(node, leaves: list):
+# class -> (flatten(node) -> (children, aux), rebuild(aux, children))
+_NODES: dict = {}
+
+
+def register_node(cls, flatten: Callable, rebuild: Callable) -> None:
+    """Make instances of ``cls`` nodes of every walk: ``flatten(node)``
+    gives (a list of children, aux data), ``rebuild(aux, children)`` the
+    node back."""
+    _NODES[cls] = (flatten, rebuild)
+
+
+def _flatten(node, leaves: list, is_leaf):
+    if is_leaf is not None and is_leaf(node):
+        leaves.append(node)
+        return ("leaf",)
     if node is None:
         return ("none",)
     if isinstance(node, dict):
         keys = sorted(node)
         return ("dict", tuple(keys),
-                tuple(_flatten(node[k], leaves) for k in keys))
+                tuple(_flatten(node[k], leaves, is_leaf) for k in keys))
     if _is_namedtuple(node):
         return ("namedtuple", type(node),
-                tuple(_flatten(getattr(node, f), leaves)
+                tuple(_flatten(getattr(node, f), leaves, is_leaf)
                       for f in node._fields))
     if isinstance(node, (list, tuple)):
         kind = "list" if isinstance(node, list) else "tuple"
-        return (kind, len(node), tuple(_flatten(c, leaves) for c in node))
+        return (kind, len(node),
+                tuple(_flatten(c, leaves, is_leaf) for c in node))
+    reg = _NODES.get(type(node))
+    if reg is not None:
+        children, aux = reg[0](node)
+        return ("node", type(node), aux,
+                tuple(_flatten(c, leaves, is_leaf) for c in children))
     leaves.append(node)
     return ("leaf",)
 
 
-def tree_flatten(tree) -> Tuple[List[Any], Any]:
+def tree_flatten(tree, is_leaf: Callable | None = None
+                 ) -> Tuple[List[Any], Any]:
     """(leaves, structure): ``tree_unflatten(structure, leaves)`` rebuilds
     the tree.  The walks are module functions, not closures: a closure
     that calls itself is a reference cycle, which would hold the leaves
     (a step's gradients, AdamW's old moments) until the cyclic garbage
     collector ran."""
     leaves: list = []
-    return leaves, _flatten(tree, leaves)
+    return leaves, _flatten(tree, leaves, is_leaf)
 
 
 def _build(s, it):
@@ -55,6 +82,8 @@ def _build(s, it):
         return {k: _build(c, it) for k, c in zip(s[1], s[2])}
     if kind == "namedtuple":
         return s[1](*(_build(c, it) for c in s[2]))
+    if kind == "node":
+        return _NODES[s[1]][1](s[2], [_build(c, it) for c in s[3]])
     children = [_build(c, it) for c in s[2]]
     return children if kind == "list" else tuple(children)
 
@@ -67,20 +96,24 @@ def tree_unflatten(structure, leaves) -> Any:
     return out
 
 
-def tree_leaves(tree) -> list:
-    return tree_flatten(tree)[0]
+def tree_leaves(tree, is_leaf: Callable | None = None) -> list:
+    return tree_flatten(tree, is_leaf)[0]
 
 
-def tree_map(fn: Callable, tree, *rest) -> Any:
+def tree_map(fn: Callable, tree, *rest, is_leaf: Callable | None = None
+             ) -> Any:
     """``fn`` over the leaves of ``tree`` and of the trees in ``rest``
     (which share its structure), leaf by leaf."""
-    leaves, structure = tree_flatten(tree)
-    others = [tree_flatten(r)[0] for r in rest]
+    leaves, structure = tree_flatten(tree, is_leaf)
+    others = [tree_flatten(r, is_leaf)[0] for r in rest]
     return tree_unflatten(structure,
                           [fn(*args) for args in zip(leaves, *others)])
 
 
-def _paths(node, prefix: str, paths: list) -> None:
+def _paths(node, prefix: str, paths: list, is_leaf) -> None:
+    if is_leaf is not None and is_leaf(node):
+        paths.append(prefix)
+        return
     if node is None:
         return
     if isinstance(node, dict):
@@ -89,17 +122,20 @@ def _paths(node, prefix: str, paths: list) -> None:
         items = [(f, getattr(node, f)) for f in node._fields]
     elif isinstance(node, (list, tuple)):
         items = list(enumerate(node))
+    elif type(node) in _NODES:
+        items = list(enumerate(_NODES[type(node)][0](node)[0]))
     else:
         paths.append(prefix)
         return
     for k, v in items:
-        _paths(v, f"{prefix}.{k}" if prefix else str(k), paths)
+        _paths(v, f"{prefix}.{k}" if prefix else str(k), paths, is_leaf)
 
 
-def tree_paths(tree) -> List[str]:
-    """Each leaf's dotted path (``layers.0.w_self``), in leaf order."""
+def tree_paths(tree, is_leaf: Callable | None = None) -> List[str]:
+    """Each leaf's dotted path (``layers.0.w_self``), in leaf order (a
+    registered node's children by position)."""
     paths: list = []
-    _paths(tree, "", paths)
+    _paths(tree, "", paths, is_leaf)
     return paths
 
 
@@ -109,6 +145,9 @@ def structure_to_json(structure) -> Any:
     kind = structure[0]
     if kind in ("leaf", "none"):
         return [kind]
+    if kind == "node":
+        raise ValueError(f"a {structure[1].__name__} node has no JSON form: "
+                         "flatten it as a leaf")
     if kind == "dict":
         return ["dict", list(structure[1]),
                 [structure_to_json(c) for c in structure[2]]]

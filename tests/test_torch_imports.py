@@ -5,7 +5,9 @@ In a fresh interpreter where ``import jax`` and ``import repro`` fail
 imports (the serving, distributed, launch, data, models and configs
 subpackages named, the LM modules and configs among them, and GraphSAGE
 and the training stack: ``models.gnn``, ``optim``, ``training``,
-``launch.train``, ``configs.graphsage_reddit``),
+``launch.train``, ``configs.graphsage_reddit``; the model-sharding
+modules ``distributed.sharding``, ``distributed.ctx`` and
+``optim.compress``, each driven once over a ``[cpu] * 4`` mesh),
 ``chip_smoke.py``, the port's four examples
 (``examples/torch_quickstart.py``, ``examples/torch_serve_ann.py``,
 ``examples/torch_train_lm.py``, ``examples/torch_sasrec_retrieval.py``)
@@ -65,6 +67,14 @@ for path in ("chip_smoke.py", "examples/torch_quickstart.py",
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     assert callable(mod.main)
+from repro_torch.distributed import (activation_sharding, gathered,
+                                     host_mesh, shard_act, shard_tree)
+from repro_torch.optim import bf16_all_reduce, int8_all_gather_reduce
+mesh = host_mesh(model=2, devices=["cpu"] * 4)
+tree = shard_tree(mesh, {"w": torch.ones(4, 6)}, lambda p, x: ("data",))
+with activation_sharding(mesh):
+    assert shard_act(gathered(tree["w"]), "batch").shape == (4, 6)
+assert bf16_all_reduce([tree, tree])["w"].blocks[0].shape == (2, 6)
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k in sys.modules if sys.modules[k] is not None)
 print(" ".join(names))
@@ -84,7 +94,8 @@ print(" ".join(names))
                 "configs.qwen3_14b", "configs.qwen2_1_5b",
                 "configs.gemma3_12b", "configs.mixtral_8x7b",
                 "configs.qwen3_moe_30b", "models.gnn", "optim",
-                "optim.adamw", "training", "training.steps",
+                "optim.adamw", "optim.compress", "training",
+                "training.steps",
                 "training.loop", "launch.train", "checkpoint.store", "tree",
                 "configs.graphsage_reddit"):
         assert f"repro_torch.{mod}" in names
